@@ -7,7 +7,12 @@ the port keeps that contract on the card (cuDNN would otherwise run
 float32 convolutions in TF32 by default).
 
 Every public function of the port takes its tensors, or an explicit
-`device`, and allocates on that device; nothing moves data implicitly.
+`device`, and allocates on that device; nothing moves data implicitly. The
+entry points that build state from nothing (`presets.deployable`,
+`engine.sim.make_agent_params`, `engine.sim.no_faults`) default to the
+card: with no device named they allocate on `cuda`, and with no card they
+fail at that first allocation. There is no silent CPU fallback; callers
+that want the CPU (the tests) say so.
 """
 
 from __future__ import annotations
@@ -17,10 +22,15 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# GridConfig.lo_dtype imports jax.numpy; the port keeps its own map.
-LO_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+def default_device(device=None) -> torch.device:
+    """`device` as a torch.device; `cuda` when it is None."""
+    return torch.device("cuda" if device is None else device)
 
 
-def lo_dtype(grid_cfg) -> torch.dtype:
-    """torch dtype of the log-odds grid for a `swarm_tpu.config.GridConfig`."""
-    return LO_DTYPES[grid_cfg.logodds_dtype]
+def div(x, c: float):
+    """x / c as an IEEE division. The divisor goes in as a device tensor:
+    PyTorch's CUDA division by a Python scalar multiplies by its reciprocal
+    instead (ROADMAP C8), which can differ in the last bit from the kernels'
+    division and from the same division on the CPU."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)

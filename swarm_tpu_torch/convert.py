@@ -7,14 +7,19 @@ numpy arrays). `to_numpy_like(port, template)` goes back: it rebuilds
 `type(template)` — a JAX NamedTuple — with numpy leaves, taking the fields
 the port does not carry (the JAX PRNG key) from `template`. Covers
 AgentParams, SimState, MapState, ClosureState, ZoneState, FrameState,
-OdomState, EkfState and NavState.
+OdomState, EkfState and NavState. `config_from(obj)` rebuilds the port's
+`SwarmConfig` from any config tree with the same fields (a JAX-package
+config), field by field, without importing it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from swarm_tpu_torch import config as pcfg
 from swarm_tpu_torch.coord.zones import ZoneState
 from swarm_tpu_torch.engine.sim import AgentParams, MapState, SimState
 from swarm_tpu_torch.models.ekf import EkfState
@@ -62,3 +67,16 @@ def to_numpy_like(port, template):
         else:
             out[f] = getattr(port, f).detach().cpu().numpy()
     return type(template)(**out)
+
+
+def config_from(obj, cls=pcfg.SwarmConfig):
+    """The port's config dataclass `cls` (SwarmConfig by default) with every
+    field taken from `obj` by name, nested config dataclasses recursively.
+    Duck typed: `obj` is any object with those attributes."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        sub = getattr(pcfg, str(f.type), None)   # annotations are strings
+        kw[f.name] = config_from(v, sub) if dataclasses.is_dataclass(sub) \
+            else v
+    return cls(**kw)

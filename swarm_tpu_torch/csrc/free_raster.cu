@@ -26,10 +26,12 @@
 // plain torch version issues them, and IEEE 1/sqrtf (not rsqrtf) and
 // IEEE division keep the rest bit-equal to it.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "raster_common.cuh"
 
 namespace {
+
+using raster::Fan;
+using raster::Polar;
 
 constexpr int TILE_R = 64;
 constexpr int TILE_C = 128;
@@ -37,23 +39,6 @@ constexpr int THREADS = 256;
 constexpr int ROWS_PER_PASS = THREADS / TILE_C;            // 2
 constexpr int CELLS = TILE_R * TILE_C / THREADS;           // 32 per thread
 constexpr int MAX_WORDS = 64;                              // <= 256 beams
-
-// float32 constants, written exactly (hex) as the reference's Python
-// literals round to float32.
-constexpr float EPS_R2 = 0x1.0c6f7ap-20f;      // 1e-6
-constexpr float EPS_HI = 0x1.79ca1p-67f;       // 1e-20
-constexpr float C0 = 0x1.fffd04p-1f;           // 0.99997726
-constexpr float C1 = -0x1.549b4p-2f;           // -0.33262347
-constexpr float C2 = 0x1.8c6084p-3f;           // 0.19354346
-constexpr float C3 = -0x1.dce8b6p-4f;          // -0.11643287
-constexpr float C4 = 0x1.af5604p-5f;           // 0.05265332
-constexpr float C5 = -0x1.80148ep-7f;          // -0.01172120
-constexpr float HALF_PI = 0x1.921fb6p+0f;
-constexpr float PI_F = 0x1.921fb6p+1f;
-constexpr float TWO_PI = 0x1.921fb6p+2f;
-constexpr float INV_TWO_PI = 0x1.45f306p-3f;
-constexpr float RING = 0x1.6b851ep-1f;         // 0.71
-constexpr float ON_BEAM = 0x1.333334p-1f;      // 0.6
 constexpr float QUANT8_INV = 0.25f;
 
 struct Params {
@@ -61,37 +46,8 @@ struct Params {
   int n_tile_cols;   // size / TILE_C
   int rows, cols;    // agent window
   int n_words;       // pack8 words per agent
-  int n_beams;
-  int dense;         // every reachable cell is crossed by >= 1 beam
-  float theta0, half_gdt, half_dt, gdt, dt;
-  float fan_lo, fan_hi, cover;
-  float miss, hit, clampv;
+  Fan f;
 };
-
-// _atan2_poly: octant reduction + the reference's odd minimax polynomial,
-// Horner order as written there.
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x);
-  const float ay = fabsf(y);
-  const float hi = fmaxf(ax, ay);
-  const float lo = fminf(ax, ay);
-  const float z = lo / fmaxf(hi, EPS_HI);
-  const float s = z * z;
-  float p = s * C5;
-  p = C4 + p;
-  p = s * p;
-  p = C3 + p;
-  p = s * p;
-  p = C2 + p;
-  p = s * p;
-  p = C1 + p;
-  p = s * p;
-  p = C0 + p;
-  p = z * p;
-  float r = (ay > ax) ? HALF_PI - p : p;
-  r = (x < 0.f) ? PI_F - r : r;
-  return (y < 0.f) ? -r : r;
-}
 
 __global__ void __launch_bounds__(THREADS)
 free_raster_pack8_kernel(float* __restrict__ grid,
@@ -154,47 +110,21 @@ free_raster_pack8_kernel(float* __restrict__ grid,
       if (!col_in || wr < 0 || wr >= p.rows) continue;
       float delta = 0.f;
       if (strip_on) {
-        // 1. polar coordinates of the cell centre
-        const float cy = (float)gr + 0.5f;
-        const float dy = cy - ay;
-        const float r2 = dx * dx + dy * dy;
-        const float rinv = 1.0f / sqrtf(fmaxf(r2, EPS_R2));
-        const float r = r2 * rinv;
-        // 2.-4. beam bin, wrapped with one round, and the fan test
-        const float theta = atan2_poly(dy, dx);
-        float rel = theta - yaw;
-        rel = rel - p.theta0;
-        rel = rel - p.half_gdt;
-        rel = rel + p.half_dt;
-        rel = rel - TWO_PI * rintf(rel * INV_TWO_PI);
-        int g = (int)floorf(rel / p.gdt + 0.5f);
-        const bool in_fan = (rel >= p.fan_lo) && (rel < p.fan_hi);
-        g = min(max(g, 0), p.n_beams - 1);
+        const float dy = ((float)gr + 0.5f) - ay;
+        const Polar c = raster::polar(dx, dy, yaw, p.f);
         // 5. pack8 lookup: word g >> 2, byte g & 3
-        const uint32_t v8 = (s_table[g >> 2] >> (8 * (g & 3))) & 0xFFu;
+        const uint32_t v8 = (s_table[c.g >> 2] >> (8 * (c.g & 3))) & 0xFFu;
         const float rb = (float)(v8 & 0x7Fu) * QUANT8_INV;
         const float tf = (float)(v8 >> 7);   // trusted bit
-        // 6. crossing count, rounded half to even
-        const float cnt = fmaxf(1.0f, rintf(rinv / p.dt));
-        // 7. evidence support
-        bool base_ok;
-        if (p.dense) {
-          base_ok = in_fan && (r2 > EPS_R2);
-        } else {
-          const bool covered = rinv >= p.cover;
-          const float resid = rel - (float)g * p.gdt;
-          const bool on_any = covered || (fabsf(r * resid) <= ON_BEAM);
-          base_ok = in_fan && on_any && (r2 > EPS_R2);
-        }
         // 8. free carve + endpoint ring
-        const bool freec = base_ok && (r < rb - 0.5f);
-        delta = (freec ? p.miss * cnt : 0.f) * act;
-        const bool on_ring = base_ok && (fabsf(r - rb) <= RING);
-        delta = delta + (on_ring ? p.hit * cnt * tf : 0.f) * act;
-        painted_sum += (freec ? cnt : 0.f) + (on_ring ? cnt * tf : 0.f);
+        const bool freec = c.base_ok && (c.r < rb - 0.5f);
+        delta = (freec ? p.f.miss * c.cnt : 0.f) * act;
+        const bool on_ring = c.base_ok && (fabsf(c.r - rb) <= raster::RING);
+        delta = delta + (on_ring ? p.f.hit * c.cnt * tf : 0.f) * act;
+        painted_sum += (freec ? c.cnt : 0.f) + (on_ring ? c.cnt * tf : 0.f);
       }
       // 11. apply, clipped after this agent
-      v[k] = fminf(fmaxf(v[k] + delta, -p.clampv), p.clampv);
+      v[k] = fminf(fmaxf(v[k] + delta, -p.f.clampv), p.f.clampv);
     }
 
     // 10. this pair's painted count (integer-valued: exact in any order)
@@ -234,19 +164,8 @@ extern "C" int free_raster_pack8(
   p.rows = rows;
   p.cols = cols;
   p.n_words = n_words;
-  p.n_beams = n_beams;
-  p.dense = dense;
-  p.theta0 = theta0;
-  p.half_gdt = half_gdt;
-  p.half_dt = half_dt;
-  p.gdt = gdt;
-  p.dt = dt;
-  p.fan_lo = fan_lo;
-  p.fan_hi = fan_hi;
-  p.cover = cover;
-  p.miss = miss;
-  p.hit = hit;
-  p.clampv = clampv;
+  p.f = Fan{n_beams, dense, theta0, half_gdt, half_dt, gdt, dt,
+            fan_lo, fan_hi, cover, miss, hit, clampv};
   if (n_tiles > 0) {
     free_raster_pack8_kernel<<<n_tiles, THREADS, 0,
                                (cudaStream_t)stream>>>(

@@ -1,0 +1,108 @@
+// Semantics shared by the port's raster kernels (free_raster.cu,
+// room_raster.cu): the reference's float literals, its atan2 polynomial,
+// and the per-cell polar binning of swarm_tpu/ops/beam_raster_pallas.py
+// (_atan2_poly, _wrap_pi_cheap, the beam bin and fan test, the crossing
+// count). Each kernel is built with --fmad=false, IEEE 1/sqrtf and IEEE
+// division, so every operation here rounds as the plain torch version in
+// ops/beam_raster_cuda.py issues it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace raster {
+
+// float32 constants, written exactly (hex) as the reference's Python
+// literals round to float32.
+constexpr float EPS_R2 = 0x1.0c6f7ap-20f;      // 1e-6
+constexpr float EPS_HI = 0x1.79ca1p-67f;       // 1e-20
+constexpr float C0 = 0x1.fffd04p-1f;           // 0.99997726
+constexpr float C1 = -0x1.549b4p-2f;           // -0.33262347
+constexpr float C2 = 0x1.8c6084p-3f;           // 0.19354346
+constexpr float C3 = -0x1.dce8b6p-4f;          // -0.11643287
+constexpr float C4 = 0x1.af5604p-5f;           // 0.05265332
+constexpr float C5 = -0x1.80148ep-7f;          // -0.01172120
+constexpr float HALF_PI = 0x1.921fb6p+0f;
+constexpr float PI_F = 0x1.921fb6p+1f;
+constexpr float TWO_PI = 0x1.921fb6p+2f;
+constexpr float INV_TWO_PI = 0x1.45f306p-3f;
+constexpr float RING = 0x1.6b851ep-1f;         // 0.71
+constexpr float ON_BEAM = 0x1.333334p-1f;      // 0.6
+
+// Per-call constants of the fan (Python floats rounded to float32 by the
+// wrapper): beam_raster_cuda._constants.
+struct Fan {
+  int n_beams;
+  int dense;         // every reachable cell is crossed by >= 1 beam
+  float theta0, half_gdt, half_dt, gdt, dt;
+  float fan_lo, fan_hi, cover;
+  float miss, hit, clampv;
+};
+
+// _atan2_poly: octant reduction + the reference's odd minimax polynomial,
+// Horner order as written there.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float hi = fmaxf(ax, ay);
+  const float lo = fminf(ax, ay);
+  const float z = lo / fmaxf(hi, EPS_HI);
+  const float s = z * z;
+  float p = s * C5;
+  p = C4 + p;
+  p = s * p;
+  p = C3 + p;
+  p = s * p;
+  p = C2 + p;
+  p = s * p;
+  p = C1 + p;
+  p = s * p;
+  p = C0 + p;
+  p = z * p;
+  float r = (ay > ax) ? HALF_PI - p : p;
+  r = (x < 0.f) ? PI_F - r : r;
+  return (y < 0.f) ? -r : r;
+}
+
+// One cell's polar position relative to an agent, its beam bin and the
+// evidence support (steps 1-4, 6 and 7 of the reference kernels).
+struct Polar {
+  float r;           // distance in cells
+  float cnt;         // crossing count, rounded half to even, >= 1
+  int g;             // beam index, clipped to [0, n_beams)
+  bool base_ok;      // in the fan, on a beam, not the agent's own cell
+};
+
+__device__ __forceinline__ Polar polar(float dx, float dy, float yaw,
+                                       const Fan& f) {
+  Polar o;
+  // 1. polar coordinates of the cell centre
+  const float r2 = dx * dx + dy * dy;
+  const float rinv = 1.0f / sqrtf(fmaxf(r2, EPS_R2));
+  o.r = r2 * rinv;
+  // 2.-4. beam bin, wrapped with one round, and the fan test
+  const float theta = atan2_poly(dy, dx);
+  float rel = theta - yaw;
+  rel = rel - f.theta0;
+  rel = rel - f.half_gdt;
+  rel = rel + f.half_dt;
+  rel = rel - TWO_PI * rintf(rel * INV_TWO_PI);
+  int g = (int)floorf(rel / f.gdt + 0.5f);
+  const bool in_fan = (rel >= f.fan_lo) && (rel < f.fan_hi);
+  o.g = min(max(g, 0), f.n_beams - 1);
+  // 6. crossing count, rounded half to even
+  o.cnt = fmaxf(1.0f, rintf(rinv / f.dt));
+  // 7. evidence support
+  if (f.dense) {
+    o.base_ok = in_fan && (r2 > EPS_R2);
+  } else {
+    const bool covered = rinv >= f.cover;
+    const float resid = rel - (float)o.g * f.gdt;
+    const bool on_any = covered || (fabsf(o.r * resid) <= ON_BEAM);
+    o.base_ok = in_fan && on_any && (r2 > EPS_R2);
+  }
+  return o;
+}
+
+}  // namespace raster

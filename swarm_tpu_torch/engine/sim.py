@@ -11,10 +11,14 @@ a Python loop replaces `lax.scan`, and noise comes in as tensors
 The raster updates `state.srv.logodds` IN PLACE: the grid of the state
 passed in is the grid of the state returned.
 
-Ported: the deployable preset's path (presets.deployable) with the anchored
-merge off (`engine.merge_every == 0`). Every config path this slice does
-not run raises NotImplementedError naming its ROADMAP item
-(`check_supported`).
+Ported: the deployable preset's paths (presets.deployable) — the per-agent
+window raster (`free_raster`) or the room-tile raster
+(`engine.room_tile_per_row > 0`, `room_raster`), each with the anchored
+scan merge at `engine.merge_every` and the anchor freeze. The merge and
+zone cadences are host `if`s on a host-side step number: `make_sim_step`
+keeps it, `sim_step` takes it as `step_no` (or reads `state.step` once).
+Every config path the port does not run raises NotImplementedError naming
+its ROADMAP item (`check_supported`).
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from swarm_tpu.config import SwarmConfig
-from swarm_tpu_torch._device import lo_dtype
+from swarm_tpu_torch._device import default_device
+from swarm_tpu_torch.config import SwarmConfig
 from swarm_tpu_torch.coord.heartbeat import heartbeat_update
 from swarm_tpu_torch.coord.zones import (ZoneState, zone_init,
                                          zone_observe_rows, zones_for_agents)
@@ -44,12 +48,17 @@ from swarm_tpu_torch.models.sensors import (SensorNoise, walls_for_rays,
 from swarm_tpu_torch.ops.beam_raster import (BeamSpec, beams_from_scan,
                                              reach_cells)
 from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
+from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+from swarm_tpu_torch.parallel.sharded import merge_window_box
 from swarm_tpu_torch.slam.closure import (ClosureState,
                                           closure_add_poses_batch,
                                           closure_init)
 from swarm_tpu_torch.slam.livemerge import (FrameState, frame_add,
                                             frame_advance, frame_init,
-                                            frame_theta_q)
+                                            frame_innovate, frame_theta_q,
+                                            merge_fail_update,
+                                            merge_increments,
+                                            scan_merge_recover)
 from swarm_tpu_torch.utils.angles import radians, wrap_pi
 
 
@@ -71,7 +80,9 @@ class AgentParams(NamedTuple):
 def make_agent_params(n: int, separation: float = 5.0,
                       spacing: float = 0.6, device=None) -> AgentParams:
     """Alternating Bot1/Bot2 personalities; starts staggered along y by
-    `spacing` within each personality."""
+    `spacing` within each personality. On the card unless `device` is
+    named."""
+    device = default_device(device)
     i = torch.arange(n, device=device)
     is_b2 = (i % 2) == 1
     row = torch.div(i, 2, rounding_mode="floor").to(torch.float32)
@@ -102,6 +113,8 @@ class FaultSchedule(NamedTuple):
 
 
 def no_faults(capacity: int = 4, device=None) -> FaultSchedule:
+    """An empty schedule, on the card unless `device` is named."""
+    device = default_device(device)
     return FaultSchedule(
         agent=torch.full((capacity,), -1, dtype=torch.int32, device=device),
         t_start=torch.zeros((capacity,), dtype=torch.float32, device=device),
@@ -261,18 +274,18 @@ def check_supported(cfg: SwarmConfig, enable_targets: bool = False):
          "Queue A, reference-parity path"),
         (not e.use_pallas, "use_pallas=False (the XLA beam tier)",
          "Queue B1 variants"),
-        (e.room_tile_per_row > 0, "room_tile_per_row > 0 (room kernel)",
+        (e.beam_groups > 0 and e.room_tile_per_row > 0,
+         "beam_groups > 0 with room_tile_per_row > 0 (grouped room kernel)",
          "Queue B2"),
         (e.beam_groups > 0, "beam_groups > 0 (grouped tier)",
          "Queue B1 variants"),
-        (not e.beam_pack8, "beam_pack8=False (pack16 table)",
-         "Queue B1 variants"),
+        # the room kernel takes its pack16 table whatever beam_pack8 says
+        (not e.beam_pack8 and e.room_tile_per_row == 0,
+         "beam_pack8=False (pack16 window table)", "Queue B1 variants"),
         (not e.kernel_endpoints, "kernel_endpoints=False (endpoint scatter)",
          "Queue B1 variants"),
         (e.raster_4way or e.scan_rays <= 0, "the 4-way raster",
          "Queue B1 variants"),
-        (e.merge_every > 0, "merge_every > 0 (anchored merge)",
-         "Queue A, anchored merge"),
         (e.compute_frontiers or enable_targets, "frontiers and targets",
          "Queue A, coordination"),
         (s.merge_bias_alpha > 0.0, "merge_bias_alpha > 0",
@@ -303,7 +316,7 @@ def sim_init(cfg: SwarmConfig, params: AgentParams) -> SimState:
     srv = MapState(
         grid=torch.full((s, s), cfg.grid.unknown, dtype=torch.int8,
                         device=dev),
-        logodds=zf(s, s, dtype=lo_dtype(cfg.grid)),
+        logodds=zf(s, s, dtype=cfg.grid.lo_dtype),
         closure=closure_init(n, cfg.slam, device=dev),
         zone=zone_init(n, device=dev),
         last_packet_t=zf(n), pkt_counts=zf(n, dtype=torch.int32),
@@ -314,8 +327,8 @@ def sim_init(cfg: SwarmConfig, params: AgentParams) -> SimState:
         n_frontiers=zf(dtype=torch.int32),
         total_writes=zf(2, dtype=torch.int32),
         merge_dx=zf(n), merge_dy=zf(n), merge_dyaw=zf(n),
-        anchor=(zf(s, s, dtype=lo_dtype(cfg.grid)) if cfg.slam.merge_anchor
-                else zf(1, 1, dtype=lo_dtype(cfg.grid))),
+        anchor=(zf(s, s, dtype=cfg.grid.lo_dtype) if cfg.slam.merge_anchor
+                else zf(1, 1, dtype=cfg.grid.lo_dtype)),
         merge_fail=zf(n, dtype=torch.int32),
         merge_yaw_rate=zf(n), merge_dist_mark=zf(n),
         # initial RAW reported positions, so the tracker's first step sees
@@ -331,15 +344,77 @@ def sim_init(cfg: SwarmConfig, params: AgentParams) -> SimState:
         total_dist=zf(n), v2v_total=zf(n, dtype=torch.int32), srv=srv)
 
 
+def _merge_event(srv: MapState, frame: FrameState, rx, ry, ryaw, gate_yaw,
+                 scan_dist, alive, step_no: int, cfg: SwarmConfig,
+                 merge_win_box):
+    """The anchored scan merge of one merge step (the merge block of the
+    reference's _ingest_batched): match every attempted agent's scan
+    against the map as of the previous step (the frozen anchor where
+    anchored), apply the full correction to this step's raster pose and
+    the damped, clamped increments to the persistent state. Returns
+    (rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, frame,
+    (n_merges, merge_fit, merge_ok [N], merge_fit [N]))."""
+    slam = cfg.slam
+    n = cfg.n_agents
+    if slam.merge_anchor:
+        match_map = torch.where(torch.abs(srv.anchor) >= 0.5, srv.anchor,
+                                srv.logodds)
+    else:
+        match_map = srv.logodds
+    m, att, rec = scan_merge_recover(
+        match_map, rx, ry, ryaw, scan_dist, alive, cfg,
+        event=step_no // cfg.engine.merge_every, n_global=n,
+        fail_count=srv.merge_fail, win_bounds=merge_win_box)
+    upd = m.ok & alive
+    # FULL correction to this step's raster pose; only the persistent
+    # increment is damped and clamped (reference rationale,
+    # swarm_tpu/engine/sim.py:455-463)
+    fdx, fdy, fdth, inc_dx, inc_dy, inc_dth = merge_increments(m, upd, rec,
+                                                               cfg)
+    if slam.merge_frame_gain > 0.0:
+        # stationarity damping: a parked agent re-matching the same scan
+        # carries near-zero new information
+        still = frame.ax * frame.ax + frame.ay * frame.ay < \
+            slam.merge_frame_still_m ** 2
+        sdamp = torch.where(still,
+                            torch.full_like(rx, slam.merge_frame_still_damp),
+                            torch.ones_like(rx))
+        inc_dx = inc_dx * sdamp
+        inc_dy = inc_dy * sdamp
+        inc_dth = inc_dth * sdamp
+    merge_fail = merge_fail_update(srv.merge_fail, m, att, rec, alive, cfg)
+    if slam.merge_frame_gain > 0.0:
+        frame = frame_add(frame, frame_innovate(
+            frame, gate_yaw, m, upd, inc_dx, inc_dy, cfg, recovered=rec))
+    n_merges = upd.sum().to(torch.int32)
+    fit_agent = torch.where(upd, m.fitness, torch.zeros_like(m.fitness))
+    merge_fit = fit_agent.sum() / torch.clamp_min(n_merges, 1).to(
+        torch.float32)
+    # the LOGGED fix stream thresholds the raw peak gap with its own margin
+    # (merge_distinct_log_margin; 0 logs every verified event) — the fused
+    # engine's rule (swarm_tpu/engine/sim.py:508-512), which the port
+    # follows (ROADMAP C3)
+    if slam.merge_distinct_log_margin > 0.0:
+        ok_agent = upd & (m.distinct_gap >= slam.merge_distinct_log_margin)
+    else:
+        ok_agent = upd
+    return (rx + fdx, ry + fdy, ryaw + fdth, (inc_dx, inc_dy, inc_dth),
+            merge_fail, frame, (n_merges, merge_fit, ok_agent, fit_agent))
+
+
 def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
-                    alive, t, step, cfg: SwarmConfig, params: AgentParams,
-                    scan_dist):
+                    alive, t, step_no: int, cfg: SwarmConfig,
+                    params: AgentParams, scan_dist, merge_win_box=None):
     """One step's N packets into the mapping server (the beam + kernel
-    branch of the reference's _ingest_batched; the merge block and the
-    anchor freeze are skipped because merge_every == 0)."""
+    branch of the reference's _ingest_batched): frame-tracker advance, the
+    anchored merge on merge steps, the beam raster (window or room
+    kernel), zones, the closure ring, heartbeat and the anchor freeze."""
     n = cfg.n_agents
     sens = cfg.sensors
     dev = est_x.device
+    merge_every = cfg.engine.merge_every
+    merge_step = merge_every > 0 and \
+        step_no % merge_every == merge_every - 1
 
     merge_dx, merge_dy, merge_dyaw = srv.merge_dx, srv.merge_dy, \
         srv.merge_dyaw
@@ -357,6 +432,23 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
         # scans project at the de-rotated (quantized) yaw
         ryaw = ryaw - frame_theta_q(frame.theta, cfg)
 
+    # the merge, on merge steps only (an off-cadence step's merge block is
+    # a no-op in the reference: no agent attempted, zero increments)
+    merge_fail = srv.merge_fail
+    i32, f32 = torch.int32, torch.float32
+    merge_m = (torch.zeros((), dtype=i32, device=dev),
+               torch.zeros((), dtype=f32, device=dev),
+               torch.zeros((n,), dtype=torch.bool, device=dev),
+               torch.zeros((n,), dtype=f32, device=dev))
+    if merge_step:
+        rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, frame, \
+            merge_m = _merge_event(srv, frame, rx, ry, ryaw, est_yaw,
+                                   scan_dist, alive, step_no, cfg,
+                                   merge_win_box)
+        merge_dx = merge_dx + inc_dx
+        merge_dy = merge_dy + inc_dy
+        merge_dyaw = merge_dyaw + inc_dth
+
     last_packet_t = torch.where(alive, t, srv.last_packet_t)
     pkt_counts = srv.pkt_counts + alive.to(torch.int32)
 
@@ -369,13 +461,20 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     hx = rx[:, None] + rng * torch.cos(angles)
     hy = ry[:, None] + rng * torch.sin(angles)
 
-    # beam raster of the servo sweep through the kernel; its per-agent
-    # applied counts are rounded to int32 BEFORE the sum (exact at scale)
+    # beam raster of the servo sweep through a kernel; its applied counts
+    # (per agent, or per room tile) are rounded to int32 BEFORE the sum
     axy = torch.stack([rx, ry], dim=-1)
     spec = BeamSpec.scan(scan_dist.shape[-1])
     db, tb = beams_from_scan(scan_dist, sens.max_range, sens.min_range)
-    logodds, w_cnt = free_raster(srv.logodds, axy, ryaw, db, alive, tb,
-                                 spec, cfg.grid, reach=reach_cells(cfg))
+    if cfg.engine.room_tile_per_row > 0:
+        # the reference passes the room kernel no pack8: pack16 table
+        logodds, w_cnt = room_raster(
+            srv.logodds, axy, ryaw, db, alive, spec, cfg.grid,
+            n_groups=spec.n_beams, per_row=cfg.engine.room_tile_per_row,
+            trusted=tb, reach=reach_cells(cfg))
+    else:
+        logodds, w_cnt = free_raster(srv.logodds, axy, ryaw, db, alive, tb,
+                                     spec, cfg.grid, reach=reach_cells(cfg))
     writes = torch.round(w_cnt).to(torch.int32).sum().to(torch.int32)
     # (the reference also builds tri_state_view(logodds) here; with
     # frontiers off nothing reads it, so the port does not compute it)
@@ -396,11 +495,20 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     # zone snapshot cadence (2 s)
     dt = cfg.nav.drive_tick_s + cfg.nav.settle_tick_s
     zone_every = max(1, round(cfg.coord.zone_interval_s / dt))
-    do_zone = (step % zone_every) == 0
-    boxes, active = zones_for_agents(zone, torch.stack([rx, ry], dim=-1),
-                                     online)
-    zone_boxes = torch.where(do_zone, boxes, srv.zone_boxes)
-    zone_active = torch.where(do_zone, active, srv.zone_active)
+    zone_boxes, zone_active = srv.zone_boxes, srv.zone_active
+    if step_no % zone_every == 0:
+        zone_boxes, zone_active = zones_for_agents(
+            zone, torch.stack([rx, ry], dim=-1), online)
+
+    # freeze newly confident cells into the anchor at the merge cadence
+    anchor = srv.anchor
+    if cfg.slam.merge_anchor and merge_step and (
+            cfg.slam.merge_anchor_freeze_steps <= 0
+            or step_no < cfg.slam.merge_anchor_freeze_steps):
+        anchor = torch.where(
+            (torch.abs(srv.anchor) < 0.5) &
+            (torch.abs(logodds) >= cfg.slam.merge_anchor_thresh),
+            logodds, srv.anchor)
 
     new_srv = srv._replace(
         logodds=logodds, closure=closure, zone=zone,
@@ -408,24 +516,49 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
         zone_boxes=zone_boxes, zone_active=zone_active,
         total_writes=writes_accumulate(srv.total_writes, writes),
         merge_dx=merge_dx, merge_dy=merge_dy, merge_dyaw=merge_dyaw,
-        frame=frame)
-    return new_srv, closed, online, (rx, ry, ryaw, hx, hy, hit_valid)
+        anchor=anchor, merge_fail=merge_fail, frame=frame)
+    return new_srv, closed, online, (rx, ry, ryaw, hx, hy, hit_valid), \
+        merge_m
+
+
+def agent_merge_box(cfg: SwarmConfig, walls_grouped, room_of_agent,
+                    device):
+    """Per-agent merge-window clamp boxes (rmin, rmax, cmin, cmax) [N]
+    int32 on `device` (swarm_tpu/engine/sim.py:771-787), or None when the
+    merge is off or the world has no room geometry. Reads the geometry on
+    the host."""
+    if cfg.engine.merge_every <= 0 or walls_grouped is None or \
+            room_of_agent is None:
+        return None
+    box = merge_window_box(torch.as_tensor(walls_grouped).cpu().numpy(),
+                           torch.as_tensor(room_of_agent).cpu().numpy(), cfg)
+    return tuple(torch.as_tensor(a, dtype=torch.int32, device=device)
+                 for a in box)
 
 
 def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
              params: AgentParams, faults: Optional[FaultSchedule] = None,
-             walls_grouped=None, room_of_agent=None):
+             walls_grouped=None, room_of_agent=None,
+             step_no: Optional[int] = None, merge_win_box=None):
     """Advance the whole swarm by one tick. Returns (new_state, StepMetrics).
 
     walls [S, 4] tensor; walls_grouped [G, S_g, 4] + room_of_agent [N]:
-    culled casting, each agent against its own room's segments."""
+    culled casting, each agent against its own room's segments, and the
+    per-agent merge-window boxes (`agent_merge_box`, built here when not
+    given). step_no: `state.step` as a host int, which decides the merge
+    and zone cadences; read from the state (one device sync) when None."""
     check_supported(cfg)
+    if step_no is None:
+        step_no = int(state.step)
     n = cfg.n_agents
     navc = cfg.nav
     dt = navc.drive_tick_s + navc.settle_tick_s
     dev = state.pose_true.device
     if faults is None:
         faults = no_faults(device=dev)
+    if merge_win_box is None:
+        merge_win_box = agent_merge_box(cfg, walls_grouped, room_of_agent,
+                                        dev)
     alive = alive_mask(faults, n, state.t)
     zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
 
@@ -451,10 +584,11 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
                                      cfg.noise.yaw_quantize_deg))
 
     # 4. server ingest
-    srv, closed, online, proj = _ingest_batched(
+    srv, closed, online, proj, merge_m = _ingest_batched(
         state.srv, odom.x_est, odom.y_est, yaw_q, dist4, lm, alive,
-        state.t, state.step, cfg, params, scan_dist)
+        state.t, step_no, cfg, params, scan_dist, merge_win_box)
     rx_t, ry_t, ryaw_t, hx_t, hy_t, hv_t = proj
+    n_merges, merge_fit, merge_ok_a, merge_fit_a = merge_m
     est_x_t = odom.x_est + params.x_offset
     est_y_t = odom.y_est
     est_yaw_t = odom.yaw_est
@@ -524,14 +658,14 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
         n_frontiers=srv.n_frontiers,
         pose_err=torch.where(alive, err, zeros).mean(),
         mission_done=nav.mission_complete.sum().to(i32),
-        merges=torch.zeros((), dtype=i32, device=dev),
-        merge_fitness=torch.zeros((), dtype=torch.float32, device=dev),
+        merges=n_merges,
+        merge_fitness=merge_fit,
         band_escapes=torch.zeros((), dtype=i32, device=dev),
         t=state.t,
         srv_x=rx_t, srv_y=ry_t, srv_yaw=ryaw_t, yaw_q=yaw_q,
         est_x=est_x_t, est_y=est_y_t, est_yaw=est_yaw_t,
-        merge_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
-        merge_fit=zeros,
+        merge_ok=merge_ok_a,
+        merge_fit=merge_fit_a,
         encoder=encoder_total, v2v=v2v,
         dist_m=dist4, landmark=lm,
         hits=torch.stack([hx_t, hy_t], dim=-1),
@@ -545,8 +679,12 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
                   faults: Optional[FaultSchedule] = None,
                   walls_grouped=None, room_of_agent=None):
     """A single-argument step closure — the deployable engine. Noise comes
-    from `generator` (on the params' device) unless a StepNoise is
-    passed."""
+    from `generator` (on the params' device) unless a StepNoise is passed.
+
+    The closure keeps the step number on the host, so the merge cadence
+    costs no device sync: it reads `state.step` once, on the first call
+    and whenever it is handed a state it did not return, and counts from
+    there. The merge-window boxes are built once."""
     check_supported(cfg)
     dev = params.home_x.device
 
@@ -555,13 +693,20 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
 
     walls_t, wg_t, roa_t = as_t(walls), as_t(walls_grouped), \
         as_t(room_of_agent)
+    win_box = agent_merge_box(cfg, wg_t, roa_t, dev)
+    host = {"state": None, "step": 0}
 
     def step(state: SimState, noise: Optional[StepNoise] = None):
         if noise is None:
             noise = draw_step_noise(generator, cfg.n_agents,
                                     cfg.engine.scan_rays, dev)
-        return sim_step(state, noise, cfg, walls_t, params, faults,
-                        walls_grouped=wg_t, room_of_agent=roa_t)
+        if state is not host["state"]:
+            host["step"] = int(state.step)
+        out = sim_step(state, noise, cfg, walls_t, params, faults,
+                       walls_grouped=wg_t, room_of_agent=roa_t,
+                       step_no=host["step"], merge_win_box=win_box)
+        host["state"], host["step"] = out[0], host["step"] + 1
+        return out
 
     return step
 

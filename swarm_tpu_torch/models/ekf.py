@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from swarm_tpu.config import EkfConfig
+from swarm_tpu_torch.config import EkfConfig
 from swarm_tpu_torch.utils.angles import wrap_pi
 
 IDX_X, IDX_Y, IDX_THETA, IDX_V, IDX_OMEGA, IDX_BIAS = 0, 1, 2, 3, 4, 5

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from swarm_tpu.config import NavConfig
+from swarm_tpu_torch.config import NavConfig
 from swarm_tpu_torch.utils.angles import degrees, radians, wrap_pi
 
 FOLLOW = 0

@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from swarm_tpu.config import NoiseConfig
+from swarm_tpu_torch.config import NoiseConfig
 from swarm_tpu_torch.utils.angles import degrees, wrap_pi
 
 

@@ -7,26 +7,19 @@ import math
 
 import torch
 
-from swarm_tpu.config import SensorConfig
+from swarm_tpu_torch.config import SensorConfig
 from swarm_tpu_torch.geom.world import cast_rays
 from swarm_tpu_torch.models.sensors import (SensorNoise, walls_for_rays,
                                             apply_ultrasonic_noise)
+from swarm_tpu_torch.utils.angles import linspace_f32
 
 SCAN_RAYS = 181
 
 
 def scan_angles(n_rays: int = SCAN_RAYS, dtype=torch.float32, device=None):
     """Relative beam angles, -90 deg first, as `jnp.linspace(-pi/2, pi/2,
-    n)` computes them in float32: start*(1-step) + stop*step with
-    step = iota/(n-1), and the last entry exactly stop."""
-    start = torch.tensor(-math.pi / 2, dtype=dtype, device=device)
-    stop = torch.tensor(math.pi / 2, dtype=dtype, device=device)
-    if n_rays == 1:
-        return start.reshape(1)
-    div = n_rays - 1
-    step = torch.arange(div, dtype=dtype, device=device) / div
-    out = start * (1 - step) + stop * step
-    return torch.cat([out, stop.reshape(1)])
+    n)` computes them in float32."""
+    return linspace_f32(-math.pi / 2, math.pi / 2, n_rays, device).to(dtype)
 
 
 def sense_scan_true(pose_true, walls, n_rays: int = SCAN_RAYS):

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from swarm_tpu.config import SensorConfig
+from swarm_tpu_torch.config import SensorConfig
 from swarm_tpu_torch.geom.world import cast_rays
 
 

@@ -1,7 +1,10 @@
 """Polar beam-model raster helpers (swarm_tpu/ops/beam_raster.py): the
 beam fan, the evidence reach, the per-agent window and its placement, the
-fan's bounding box, the 8-bit range quantisation, and the beam tables built
-from sensor readings. The raster itself is ops/beam_raster_cuda.py.
+fan's bounding box, the 8- and 16-bit range quantisations (the 16-bit pair
+packing of swarm_tpu/ops/beam_raster_pallas.py:186-209), and the beam
+tables built from sensor readings. The rasters themselves are
+ops/beam_raster_cuda.py (per-agent windows) and ops/room_raster_cuda.py
+(room tiles).
 """
 
 from __future__ import annotations
@@ -16,6 +19,11 @@ from swarm_tpu_torch.utils.angles import jmod
 
 REACH_CELLS = 26        # max beam reach: 1.2 m trust / 5 cm + ring margin
 
+# 16-bit pair packing (the room kernel's per-beam table): 15-bit ranges in
+# 1/256-cell fixed point + trusted flag in bit 15, two beams per int32 word.
+RANGE_QUANT = 256.0
+RANGE_MAX_CELLS = 127.0 + 255.0 / 256.0
+
 # 8-bit quad packing: 7-bit ranges in 1/4-cell fixed point + trusted flag in
 # bit 7, four beams per int32 word (EngineConfig.beam_pack8).
 RANGE_QUANT8 = 4.0
@@ -27,6 +35,26 @@ def quantize_ranges_cells8(ranges_cells):
     (1/4 cell, clipped to < 32 cells)."""
     return torch.round(torch.clamp(ranges_cells, 0.0, RANGE_MAX_CELLS8)
                        * RANGE_QUANT8) * (1.0 / RANGE_QUANT8)
+
+
+def _pack_range16(dist_cells_raw, trusted):
+    """[N, B] raw ranges in cells + trusted mask -> [N, P] int32 pair
+    words, beam 2p in bits 0-15 and beam 2p+1 in bits 16-31 (15-bit
+    1/256-cell range, trusted bit 15)."""
+    ints = torch.round(torch.clamp(dist_cells_raw, 0.0, RANGE_MAX_CELLS)
+                       * RANGE_QUANT).to(torch.int32)
+    ints = ints | (trusted.to(torch.int32) << 15)
+    b_n = ints.shape[-1]
+    n_pairs = -(-b_n // 2)
+    ints = torch.nn.functional.pad(ints, (0, 2 * n_pairs - b_n))
+    return ints[:, 0::2] | (ints[:, 1::2] << 16)
+
+
+def _unpack_range16(v16):
+    """Packed 16-bit field (int32 in [0, 65535]) -> (range cells f32,
+    trusted flag f32)."""
+    return ((v16 & 0x7FFF).to(torch.float32) * (1.0 / RANGE_QUANT),
+            (v16 >> 15).to(torch.float32))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,16 +31,14 @@ of inactive fan-bbox strips is skipped, but nothing else is pruned.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-import threading
 from typing import NamedTuple
 
 import torch
 
-from swarm_tpu.config import GridConfig
+from swarm_tpu_torch._device import div as _div
+from swarm_tpu_torch.config import GridConfig
+from swarm_tpu_torch.ops import cuda_build
 from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT8,
                                              REACH_CELLS, BeamSpec,
                                              fan_bbox_cells, patch_dims,
@@ -50,11 +48,7 @@ TILE_R = 64            # grid tile owned by one CUDA block (csrc TILE_R/C)
 TILE_C = 128
 MAX_WORDS = 64         # csrc MAX_WORDS: pack8 tables up to 256 beams
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "free_raster.cu")
-_BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+_SOURCE = cuda_build.source("free_raster")
 
 
 # --------------------------------------------------------------------------
@@ -90,13 +84,6 @@ def _unpack_range8(v8):
 def _wrap_pi_cheap(x):
     """(-pi, pi] wrap with one round (|x| < 4 pi here)."""
     return x - (2 * math.pi) * torch.round(x * (1 / (2 * math.pi)))
-
-
-def _div(x, c: float):
-    """x / c as an IEEE division. The divisor goes in as a device tensor:
-    PyTorch's CUDA division by a Python scalar multiplies by its reciprocal
-    instead, which can differ in the last bit from the kernel's division."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
 def _atan2_poly(y, x):
@@ -189,6 +176,30 @@ def _constants(spec: BeamSpec, cfg: GridConfig):
 # plain torch version
 
 
+def _polar(dx, dy, yaw, k: dict, n_beams: int, dense: bool):
+    """One cell's polar position relative to its agent, its beam bin and
+    the evidence support, op for op as csrc/raster_common.cuh `polar`.
+    Returns (r, cnt, g, base_ok)."""
+    r2 = dx * dx + dy * dy
+    rinv = torch.reciprocal(torch.sqrt(torch.clamp_min(r2, 1e-6)))
+    r = r2 * rinv
+    theta = _atan2_poly(dy, dx)
+    rel = theta - yaw - k["theta0"] - k["half_gdt"] + k["half_dt"]
+    rel = _wrap_pi_cheap(rel)
+    g = torch.floor(_div(rel, k["gdt"]) + 0.5).to(torch.int32)
+    in_fan = (rel >= k["fan_lo"]) & (rel < k["fan_hi"])
+    g = torch.clamp(g, 0, n_beams - 1)
+    cnt = torch.clamp_min(torch.round(_div(rinv, k["dt"])), 1.0)
+    if dense:
+        base_ok = in_fan & (r2 > 1e-6)
+    else:
+        covered = rinv >= k["cover"]
+        resid = rel - g.to(torch.float32) * k["gdt"]
+        on_any = covered | (torch.abs(r * resid) <= 0.6)
+        base_ok = in_fan & on_any & (r2 > 1e-6)
+    return r, cnt, g, base_ok
+
+
 def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
                    dense: bool):
     """Evidence delta [N, rows, cols] and painted count [N] of every agent's
@@ -201,32 +212,14 @@ def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
     cc = torch.arange(w.cols, dtype=torch.int32, device=dev)[None, None, :]
     cy = (w.row0[:, None, None] + rr).to(torch.float32) + 0.5
     cx = (w.col0[:, None, None] + cc).to(torch.float32) + 0.5
-    dx = cx - w.ax[:, None, None]
-    dy = cy - w.ay[:, None, None]
-    r2 = dx * dx + dy * dy
-    rinv = torch.reciprocal(torch.sqrt(torch.clamp_min(r2, 1e-6)))
-    r = r2 * rinv
-    theta = _atan2_poly(dy, dx)
-
-    rel = theta - w.yaw[:, None, None] - k["theta0"] - k["half_gdt"] \
-        + k["half_dt"]
-    rel = _wrap_pi_cheap(rel)
-    g = torch.floor(_div(rel, k["gdt"]) + 0.5).to(torch.int32)
-    in_fan = (rel >= k["fan_lo"]) & (rel < k["fan_hi"])
-    g = torch.clamp(g, 0, spec.n_beams - 1)
+    r, cnt, g, base_ok = _polar(cx - w.ax[:, None, None],
+                                cy - w.ay[:, None, None],
+                                w.yaw[:, None, None], k, spec.n_beams, dense)
 
     words = torch.gather(w.table, 1, (g >> 2).reshape(n, -1).to(torch.int64))
     v8 = (words.reshape(g.shape) >> (8 * (g & 3))) & 0xFF
     rb, tf = _unpack_range8(v8)
 
-    cnt = torch.clamp_min(torch.round(_div(rinv, k["dt"])), 1.0)
-    if dense:
-        base_ok = in_fan & (r2 > 1e-6)
-    else:
-        covered = rinv >= k["cover"]
-        resid = rel - g.to(torch.float32) * k["gdt"]
-        on_any = covered | (torch.abs(r * resid) <= 0.6)
-        base_ok = in_fan & on_any & (r2 > 1e-6)
     zero = torch.zeros_like(r)
     act = w.act[:, None, None]
     free = base_ok & (r < rb - 0.5)
@@ -264,42 +257,10 @@ def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
 # CUDA kernel
 
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def build_kernel() -> str:
-    """Compile csrc/free_raster.cu into build/ (at first use; redone when
-    the source's hash changes) and return the library's path."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"libfree_raster_{digest}.so")
-    if os.path.exists(out):
-        return out
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found to build the raster kernel")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-                    "-o", tmp, _SOURCE], check=True)
-    os.replace(tmp, out)
-    return out
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_kernel())
-            P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.free_raster_pack8.argtypes = (
-                [P] * 8 + [I] * 7 + [F] * 11 + [P])
-            lib.free_raster_pack8.restype = I
-            _lib = lib
-    return _lib
+def _bind(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.free_raster_pack8.argtypes = [P] * 8 + [I] * 7 + [F] * 11 + [P]
+    lib.free_raster_pack8.restype = I
 
 
 def _tile_pairs(w: _Windows, size: int):
@@ -333,13 +294,23 @@ def _tile_pairs(w: _Windows, size: int):
     return tile_start, pair_agent.contiguous(), pair_slot.contiguous(), k, n
 
 
-def _launch(logodds, w: _Windows, spec: BeamSpec, cfg: GridConfig,
-            dense: bool):
-    size = logodds.shape[0]
+class _Launch(NamedTuple):
+    """The kernel's operands, prepared from the windows (`_prepare`)."""
+    origins: torch.Tensor     # [N, 4] int32 row0, col0, t_cl, t_ch
+    meta: torch.Tensor        # [N, 4] f32 ax, ay, yaw, act
+    table: torch.Tensor       # [N, W] int32 pack8 words
+    tile_start: torch.Tensor  # [T + 1] int32 CSR offsets per tile
+    pair_agent: torch.Tensor  # [P] int32
+    pair_slot: torch.Tensor   # [P] int32
+    k: int                    # candidate tiles per agent
+    rows: int
+    cols: int
+
+
+def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
     if not logodds.is_contiguous():
         raise ValueError("the raster kernel updates a contiguous grid")
-    n_words = w.table.shape[1]
-    if n_words > MAX_WORDS:
+    if w.table.shape[1] > MAX_WORDS:
         raise ValueError(f"{spec.n_beams} beams exceed the kernel's "
                          f"{4 * MAX_WORDS}-beam table")
     origins = torch.stack([w.row0, w.col0, w.t_cl, w.t_ch], -1).to(
@@ -350,15 +321,25 @@ def _launch(logodds, w: _Windows, spec: BeamSpec, cfg: GridConfig,
     if {x.device for x in (origins, meta, table)} != {logodds.device}:
         raise ValueError("the agents' inputs and the grid must lie on one "
                          "device: the kernel reads them all")
-    tile_start, pair_agent, pair_slot, k, n = _tile_pairs(w, size)
-    partial = torch.zeros(n * k, dtype=torch.float32, device=logodds.device)
+    tile_start, pair_agent, pair_slot, k, _ = _tile_pairs(w,
+                                                          logodds.shape[0])
+    return _Launch(origins, meta, table, tile_start, pair_agent, pair_slot,
+                   k, w.rows, w.cols)
+
+
+def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
+            dense: bool):
+    """One kernel launch on prepared operands; returns counts [N]."""
+    n = ln.meta.shape[0]
+    partial = torch.zeros(n * ln.k, dtype=torch.float32,
+                          device=logodds.device)
     c = _constants(spec, cfg)
-    err = _library().free_raster_pack8(
-        logodds.data_ptr(), origins.data_ptr(), meta.data_ptr(),
-        table.data_ptr(), tile_start.data_ptr(), pair_agent.data_ptr(),
-        pair_slot.data_ptr(), partial.data_ptr(),
-        tile_start.shape[0] - 1, size, w.rows, w.cols, n_words,
-        spec.n_beams, int(dense),
+    err = cuda_build.load("free_raster", _bind).free_raster_pack8(
+        logodds.data_ptr(), ln.origins.data_ptr(), ln.meta.data_ptr(),
+        ln.table.data_ptr(), ln.tile_start.data_ptr(),
+        ln.pair_agent.data_ptr(), ln.pair_slot.data_ptr(),
+        partial.data_ptr(), ln.tile_start.shape[0] - 1, logodds.shape[0],
+        ln.rows, ln.cols, ln.table.shape[1], spec.n_beams, int(dense),
         c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
         c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
         c["clampv"], torch.cuda.current_stream(logodds.device).cuda_stream)
@@ -367,7 +348,7 @@ def _launch(logodds, w: _Windows, spec: BeamSpec, cfg: GridConfig,
                            f"{err}")
     free_raster.launches += 1
     # pair slots reduced per agent in a fixed order (no float atomics)
-    return partial.reshape(n, k).sum(dim=1) * w.act
+    return partial.reshape(n, ln.k).sum(dim=1) * ln.meta[:, 3]
 
 
 def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
@@ -390,7 +371,8 @@ def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
     _check_supported(logodds, spec, reach)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
                  reach)
-    counts = _launch(logodds, w, spec, cfg, _dense_fan(spec, reach))
+    counts = _launch(logodds, _prepare(logodds, w, spec), spec, cfg,
+                     _dense_fan(spec, reach))
     return logodds, counts
 
 

@@ -1,0 +1,83 @@
+"""Build and load of the port's CUDA sources (`swarm_tpu_torch/csrc/`).
+
+Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
+plain C interface (no PyTorch headers: seconds, not minutes), in the
+gitignored `swarm_tpu_torch/build/`, at first use. The library's name
+carries a hash of the source, of every shared header in `csrc/` and of the
+flags, so an edit rebuilds it. `build_all` starts one nvcc per source at
+once. The wrappers load a library with `ctypes` and pass device pointers
+and the current stream as Python ints.
+
+Flags: `sm_90a` (Hopper), `--fmad=false` so that every add and multiply
+rounds on its own, as the plain torch versions issue them; IEEE division
+and square root are nvcc's defaults without `--use_fast_math`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def source(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu into build/ unless a library of the same
+    source, headers and flags is there; return the library's path."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source(name)] + sorted(glob.glob(os.path.join(CSRC,
+                                                               "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    if CUDA_HOME is None:
+        raise RuntimeError(f"no CUDA toolkit found to build {name}.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
+                    "-o", tmp, source(name)], check=True)
+    os.replace(tmp, out)
+    return out
+
+
+def build_all(names) -> dict:
+    """Build every source at once (one nvcc each). Returns {name: (library
+    path, seconds)}."""
+    def one(name):
+        t0 = time.perf_counter()
+        return name, (build(name), time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        return dict(ex.map(one, names))
+
+
+def load(name: str, bind) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (built at first use);
+    `bind(lib)` sets its functions' argtypes once."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build(name))
+            bind(lib)
+            _libs[name] = lib
+        return _libs[name]

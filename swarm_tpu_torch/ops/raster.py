@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from swarm_tpu.config import GridConfig
+from swarm_tpu_torch.config import GridConfig
 
 OCC_THRESH = 0.3
 FREE_THRESH = -0.3

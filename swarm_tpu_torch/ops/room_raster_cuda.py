@@ -1,0 +1,269 @@
+"""The room-tile beam raster: a CUDA kernel for Hopper and its plain torch
+version.
+
+Replaces `swarm_tpu/ops/beam_raster_pallas.py::_room_kernel` (entry point
+`room_raster_pallas`) in the form `bench.py --room-kernel` runs: per-beam
+carve (`n_groups == n_beams`), a pack16 range table (15-bit 1/256-cell
+ranges + trusted bit 15, two beams per int32 word, padded to a multiple of
+8 words), the in-kernel endpoint ring, a float32 grid. The engine passes
+this kernel no `pack8` (swarm_tpu/engine/sim.py:591-597), so the room path
+uses pack16 even where `EngineConfig.beam_pack8` is True; the port keeps
+that.
+
+The world is tiled rooms (`geom.world.make_tiled_rooms`): agents 2k and
+2k+1 live in room k = grid tile (k // per_row, k % per_row) of [128, 256]
+cells. Each agent paints a win_rows x 256 window of its own tile only
+(win_rows = round_up(2 reach + 8, 8) = 64 at the 1.2 m reach), from the
+tile-local row r_loc of its aligned window origin clipped into the tile;
+evidence that would fall outside the tile is dropped, as on the TPU. Slot 0
+then slot 1, each clipped to [-clamp, clamp]; every slot of every tile is
+applied, an empty one with act 0. The counter is one painted total per
+tile, [BR, BC] (the engine rounds it per tile before its int32 sum).
+
+What bounds it on the H100: at 1024 agents the windows cover 1024 x 64 x
+256 cells, each read and written once (134 MB, ~40 us at 3.35 TB/s); the
+per-cell arithmetic (~50 float operations) is ~13 us at 67 TFLOP/s. Bytes
+bound it. The design (csrc/room_raster.cu): one block per tile, one thread
+per cell column, the two slots applied in registers in order, the grid
+updated in place, the tables in shared memory.
+
+`room_raster` dispatches on where the grid lies: a CPU tensor goes to
+`room_raster_plain`; a CUDA tensor launches the kernel or raises.
+`room_raster.launches` counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from swarm_tpu_torch.config import GridConfig
+from swarm_tpu_torch.geom.world import TILE_COLS, TILE_ROWS
+from swarm_tpu_torch.ops import cuda_build
+from swarm_tpu_torch.ops.beam_raster import (REACH_CELLS, BeamSpec,
+                                             _pack_range16, _unpack_range16,
+                                             patch_origin)
+from swarm_tpu_torch.ops.beam_raster_cuda import (_constants, _dense_fan,
+                                                  _div, _polar)
+
+AGENTS_PER_ROOM = 2    # csrc SLOTS
+META = 8               # csrc META: ax, ay, yaw, act, r_loc, 0, 0, 0
+MAX_WORDS = 128        # csrc MAX_WORDS: pack16 tables up to 256 beams
+
+_SOURCE = cuda_build.source("room_raster")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class _Rooms(NamedTuple):
+    """Per-tile launch data, as room_raster_pallas scatters it."""
+    meta: torch.Tensor    # [BR, BC, 2, 8] f32
+    table: torch.Tensor   # [BR, BC, 2, tab_rows] int32 pack16 words
+    win_rows: int
+
+
+def _check_supported(logodds, spec: BeamSpec, n_groups: int, trusted,
+                     reach: int):
+    if spec.wrap:
+        raise NotImplementedError(
+            "the 4-way (wrapped) fan raster is not ported yet "
+            "(ROADMAP Queue B1 variants)")
+    if min(n_groups, spec.n_beams) < spec.n_beams:
+        raise NotImplementedError(
+            "the grouped room kernel (beam_groups > 0) is not ported yet "
+            "(ROADMAP Queue B2)")
+    if trusted is None:
+        raise NotImplementedError(
+            "the room kernel without its endpoint ring is not ported yet "
+            "(ROADMAP Queue B2)")
+    if logodds.dtype != torch.float32:
+        raise NotImplementedError(
+            "bfloat16 grids are not ported yet (ROADMAP Queue B1 variants)")
+    if -(-spec.n_beams // 2) > MAX_WORDS:
+        raise ValueError(f"{spec.n_beams} beams exceed the kernel's "
+                         f"{2 * MAX_WORDS}-beam table")
+    if 2 * reach + 8 > TILE_ROWS:
+        raise ValueError(
+            f"beam reach {reach} cells does not fit a {TILE_ROWS}-row tile "
+            "window; use the per-agent window kernel (free_raster) or a "
+            "coarser grid")
+    size = logodds.shape[0]
+    if logodds.shape != (size, size) or size % TILE_COLS or size % TILE_ROWS:
+        raise ValueError(f"grid must be square with a side divisible by "
+                         f"{TILE_COLS}, got {tuple(logodds.shape)}")
+
+
+def _rooms(logodds, agent_xy, yaw, dist_m, active, cfg: GridConfig,
+           per_row, trusted, reach: int) -> _Rooms:
+    n = agent_xy.shape[0]
+    size = logodds.shape[0]
+    dev = logodds.device
+    br_n, bc_n = size // TILE_ROWS, size // TILE_COLS
+    per_row = bc_n if per_row is None else per_row
+    n_rooms = -(-n // AGENTS_PER_ROOM)
+    if per_row > bc_n or (n_rooms > 0 and (n_rooms - 1) // per_row >= br_n):
+        raise ValueError(f"{n_rooms} rooms at {per_row} per row do not fit "
+                         f"the {br_n} x {bc_n} tiles of a {size}^2 grid")
+    res = cfg.resolution
+    ax = _div(agent_xy[:, 0] - cfg.origin_x, res)
+    ay = _div(agent_xy[:, 1] - cfg.origin_y, res)
+    words = _pack_range16(_div(dist_m, res).to(torch.float32), trusted)
+    tab_rows = _round_up(words.shape[1], 8)
+
+    i = torch.arange(n, device=dev)
+    room = torch.div(i, AGENTS_PER_ROOM, rounding_mode="floor")
+    tile_r = torch.div(room, per_row, rounding_mode="floor")
+    tile_c = room % per_row
+    slot = i % AGENTS_PER_ROOM
+    win_rows = min(_round_up(2 * reach + 8, 8), TILE_ROWS)
+    row0_g, _ = patch_origin(ax, ay, size, win_rows, size, reach)
+    r_loc = torch.clamp(row0_g - tile_r.to(torch.int32) * TILE_ROWS, 0,
+                        TILE_ROWS - win_rows).to(torch.float32)
+
+    z = torch.zeros_like(ax)
+    vals = torch.stack([ax, ay, yaw.to(torch.float32),
+                        active.to(torch.float32), r_loc, z, z, z], dim=-1)
+    meta = torch.zeros((br_n, bc_n, AGENTS_PER_ROOM, META),
+                       dtype=torch.float32, device=dev)
+    meta[tile_r, tile_c, slot] = vals
+    table = torch.zeros((br_n, bc_n, AGENTS_PER_ROOM, tab_rows),
+                        dtype=torch.int32, device=dev)
+    table[tile_r, tile_c, slot, :words.shape[1]] = words
+    return _Rooms(meta=meta, table=table, win_rows=win_rows)
+
+
+# --------------------------------------------------------------------------
+# plain torch version
+
+
+def _room_deltas(rm: _Rooms, spec: BeamSpec, cfg: GridConfig, dense: bool):
+    """Evidence delta [BR, BC, 2, win_rows, 256] (before the act multiply)
+    and painted count [BR, BC, 2] of every slot's window — the kernel's
+    per-cell math, op for op."""
+    k = _constants(spec, cfg)
+    br_n, bc_n = rm.meta.shape[:2]
+    dev = rm.meta.device
+    i32 = torch.int32
+
+    def m(j):
+        return rm.meta[..., j][..., None, None]
+
+    br = torch.arange(br_n, dtype=i32, device=dev)[:, None, None, None, None]
+    bc = torch.arange(bc_n, dtype=i32, device=dev)[None, :, None, None, None]
+    rr = torch.arange(rm.win_rows, dtype=i32, device=dev)[:, None]
+    cc = torch.arange(TILE_COLS, dtype=i32, device=dev)[None, :]
+    cy = (br * TILE_ROWS + m(4).to(i32) + rr).to(torch.float32) + 0.5
+    cx = (bc * TILE_COLS + cc).to(torch.float32) + 0.5
+    r, cnt, g, base_ok = _polar(cx - m(0), cy - m(1), m(2), k,
+                                spec.n_beams, dense)
+
+    tab = rm.table.reshape(br_n * bc_n * AGENTS_PER_ROOM, -1)
+    words = torch.gather(tab, 1, (g >> 1).reshape(tab.shape[0], -1).to(
+        torch.int64)).reshape(g.shape)
+    rb, tf = _unpack_range16((words >> (16 * (g & 1))) & 0xFFFF)
+
+    zero = torch.zeros_like(r)
+    free = base_ok & (r < rb - 0.5)
+    delta = torch.where(free, k["miss"] * cnt, zero)
+    on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
+    delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero)
+    painted = torch.where(free, cnt, zero) + \
+        torch.where(on_ring, cnt * tf, zero)
+    return delta, painted.sum(dim=(-2, -1))
+
+
+def room_raster_plain(logodds, agent_xy, yaw, dist_m, active,
+                      spec: BeamSpec, cfg: GridConfig = GridConfig(),
+                      n_groups: int = 16, per_row=None, trusted=None,
+                      reach: int = REACH_CELLS):
+    """The room raster in plain torch: deltas vectorised over every (tile,
+    slot) window, then applied slot 0 then slot 1, each clipped. Updates
+    `logodds` IN PLACE and returns (logodds, counts [BR, BC] f32)."""
+    _check_supported(logodds, spec, n_groups, trusted, reach)
+    rm = _rooms(logodds, agent_xy, yaw, dist_m, active, cfg, per_row,
+                trusted, reach)
+    delta, painted = _room_deltas(rm, spec, cfg, _dense_fan(spec, reach))
+    br_n, bc_n = rm.meta.shape[:2]
+    dev = logodds.device
+    act = rm.meta[..., 3]
+    r_loc = rm.meta[..., 4].to(torch.int64)
+    g4 = logodds.view(br_n, TILE_ROWS, bc_n, TILE_COLS)
+    bi = torch.arange(br_n, device=dev)[:, None, None]
+    ci = torch.arange(bc_n, device=dev)[None, :, None]
+    rr = torch.arange(rm.win_rows, device=dev)
+    c = cfg.logodds_clamp
+    for s in range(AGENTS_PER_ROOM):
+        rows = r_loc[:, :, s, None] + rr
+        blk = g4[bi, rows, ci]
+        g4[bi, rows, ci] = torch.clamp(
+            blk + delta[:, :, s] * act[:, :, s, None, None], -c, c)
+    counts = painted[..., 0] * act[..., 0] + painted[..., 1] * act[..., 1]
+    return logodds, counts
+
+
+# --------------------------------------------------------------------------
+# CUDA kernel
+
+
+def _bind(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.room_raster_pack16.argtypes = [P] * 4 + [I] * 5 + [F] * 11 + [P]
+    lib.room_raster_pack16.restype = I
+
+
+def _launch(logodds, rm: _Rooms, spec: BeamSpec, cfg: GridConfig,
+            dense: bool):
+    if not logodds.is_contiguous():
+        raise ValueError("the room kernel updates a contiguous grid")
+    meta, table = rm.meta.contiguous(), rm.table.contiguous()
+    if {meta.device, table.device} != {logodds.device}:
+        raise ValueError("the agents' inputs and the grid must lie on one "
+                         "device: the kernel reads them all")
+    br_n, bc_n = meta.shape[:2]
+    counts = torch.empty((br_n, bc_n), dtype=torch.float32,
+                         device=logodds.device)
+    c = _constants(spec, cfg)
+    err = cuda_build.load("room_raster", _bind).room_raster_pack16(
+        logodds.data_ptr(), meta.data_ptr(), table.data_ptr(),
+        counts.data_ptr(), logodds.shape[0], rm.win_rows, table.shape[-1],
+        spec.n_beams, int(dense),
+        c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
+        c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
+        c["clampv"], torch.cuda.current_stream(logodds.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"room_raster_pack16 launch failed: CUDA error "
+                           f"{err}")
+    room_raster.launches += 1
+    return counts
+
+
+def room_raster(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
+                cfg: GridConfig = GridConfig(), n_groups: int = 16,
+                per_row=None, trusted=None, reach: int = REACH_CELLS):
+    """The engine's room raster: (new_logodds, counts [BR, BC] f32) as
+    `room_raster_pallas(..., n_groups=n_beams, trusted=...)` returns them.
+    agent_xy [N, 2] world metres, yaw [N], dist_m / trusted [N, B] the
+    range-limited sweep and its trust mask, active [N] bool; per_row rooms
+    per tile row (default: every tile column). `logodds` [S, S] float32 is
+    updated IN PLACE.
+
+    A CPU grid goes to `room_raster_plain`. A CUDA grid launches the
+    kernel; a failed build or launch raises."""
+    if logodds.device.type == "cpu":
+        return room_raster_plain(logodds, agent_xy, yaw, dist_m, active,
+                                 spec, cfg, n_groups=n_groups,
+                                 per_row=per_row, trusted=trusted,
+                                 reach=reach)
+    if logodds.device.type != "cuda":
+        raise ValueError(f"no raster for a grid on {logodds.device}")
+    _check_supported(logodds, spec, n_groups, trusted, reach)
+    rm = _rooms(logodds, agent_xy, yaw, dist_m, active, cfg, per_row,
+                trusted, reach)
+    return logodds, _launch(logodds, rm, spec, cfg, _dense_fan(spec, reach))
+
+
+room_raster.launches = 0

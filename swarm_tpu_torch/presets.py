@@ -2,10 +2,11 @@
 
 `deployable` returns what `__graft_entry__._cfg_and_world(n, frontiers=False,
 parity=False, raster_mode="beam", use_pallas=True, scan_rays=181,
-tiled=True)` returns, with bench.py's replacements (`beam_groups=0`,
-`kernel_endpoints=True`, `beam_pack8=True`, `raster_4way=False`) and the
-merge cadence as an argument: the port runs `merge_every=0` (the anchored
-merge is the next ROADMAP item).
+tiled=True, room_kernel=...)` returns, with bench.py's replacements and
+defaults (`beam_groups=0`, `kernel_endpoints=True`, `beam_pack8=True`,
+`raster_4way=False`, `merge_every=16`). `room_kernel=True` is
+`bench.py --room-kernel`: `room_tile_per_row = per_row`, so the raster runs
+the room-tile kernel instead of the per-agent window kernel.
 """
 
 from __future__ import annotations
@@ -15,17 +16,21 @@ import math
 import numpy as np
 import torch
 
-from swarm_tpu.config import EngineConfig, GridConfig, SlamConfig, SwarmConfig
+from swarm_tpu_torch._device import default_device
+from swarm_tpu_torch.config import (EngineConfig, GridConfig, SlamConfig,
+                                    SwarmConfig)
 from swarm_tpu_torch.engine.sim import make_agent_params
 from swarm_tpu_torch.geom.world import make_tiled_rooms, walls_by_group
 
 
-def deployable(n_agents: int, device=None, merge_every: int = 0):
+def deployable(n_agents: int, device=None, merge_every: int = 16,
+               room_kernel: bool = False):
     """Tiled-rooms world (two agents per room, each room on its own
     [128, 256]-cell grid tile) + config for an n-agent swarm. Returns
     (cfg, walls [S, 4], params, (walls_grouped [G, 4, 4], room_of_agent
-    [N] int32)), tensors on `device`. At 1024 agents: a 4096^2 grid, 512
-    rooms (2048 wall segments), 181-beam sweeps."""
+    [N] int32)), tensors on `device` (the card when None). At 1024 agents:
+    a 4096^2 grid, 512 rooms (2048 wall segments), 181-beam sweeps."""
+    device = default_device(device)
     n_rooms = max(1, n_agents // 2)
     per_row = max(1, round(math.sqrt(n_rooms / 2.0)))
     n_rows = math.ceil(n_rooms / per_row)
@@ -37,7 +42,8 @@ def deployable(n_agents: int, device=None, merge_every: int = 0):
         grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0),
         engine=EngineConfig(
             parity_mode=False, compute_frontiers=False, raster_mode="beam",
-            use_pallas=True, scan_rays=181, room_tile_per_row=0,
+            use_pallas=True, scan_rays=181,
+            room_tile_per_row=per_row if room_kernel else 0,
             beam_groups=0, kernel_endpoints=True, beam_pack8=True,
             raster_4way=False, merge_every=merge_every),
         # same-agent closures, anchor map, no closure snap, frame tracker on

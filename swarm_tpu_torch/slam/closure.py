@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from swarm_tpu.config import SlamConfig
+from swarm_tpu_torch.config import SlamConfig
 
 
 class ClosureState(NamedTuple):

@@ -30,3 +30,16 @@ def degrees(x: torch.Tensor) -> torch.Tensor:
 def radians(x: torch.Tensor) -> torch.Tensor:
     """`jnp.radians`: one multiply by float32(pi/180)."""
     return x * (math.pi / 180.0)
+
+
+def linspace_f32(start: float, stop: float, n: int, device=None):
+    """`jnp.linspace(start, stop, n, dtype=float32)` as JAX computes it:
+    start*(1-step) + stop*step with step = iota/(n-1) in float32, and the
+    last entry exactly stop."""
+    lo = torch.tensor(start, dtype=torch.float32, device=device)
+    hi = torch.tensor(stop, dtype=torch.float32, device=device)
+    if n == 1:
+        return lo.reshape(1)
+    div = n - 1
+    step = torch.arange(div, dtype=torch.float32, device=device) / div
+    return torch.cat([lo * (1 - step) + hi * step, hi.reshape(1)])

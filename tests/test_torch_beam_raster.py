@@ -26,7 +26,7 @@ from swarm_tpu.ops import beam_raster as jb
 from swarm_tpu.ops import beam_raster_pallas as jp
 from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import beam_raster_cuda as pc
-from tests.torch_parity import assert_close, assert_exact, t
+from tests.torch_parity import assert_close, assert_exact, decision_equal, t
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 
@@ -102,13 +102,6 @@ def test_atan2_and_wrap_semantics(rng):
                  atol=1e-6)
 
 
-def _decision_equal(got, ref, painted_ref):
-    diff = np.abs(np.asarray(got) - np.asarray(ref)) > 1e-6
-    painted = max(int(painted_ref), 1)
-    print(f"differing cells: {int(diff.sum())} of {painted} painted")
-    assert diff.sum() <= 1e-4 * painted, (int(diff.sum()), painted)
-
-
 def _agents(rng, n_beams, pos_cells, seed):
     xy = (np.asarray(pos_cells, np.float32)[:, ::-1] * GRID.resolution)
     n = xy.shape[0]
@@ -144,7 +137,7 @@ def test_plain_matches_pallas_full_grid(rng, n_beams, pos):
     assert pc.free_raster.launches == before     # CPU: the plain version
     np.testing.assert_allclose(gc.numpy(), np.asarray(rc), rtol=1e-5)
     assert float(gc.sum()) > 0 and float(gc[3]) == 0.0
-    _decision_equal(got, ref, (np.asarray(ref) != 0).sum())
+    decision_equal(got, ref, "window map")
 
 
 def test_overlap_saturation_clip_order(rng):
@@ -167,7 +160,7 @@ def test_overlap_saturation_clip_order(rng):
                                    spec_p, GRID, reach=26)
     np.testing.assert_allclose(gc.numpy(), np.asarray(rc), rtol=1e-5)
     changed = (np.asarray(ref) != grid).sum()
-    _decision_equal(got, ref, changed)
+    decision_equal(got, ref, "window map", painted=changed)
     # the order matters here: one clip after the summed deltas differs
     sum_then_clip = grid.copy()
     w = pc._windows(torch.from_numpy(grid), t(xy), t(yaw), t(dist), t(act),
@@ -181,9 +174,11 @@ def test_overlap_saturation_clip_order(rng):
 
 
 def test_kernel_constants_are_the_reference_literals():
-    """The CUDA source writes the reference's float literals as exact hex
-    floats; each must be float32 of the Python literal."""
-    src = Path(pc._SOURCE).read_text()
+    """The CUDA sources write the reference's float literals as exact hex
+    floats (in the header both raster kernels include); each must be
+    float32 of the Python literal."""
+    src = (Path(pc._SOURCE).parent / "raster_common.cuh").read_text()
+    assert '#include "raster_common.cuh"' in Path(pc._SOURCE).read_text()
     want = {"EPS_R2": 1e-6, "EPS_HI": 1e-20, "C0": 0.99997726,
             "C1": -0.33262347, "C2": 0.19354346, "C3": -0.11643287,
             "C4": 0.05265332, "C5": -0.01172120, "HALF_PI": math.pi / 2,

@@ -1,5 +1,6 @@
-"""The hand-written CUDA raster kernel against its plain torch version, on
-the card, at small sizes.
+"""The hand-written CUDA raster kernels (the per-agent window raster and
+the room-tile raster) against their plain torch versions, on the card, at
+small sizes.
 
 Needs an NVIDIA GPU with the CUDA toolkit; every test skips without one.
 This file imports no jax, so on a card (whose machine need not have jax,
@@ -16,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from swarm_tpu.config import GridConfig
+from swarm_tpu_torch.config import GridConfig
+from swarm_tpu_torch.geom.world import make_tiled_rooms
 from swarm_tpu_torch.ops.beam_raster import BeamSpec
 from swarm_tpu_torch.ops.beam_raster_cuda import (free_raster,
                                                   free_raster_plain)
+from swarm_tpu_torch.ops.room_raster_cuda import (room_raster,
+                                                  room_raster_plain)
 
 
 @pytest.fixture
@@ -81,4 +85,54 @@ def test_kernel_bit_equal_plain(cuda, n_beams, overlap, prefill):
     assert diff == 0, f"{diff} cells differ"
     np.testing.assert_allclose(cnt_k.cpu().numpy(), cnt_p.cpu().numpy(),
                                rtol=1e-6)
+    assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rooms,overlap", [(3, False), (4, True),
+                                             (7, False)])
+def test_room_kernel_bit_equal_plain(cuda, n_rooms, overlap):
+    """Rooms on a 512^2 grid, 2 per tile row (tiles past the last room
+    empty, the last agent inactive); overlap: both agents of a room within
+    +-3 cells of one point on a grid pre-filled near +-clamp."""
+    size, per_row = 512, 2
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    rng = np.random.default_rng(n_rooms)
+    _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    n = 2 * n_rooms
+    room = np.arange(n) // 2
+    if overlap:
+        c = origins[room] + rng.uniform([1.0, 1.0], [5.0, 3.0],
+                                        (n_rooms, 2))[room]
+        xy = c + rng.uniform(-0.15, 0.15, (n, 2))
+        grid = rng.choice([-9.9, 9.7, -9.6, 9.95], (size, size))
+    else:
+        xy = origins[room] + rng.uniform([0.3, 0.3], [5.7, 3.7], (n, 2))
+        grid = np.zeros((size, size))
+    dist = rng.uniform(0.02, 1.6, (n, 181))
+    trusted = (dist > 0.05) & (dist <= 1.2)
+    act = np.ones(n, bool)
+    act[-1] = False
+
+    def dev(a, dtype=None):
+        x = torch.from_numpy(np.asarray(a)).to(cuda)
+        return x if dtype is None else x.to(dtype)
+
+    f32 = torch.float32
+    args = (dev(xy, f32), dev(rng.uniform(-np.pi, np.pi, n), f32),
+            dev(np.minimum(dist, 1.2), f32), dev(act))
+    g_k = dev(grid, f32)
+    g_p = g_k.clone()
+    before = room_raster.launches
+    _, cnt_k = room_raster(g_k, *args, BeamSpec.scan(181), cfg, n_groups=181,
+                           per_row=per_row, trusted=dev(trusted), reach=26)
+    torch.cuda.synchronize()
+    assert room_raster.launches == before + 1
+    _, cnt_p = room_raster_plain(g_p, *args, BeamSpec.scan(181), cfg,
+                                 n_groups=181, per_row=per_row,
+                                 trusted=dev(trusted), reach=26)
+    assert room_raster.launches == before + 1
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
     assert float(cnt_k.sum()) > 0

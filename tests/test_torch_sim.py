@@ -1,5 +1,6 @@
 """The port's fused step (engine/sim.py) against the JAX engine on the
-deployable preset at 8 agents, merge off (`merge_every=0`).
+deployable preset at 8 agents: merge off (`merge_every=0`) for 1. and 2.,
+and one merge step on the window-kernel path for 3.
 
 The JAX step runs jitted with its Pallas raster under
 `force_tpu_interpret_mode()`; the port runs its plain raster on the CPU.
@@ -11,6 +12,8 @@ same noise (the JAX step's own draws, fed through the port's seam).
    more than 1e-6 at most 0.01% of painted cells).
 2. A free-running 8-step rollout on each side: tri-state maps agree on
    >= 99% of explored cells, total writes within 1%, `online` equal.
+3. A merge step (step 3 at merge_every=4), tests/torch_parity.py
+   `merge_step_parity`.
 """
 
 import dataclasses
@@ -27,8 +30,9 @@ from swarm_tpu.ops.raster import tri_state_view
 from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
 from swarm_tpu_torch.ops.raster import tri_state_view as p_tri_state_view
-from tests.torch_parity import (assert_close, assert_exact, jax_deployable,
-                                jax_step_noise, step_keys)
+from tests.torch_parity import (assert_close, assert_exact, decision_equal,
+                                jax_deployable, jax_step_noise,
+                                merge_step_parity, step_keys)
 
 N = 8
 R = 181
@@ -36,7 +40,7 @@ R = 181
 
 @pytest.fixture(scope="module")
 def world():
-    cfg, walls, params, rooms = jax_deployable(N)
+    cfg, walls, params, rooms = jax_deployable(N, merge_every=0)
     step = js.make_sim_step(cfg, jnp.asarray(walls), params, donate=False,
                             walls_grouped=rooms[0], room_of_agent=rooms[1])
     port = dict(walls=torch.from_numpy(np.array(walls)),
@@ -48,16 +52,25 @@ def world():
 
 def test_preset_is_the_reference_preset(world):
     cfg, params, _, port = world
-    cfg_p, walls_p, params_p, rooms_p = presets.deployable(N)
-    assert cfg_p == cfg
+    cfg_p, walls_p, params_p, rooms_p = presets.deployable(
+        N, device="cpu", merge_every=0)
+    assert cfg_p == convert.config_from(cfg)
+    assert walls_p.device.type == "cpu"
+    for room_kernel in (False, True):
+        assert presets.deployable(N, device="cpu", room_kernel=room_kernel
+                                  )[0] == convert.config_from(jax_deployable(
+                                      N, room_kernel=room_kernel)[0])
     assert_exact(walls_p, port["walls"])
     for f in ps.AgentParams._fields:
         assert_exact(getattr(params_p, f), getattr(params, f), what=f)
     assert_exact(rooms_p[0], port["rooms"][0])
     assert_exact(rooms_p[1], port["rooms"][1])
     # the 1024-agent shapes the chip run drives (no grid is allocated)
-    cfg_k, walls_k, params_k, rooms_k = presets.deployable(1024)
-    assert cfg_k.grid.size == 4096 and cfg_k.engine.merge_every == 0
+    cfg_k, walls_k, params_k, rooms_k = presets.deployable(1024, device="cpu")
+    assert cfg_k.grid.size == 4096 and cfg_k.engine.merge_every == 16
+    assert cfg_k.engine.room_tile_per_row == 0
+    assert presets.deployable(1024, device="cpu", room_kernel=True)[
+        0].engine.room_tile_per_row == 16
     assert tuple(walls_k.shape) == (2048, 4)
     assert tuple(rooms_k[0].shape) == (512, 4, 4)
 
@@ -68,14 +81,6 @@ def test_convert_round_trip(world):
     back = convert.to_numpy_like(convert.to_torch(st, ps.SimState), st)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(st)):
         assert_exact(a, b)
-
-
-def _decision_equal(got, ref, what):
-    got, ref = np.asarray(got), np.asarray(ref)
-    diff = np.abs(got - ref) > 1e-6
-    painted = max(int((ref != 0).sum()), 1)
-    print(f"{what}: {int(diff.sum())} of {painted} painted cells differ")
-    assert diff.sum() <= 1e-4 * painted, (what, int(diff.sum()), painted)
 
 
 def _port_step(st_j, cfg, port):
@@ -100,7 +105,7 @@ def test_one_step_parity(world):
                 else:
                     assert_exact(a, b, what=f"step {k} {f}")
             assert int(m_p.writes) > 0
-            _decision_equal(nxt_p.srv.logodds, st_j.srv.logodds,
+            decision_equal(nxt_p.srv.logodds, st_j.srv.logodds,
                             f"step {k} map")
             assert_close(nxt_p.pose_true, st_j.pose_true)
             assert_exact(nxt_p.nav.state, st_j.nav.state)
@@ -143,19 +148,49 @@ def test_free_running_rollout(world):
 
 def test_unported_paths_refuse(world):
     cfg, params, _, port = world
-    for eng in (dict(merge_every=16), dict(beam_groups=8),
-                dict(raster_4way=True), dict(compute_frontiers=True),
-                dict(parity_mode=True), dict(beam_pack8=False)):
-        bad = cfg.replace(engine=dataclasses.replace(cfg.engine, **eng))
+    cfg = convert.config_from(cfg)
+    for eng, slam in (
+            (dict(beam_groups=8, room_tile_per_row=1), {}),
+            (dict(beam_groups=8), {}), (dict(raster_4way=True), {}),
+            (dict(compute_frontiers=True), {}), (dict(parity_mode=True), {}),
+            (dict(beam_pack8=False), {}),
+            (dict(merge_every=16), dict(merge_bias_alpha=0.1)),
+            ({}, dict(closure_scanmatch=True))):
+        bad = cfg.replace(engine=dataclasses.replace(cfg.engine, **eng),
+                          slam=dataclasses.replace(cfg.slam, **slam))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ps.sim_init(bad, port["params"])
+    # the merge and the room kernel (pack16, whatever beam_pack8 says) run
+    for eng in (dict(merge_every=16), dict(room_tile_per_row=1),
+                dict(room_tile_per_row=1, beam_pack8=False)):
+        ps.check_supported(cfg.replace(
+            engine=dataclasses.replace(cfg.engine, **eng)))
+
+
+def test_merge_step_parity_window_kernel():
+    merge_step_parity(room_kernel=False)
+
+
+def test_entry_points_default_to_the_card():
+    """With no device named, the entry points allocate on `cuda`: on the
+    card their tensors lie there, and without one they fail at the first
+    allocation (no silent CPU fallback)."""
+    calls = (lambda: presets.deployable(8)[2].home_x,
+             lambda: ps.make_agent_params(8).home_x,
+             lambda: ps.no_faults().agent)
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises((RuntimeError, AssertionError)):
+                call()
 
 
 def test_agents_faults_v2v_and_write_counter(rng):
     """engine/sim's small pieces: agent params, the fault mask, V2V stats
     on both sides of the chunking rule, and the (hi, lo) write counter."""
     jp, pp = js.make_agent_params(8, separation=2.0), \
-        ps.make_agent_params(8, separation=2.0)
+        ps.make_agent_params(8, separation=2.0, device="cpu")
     for f in ps.AgentParams._fields:
         assert_exact(getattr(pp, f), getattr(jp, f), what=f)
 

@@ -73,14 +73,14 @@ def jax_step_noise(key, n: int, n_rays: int, cfg=None) -> StepNoise:
         drift=drift_noise_from_keys(k_drift))
 
 
-def jax_deployable(n: int, merge_every: int = 0):
+def jax_deployable(n: int, merge_every: int = 16, room_kernel=False):
     """The JAX preset the port's presets.deployable mirrors:
     _cfg_and_world(tiled=True, ...) + bench.py's replacements."""
     from __graft_entry__ import _cfg_and_world
 
     cfg, walls, params, rooms = _cfg_and_world(
         n, frontiers=False, parity=False, raster_mode="beam",
-        use_pallas=True, scan_rays=181, tiled=True)
+        use_pallas=True, scan_rays=181, tiled=True, room_kernel=room_kernel)
     cfg = cfg.replace(engine=dataclasses.replace(
         cfg.engine, beam_groups=0, kernel_endpoints=True, beam_pack8=True,
         raster_4way=False, merge_every=merge_every))
@@ -97,3 +97,70 @@ def assert_close(a, b, rtol=1e-5, atol=1e-5, what=""):
 def assert_exact(a, b, what=""):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
                                   err_msg=what)
+
+
+def decision_equal(got, ref, what, painted=None):
+    """Maps differ by > 1e-6 in at most 0.01% of the painted cells (the
+    reference's nonzero cells unless `painted` is given)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    diff = np.abs(got - ref) > 1e-6
+    painted = max(int((ref != 0).sum() if painted is None else painted), 1)
+    print(f"{what}: {int(diff.sum())} of {painted} painted cells differ")
+    assert diff.sum() <= 1e-4 * painted, (what, int(diff.sum()), painted)
+
+
+def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4):
+    """One step of the deployable preset on a merge step (step 3 at
+    merge_every=4), port against JAX from the same state and noise.
+
+    The state at step 3 is made by the port (three CPU steps from the JAX
+    initial state, the JAX step's own noise) and handed to both sides; the
+    JAX step runs jitted with its Pallas raster in interpret mode. Checks:
+    merge decisions and integer metrics exact, floats at atol = rtol =
+    1e-5, maps and the anchor decision-equal, writes rtol 1e-5."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from swarm_tpu.engine import sim as js
+    from swarm_tpu_torch import convert, presets
+    from swarm_tpu_torch.engine import sim as ps
+
+    cfg_j, walls, params, rooms = jax_deployable(n, merge_every, room_kernel)
+    cfg, walls_p, params_p, rooms_p = presets.deployable(
+        n, device="cpu", merge_every=merge_every, room_kernel=room_kernel)
+    assert convert.config_from(cfg_j) == cfg
+    st0 = js.sim_init(cfg_j, params)
+    st_p, key = convert.to_torch(st0, ps.SimState), st0.key
+    kw = dict(walls_grouped=rooms_p[0], room_of_agent=rooms_p[1])
+    for _ in range(merge_every - 1):
+        st_p, _ = ps.sim_step(st_p, jax_step_noise(key, n, 181), cfg,
+                              walls_p, params_p, **kw)
+        key = step_keys(key, n)[0]
+    st_j = jax.tree.map(jnp.asarray,
+                        convert.to_numpy_like(st_p, st0)._replace(key=key))
+    step = js.make_sim_step(cfg_j, jnp.asarray(walls), params, donate=False,
+                            walls_grouped=rooms[0], room_of_agent=rooms[1])
+    with pltpu.force_tpu_interpret_mode():
+        nxt_j, m_j = step(st_j)
+    nxt_p, m_p = ps.sim_step(convert.to_torch(st_j, ps.SimState),
+                             jax_step_noise(key, n, 181), cfg, walls_p,
+                             params_p, **kw)
+    assert int(st_p.step) == merge_every - 1 and int(m_j.merges) > 0
+    for f in ps.StepMetrics._fields:
+        a, b = getattr(m_p, f), getattr(m_j, f)
+        if f == "writes":
+            np.testing.assert_allclose(int(a), int(b), rtol=1e-5)
+        elif a.dtype.is_floating_point:
+            assert_close(a, b, what=f"metric {f}")
+        else:
+            assert_exact(a, b, what=f"metric {f}")
+    decision_equal(nxt_p.srv.logodds, nxt_j.srv.logodds, "map")
+    decision_equal(nxt_p.srv.anchor, nxt_j.srv.anchor, "anchor")
+    assert int((nxt_p.srv.anchor != 0).sum()) > 0
+    for f in ("merge_dx", "merge_dy", "merge_dyaw"):
+        assert_close(getattr(nxt_p.srv, f), getattr(nxt_j.srv, f), what=f)
+    assert_exact(nxt_p.srv.merge_fail, nxt_j.srv.merge_fail)
+    for f in nxt_p.srv.frame._fields:
+        assert_close(getattr(nxt_p.srv.frame, f),
+                     getattr(nxt_j.srv.frame, f), what=f"frame {f}")
+    assert_close(nxt_p.pose_true, nxt_j.pose_true)
+    return m_p
