@@ -13,7 +13,11 @@ Ported so far: the deployable fused step (`engine.sim.sim_step` on
 the per-agent window kernel (`_free_kernel`, pack8 + in-kernel endpoints,
 `csrc/free_raster.cu`) and the room-tile kernel (`_room_kernel`, per-beam
 pack16, `csrc/room_raster.cu`), each a hand-written CUDA kernel wrapped in
-`ops/`. What is not ported yet is listed in ROADMAP.md.
+`ops/`; and the exploration path (`presets.coverage`, `enable_targets`):
+the window kernel's pack16 form without the ring on the wrapped 4-way fan
+and the sweep, the exact endpoint scatter, frontiers (`ops/frontier.py`)
+and target assignment (`coord/assign.py`). What is not ported yet is
+listed in ROADMAP.md.
 """
 
 from swarm_tpu_torch import _device  # noqa: F401  (sets the TF32 policy)

@@ -17,6 +17,7 @@ that want the CPU (the tests) say so.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -34,3 +35,11 @@ def div(x, c: float):
     instead (ROADMAP C8), which can differ in the last bit from the kernels'
     division and from the same division on the CPU."""
     return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def recip32(c: float) -> float:
+    """float32(1 / float32(c)). The reference engine runs under jit, where
+    XLA turns a division by a constant into a multiplication by this
+    (ROADMAP C15); the port multiplies by it where the reference divides
+    by a constant."""
+    return float(np.float32(1.0) / np.float32(c))

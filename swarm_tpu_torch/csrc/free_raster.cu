@@ -1,10 +1,19 @@
-// Beam-model free-space + endpoint raster, pack8 range table, for Hopper.
+// Beam-model free-space raster over per-agent windows, for Hopper.
 //
-// Replaces swarm_tpu/ops/beam_raster_pallas.py::_free_kernel in its pack8,
-// per-beam, in-kernel-endpoint form. The math is that kernel's, operation
-// for operation (see the numbered steps below); ops/beam_raster_cuda.py
-// holds the same function in plain torch (free_raster_plain) and the
-// wrapper that prepares this launch.
+// Replaces swarm_tpu/ops/beam_raster_pallas.py::_free_kernel in its
+// per-beam forms (n_groups == n_beams), with the range table as a template
+// parameter:
+//   Pack8Ring  pack8 table (7-bit 1/4-cell ranges + trusted bit 7, four
+//              beams per int32 word) and the in-kernel endpoint ring
+//              (`trusted` given, `pack8=True`);
+//   Pack16     pack16 table (16-bit 1/256-cell ranges, two beams per word)
+//              without the ring (`trusted=None`, `pack8=False`): the free
+//              carve alone, the endpoints going to the exact scatter.
+// Either table serves the 181-beam scan and the wrapped 4-way fan (the
+// wrap lives in raster_common.cuh `polar`). The math is the reference
+// kernel's, operation for operation (see the numbered steps below);
+// ops/beam_raster_cuda.py holds the same function in plain torch
+// (free_raster_plain) and the wrapper that prepares this launch.
 //
 // Scheduling: owner-computes tiles. The TPU kernel walks agents in order on
 // one core, and each agent's window is clipped to [-clamp, clamp] right
@@ -38,27 +47,31 @@ constexpr int TILE_C = 128;
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_PASS = THREADS / TILE_C;            // 2
 constexpr int CELLS = TILE_R * TILE_C / THREADS;           // 32 per thread
-constexpr int MAX_WORDS = 64;                              // <= 256 beams
+constexpr int MAX_WORDS = 128;      // pack16: <= 256 beams, pack8: <= 512
 constexpr float QUANT8_INV = 0.25f;
+constexpr float QUANT16_INV = 0x1p-8f;                     // 1/256
+
+enum Form { Pack8Ring = 0, Pack16 = 1 };
 
 struct Params {
   int size;          // grid is [size, size], size % 128 == 0
   int n_tile_cols;   // size / TILE_C
   int rows, cols;    // agent window
-  int n_words;       // pack8 words per agent
+  int n_words;       // table words per agent
   Fan f;
 };
 
+template <int FORM>
 __global__ void __launch_bounds__(THREADS)
-free_raster_pack8_kernel(float* __restrict__ grid,
-                         const int* __restrict__ origins,   // [N, 4]
-                         const float* __restrict__ meta,    // [N, 4]
-                         const int* __restrict__ table,     // [N, n_words]
-                         const int* __restrict__ tile_start,
-                         const int* __restrict__ pair_agent,
-                         const int* __restrict__ pair_slot,
-                         float* __restrict__ partial,
-                         const Params p) {
+free_raster_kernel(float* __restrict__ grid,
+                   const int* __restrict__ origins,   // [N, 4]
+                   const float* __restrict__ meta,    // [N, 4]
+                   const int* __restrict__ table,     // [N, n_words]
+                   const int* __restrict__ tile_start,
+                   const int* __restrict__ pair_agent,
+                   const int* __restrict__ pair_slot,
+                   float* __restrict__ partial,
+                   const Params p) {
   const int tile = blockIdx.x;
   const int p0 = tile_start[tile];
   const int p1 = tile_start[tile + 1];
@@ -112,16 +125,30 @@ free_raster_pack8_kernel(float* __restrict__ grid,
       if (strip_on) {
         const float dy = ((float)gr + 0.5f) - ay;
         const Polar c = raster::polar(dx, dy, yaw, p.f);
-        // 5. pack8 lookup: word g >> 2, byte g & 3
-        const uint32_t v8 = (s_table[c.g >> 2] >> (8 * (c.g & 3))) & 0xFFu;
-        const float rb = (float)(v8 & 0x7Fu) * QUANT8_INV;
-        const float tf = (float)(v8 >> 7);   // trusted bit
-        // 8. free carve + endpoint ring
-        const bool freec = c.base_ok && (c.r < rb - 0.5f);
-        delta = (freec ? p.f.miss * c.cnt : 0.f) * act;
-        const bool on_ring = c.base_ok && (fabsf(c.r - rb) <= raster::RING);
-        delta = delta + (on_ring ? p.f.hit * c.cnt * tf : 0.f) * act;
-        painted_sum += (freec ? c.cnt : 0.f) + (on_ring ? c.cnt * tf : 0.f);
+        if (FORM == Pack8Ring) {
+          // 5. pack8 lookup: word g >> 2, byte g & 3
+          const uint32_t v8 =
+              (s_table[c.g >> 2] >> (8 * (c.g & 3))) & 0xFFu;
+          const float rb = (float)(v8 & 0x7Fu) * QUANT8_INV;
+          const float tf = (float)(v8 >> 7);   // trusted bit
+          // 8. free carve + endpoint ring
+          const bool freec = c.base_ok && (c.r < rb - 0.5f);
+          delta = (freec ? p.f.miss * c.cnt : 0.f) * act;
+          const bool on_ring =
+              c.base_ok && (fabsf(c.r - rb) <= raster::RING);
+          delta = delta + (on_ring ? p.f.hit * c.cnt * tf : 0.f) * act;
+          painted_sum +=
+              (freec ? c.cnt : 0.f) + (on_ring ? c.cnt * tf : 0.f);
+        } else {
+          // 5. pack16 lookup: word g >> 1, half g & 1; no trusted bit
+          const uint32_t v16 =
+              (s_table[c.g >> 1] >> (16 * (c.g & 1))) & 0xFFFFu;
+          const float rb = (float)v16 * QUANT16_INV;
+          // 8. free carve only
+          const bool freec = c.base_ok && (c.r < rb - 0.5f);
+          delta = (freec ? p.f.miss * c.cnt : 0.f) * act;
+          painted_sum += freec ? c.cnt : 0.f;
+        }
       }
       // 11. apply, clipped after this agent
       v[k] = fminf(fmaxf(v[k] + delta, -p.f.clampv), p.f.clampv);
@@ -149,14 +176,17 @@ free_raster_pack8_kernel(float* __restrict__ grid,
 
 }  // namespace
 
-extern "C" int free_raster_pack8(
+// form: 0 = pack8 table + endpoint ring, 1 = pack16 table, no ring.
+extern "C" int free_raster_launch(
     float* grid, const int* origins, const float* meta, const int* table,
     const int* tile_start, const int* pair_agent, const int* pair_slot,
     float* partial, int n_tiles, int size, int rows, int cols, int n_words,
-    int n_beams, int dense, float theta0, float half_gdt,
-    float half_dt, float gdt, float dt, float fan_lo, float fan_hi,
-    float cover, float miss, float hit, float clampv, void* stream) {
-  if (size % TILE_C != 0 || n_words > MAX_WORDS || n_words < 1)
+    int form, int n_beams, int dense, int wrap, float theta0,
+    float half_gdt, float half_dt, float gdt, float dt, float fan_lo,
+    float fan_hi, float cover, float miss, float hit, float clampv,
+    void* stream) {
+  if (size % TILE_C != 0 || n_words > MAX_WORDS || n_words < 1 ||
+      (form != Pack8Ring && form != Pack16))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.size = size;
@@ -165,10 +195,12 @@ extern "C" int free_raster_pack8(
   p.cols = cols;
   p.n_words = n_words;
   p.f = Fan{n_beams, dense, theta0, half_gdt, half_dt, gdt, dt,
-            fan_lo, fan_hi, cover, miss, hit, clampv};
+            fan_lo, fan_hi, cover, miss, hit, clampv, wrap};
+  raster::fan_reciprocals(p.f);
   if (n_tiles > 0) {
-    free_raster_pack8_kernel<<<n_tiles, THREADS, 0,
-                               (cudaStream_t)stream>>>(
+    auto kernel = form == Pack8Ring ? free_raster_kernel<Pack8Ring>
+                                    : free_raster_kernel<Pack16>;
+    kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
         grid, origins, meta, table, tile_start, pair_agent, pair_slot,
         partial, p);
   }

@@ -38,7 +38,19 @@ struct Fan {
   float theta0, half_gdt, half_dt, gdt, dt;
   float fan_lo, fan_hi, cover;
   float miss, hit, clampv;
+  int wrap;          // the fan covers the full circle (4-way); 0 if omitted
+  // float32 reciprocals of gdt and dt (fan_reciprocals): the reference
+  // runs under jit, where XLA turns a division by a constant into a
+  // multiplication by its float32 reciprocal
+  float inv_gdt, inv_dt;
 };
+
+// Fill the reciprocals on the host, once per launch (IEEE float division,
+// as XLA folds 1 / c).
+inline void fan_reciprocals(Fan& f) {
+  f.inv_gdt = 1.0f / f.gdt;
+  f.inv_dt = 1.0f / f.dt;
+}
 
 // _atan2_poly: octant reduction + the reference's odd minimax polynomial,
 // Horner order as written there.
@@ -70,7 +82,7 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
 struct Polar {
   float r;           // distance in cells
   float cnt;         // crossing count, rounded half to even, >= 1
-  int g;             // beam index, clipped to [0, n_beams)
+  int g;             // beam index: clipped to [0, n_beams), or wrapped
   bool base_ok;      // in the fan, on a beam, not the agent's own cell
 };
 
@@ -88,11 +100,20 @@ __device__ __forceinline__ Polar polar(float dx, float dy, float yaw,
   rel = rel - f.half_gdt;
   rel = rel + f.half_dt;
   rel = rel - TWO_PI * rintf(rel * INV_TWO_PI);
-  int g = (int)floorf(rel / f.gdt + 0.5f);
-  const bool in_fan = (rel >= f.fan_lo) && (rel < f.fan_hi);
-  o.g = min(max(g, 0), f.n_beams - 1);
+  const int g = (int)floorf(rel * f.inv_gdt + 0.5f);
+  bool in_fan;
+  if (f.wrap) {
+    // jnp.mod is a floor-mod (g lies in [-2, 2] for the 4-way fan); C's %
+    // truncates. Every direction is in the fan. The residual below uses
+    // the WRAPPED bin, as the reference does (ROADMAP Queue C).
+    o.g = ((g % f.n_beams) + f.n_beams) % f.n_beams;
+    in_fan = true;
+  } else {
+    in_fan = (rel >= f.fan_lo) && (rel < f.fan_hi);
+    o.g = min(max(g, 0), f.n_beams - 1);
+  }
   // 6. crossing count, rounded half to even
-  o.cnt = fmaxf(1.0f, rintf(rinv / f.dt));
+  o.cnt = fmaxf(1.0f, rintf(rinv * f.inv_dt));
   // 7. evidence support
   if (f.dense) {
     o.base_ok = in_fan && (r2 > EPS_R2);

@@ -165,6 +165,7 @@ extern "C" int room_raster_pack16(
   p.tab_rows = tab_rows;
   p.f = Fan{n_beams, dense, theta0, half_gdt, half_dt, gdt, dt,
             fan_lo, fan_hi, cover, miss, hit, clampv};
+  raster::fan_reciprocals(p.f);
   const int n_tiles = (size / TILE_ROWS) * p.n_tile_cols;
   if (n_tiles > 0) {
     room_raster_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(

@@ -14,11 +14,18 @@ passed in is the grid of the state returned.
 Ported: the deployable preset's paths (presets.deployable) — the per-agent
 window raster (`free_raster`) or the room-tile raster
 (`engine.room_tile_per_row > 0`, `room_raster`), each with the anchored
-scan merge at `engine.merge_every` and the anchor freeze. The merge and
-zone cadences are host `if`s on a host-side step number: `make_sim_step`
-keeps it, `sim_step` takes it as `step_no` (or reads `state.step` once).
-Every config path the port does not run raises NotImplementedError naming
-its ROADMAP item (`check_supported`).
+scan merge at `engine.merge_every` and the anchor freeze — and the
+exploration path (presets.coverage): the wrapped 4-way ultrasonic fan and
+the servo scan each through the window kernel (pack16 table without the
+ring, or pack8 with it), the exact endpoint scatter after each fan without
+a ring, frontier detection at the 3 s cadence and frontier-target
+assignment (`enable_targets`), delivered in each agent's odometry frame.
+With `scan_rays == 0` the 4-way fan is the only raster and no sweep is
+sensed. The merge, zone and frontier cadences are host `if`s on a
+host-side step number: `make_sim_step` keeps it, `sim_step` takes it as
+`step_no` (or reads `state.step` once). Every config path the port does not
+run raises NotImplementedError naming its ROADMAP item
+(`check_supported`).
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ import torch
 
 from swarm_tpu_torch._device import default_device
 from swarm_tpu_torch.config import SwarmConfig
+from swarm_tpu_torch.coord.assign import (greedy_assign,
+                                          greedy_assign_rooms, room_rounds)
 from swarm_tpu_torch.coord.heartbeat import heartbeat_update
 from swarm_tpu_torch.coord.zones import (ZoneState, zone_init,
                                          zone_observe_rows, zones_for_agents)
-from swarm_tpu_torch.geom.world import cast_rays
+from swarm_tpu_torch.geom.world import agent_room_boxes, cast_rays
 from swarm_tpu_torch.models import nav as navm
 from swarm_tpu_torch.models.ekf import EkfState, ekf_init, ekf_step_batch
 from swarm_tpu_torch.models.landmarks import detect_landmark_sim
@@ -45,9 +54,13 @@ from swarm_tpu_torch.models.odometry import (DriftNoise, OdomState,
 from swarm_tpu_torch.models.scan import sense_scan
 from swarm_tpu_torch.models.sensors import (SensorNoise, walls_for_rays,
                                             draw_sensor_noise, sense_4way)
-from swarm_tpu_torch.ops.beam_raster import (BeamSpec, beams_from_scan,
+from swarm_tpu_torch.ops.beam_raster import (BeamSpec, beams_from_4way,
+                                             beams_from_scan, endpoint_rays,
                                              reach_cells)
 from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
+from swarm_tpu_torch.ops.frontier import (frontier_clusters,
+                                          frontier_targets_coarse)
+from swarm_tpu_torch.ops.raster import endpoint_scatter, tri_state_view
 from swarm_tpu_torch.ops.room_raster_cuda import room_raster
 from swarm_tpu_torch.parallel.sharded import merge_window_box
 from swarm_tpu_torch.slam.closure import (ClosureState,
@@ -248,25 +261,28 @@ class StepMetrics(NamedTuple):
 
 class StepNoise(NamedTuple):
     """Every random draw of one step: the 4-way sensing [N, 4], the servo
-    sweep [N, R] and the odometry drift [N]."""
+    sweep [N, R] (None without a sweep) and the odometry drift [N]."""
     sense: SensorNoise
-    scan: SensorNoise
+    scan: Optional[SensorNoise]
     drift: DriftNoise
 
 
 def draw_step_noise(generator: torch.Generator, n: int, n_rays: int,
                     device) -> StepNoise:
-    """One step's noise from `generator` (which must live on `device`)."""
+    """One step's noise from `generator` (which must live on `device`);
+    no sweep noise is drawn when `n_rays == 0`."""
     return StepNoise(
         sense=draw_sensor_noise(generator, (n, 4), device),
-        scan=draw_sensor_noise(generator, (n, n_rays), device),
+        scan=(draw_sensor_noise(generator, (n, n_rays), device)
+              if n_rays > 0 else None),
         drift=draw_drift_noise(generator, n, device))
 
 
-def check_supported(cfg: SwarmConfig, enable_targets: bool = False):
+def check_supported(cfg: SwarmConfig):
     """Raise NotImplementedError for every config path the port does not run
     yet, naming its ROADMAP item — never a silently different path."""
     e, s = cfg.engine, cfg.slam
+    room, window = e.room_tile_per_row > 0, e.room_tile_per_row == 0
     todo = [
         (e.parity_mode, "parity_mode (tri-state line raster)",
          "Queue A, reference-parity path"),
@@ -274,20 +290,23 @@ def check_supported(cfg: SwarmConfig, enable_targets: bool = False):
          "Queue A, reference-parity path"),
         (not e.use_pallas, "use_pallas=False (the XLA beam tier)",
          "Queue B1 variants"),
-        (e.beam_groups > 0 and e.room_tile_per_row > 0,
+        (e.beam_groups > 0 and room,
          "beam_groups > 0 with room_tile_per_row > 0 (grouped room kernel)",
          "Queue B2"),
         (e.beam_groups > 0, "beam_groups > 0 (grouped tier)",
          "Queue B1 variants"),
+        (room and (e.raster_4way or e.scan_rays <= 0),
+         "the wrapped 4-way fan on the room kernel", "Queue B2"),
+        (room and not e.kernel_endpoints,
+         "the room kernel without its endpoint ring "
+         "(kernel_endpoints=False)", "Queue B2"),
         # the room kernel takes its pack16 table whatever beam_pack8 says
-        (not e.beam_pack8 and e.room_tile_per_row == 0,
-         "beam_pack8=False (pack16 window table)", "Queue B1 variants"),
-        (not e.kernel_endpoints, "kernel_endpoints=False (endpoint scatter)",
+        (window and e.beam_pack8 and not e.kernel_endpoints,
+         "the pack8 window table without the endpoint ring",
          "Queue B1 variants"),
-        (e.raster_4way or e.scan_rays <= 0, "the 4-way raster",
+        (window and not e.beam_pack8 and e.kernel_endpoints,
+         "the pack16 window table with the endpoint ring",
          "Queue B1 variants"),
-        (e.compute_frontiers or enable_targets, "frontiers and targets",
-         "Queue A, coordination"),
         (s.merge_bias_alpha > 0.0, "merge_bias_alpha > 0",
          "Queue A, anchored merge"),
         (s.closure_scanmatch, "closure_scanmatch", "Queue A, offline SLAM"),
@@ -298,6 +317,9 @@ def check_supported(cfg: SwarmConfig, enable_targets: bool = False):
         if off_path:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP {item})")
+    if e.merge_every > 0 and e.scan_rays <= 0:
+        raise ValueError("the merge matches servo sweeps: merge_every > 0 "
+                         "needs scan_rays > 0")
 
 
 def sim_init(cfg: SwarmConfig, params: AgentParams) -> SimState:
@@ -402,13 +424,104 @@ def _merge_event(srv: MapState, frame: FrameState, rx, ry, ryaw, gate_yaw,
             merge_fail, frame, (n_merges, merge_fit, ok_agent, fit_agent))
 
 
+class TargetRooms(NamedTuple):
+    """Per-agent room boxes for frontier-target assignment, built once on
+    the host (`agent_target_rooms`): boxes [N, 4] on the device, and the
+    per-room rounds of `greedy_assign_rooms` where the swarm is large
+    enough to take it (else None)."""
+    boxes: torch.Tensor
+    rounds: Optional[tuple]
+
+
+def agent_target_rooms(cfg: SwarmConfig, walls_grouped, room_of_agent,
+                       device) -> Optional[TargetRooms]:
+    """The room boxes that restrict frontier-target assignment to each
+    agent's own room (swarm_tpu/engine/sim.py:789-815), or None without
+    room geometry. Reads the geometry on the host."""
+    if walls_grouped is None or room_of_agent is None:
+        return None
+    boxes = agent_room_boxes(torch.as_tensor(walls_grouped).cpu().numpy(),
+                             torch.as_tensor(room_of_agent).cpu().numpy())
+    rounds = (room_rounds(boxes, device)
+              if cfg.n_agents >= cfg.coord.assign_rooms_min_agents else None)
+    return TargetRooms(boxes=torch.as_tensor(boxes, device=device),
+                       rounds=rounds)
+
+
+def _raster_fans(logodds, axy, ryaw, dist4, scan_dist, alive,
+                 cfg: SwarmConfig):
+    """Every fan of the step through its raster kernel, the wrapped 4-way
+    fan first, then the sweep; after each fan without an endpoint ring, the
+    exact endpoint scatter and a clip. Returns (logodds, writes int32):
+    each fan's per-agent (or per-tile) kernel counts rounded to int32
+    before the sum, plus its endpoint writes."""
+    sens, eng = cfg.sensors, cfg.engine
+    fans = []
+    if eng.raster_4way or scan_dist is None:
+        fans.append((BeamSpec.four_way(),
+                     beams_from_4way(dist4, sens.max_range, sens.min_range)))
+    if scan_dist is not None:
+        fans.append((BeamSpec.scan(scan_dist.shape[-1]),
+                     beams_from_scan(scan_dist, sens.max_range,
+                                     sens.min_range)))
+    reach = reach_cells(cfg)
+    writes = torch.zeros((), dtype=torch.int32, device=axy.device)
+    for spec, (db, tb) in fans:
+        trusted = tb if eng.kernel_endpoints else None
+        if eng.room_tile_per_row > 0:
+            # the reference passes the room kernel no pack8: pack16 table
+            logodds, w_cnt = room_raster(
+                logodds, axy, ryaw, db, alive, spec, cfg.grid,
+                n_groups=spec.n_beams, per_row=eng.room_tile_per_row,
+                trusted=trusted, reach=reach)
+        else:
+            logodds, w_cnt = free_raster(logodds, axy, ryaw, db, alive,
+                                         trusted, spec, cfg.grid,
+                                         reach=reach, pack8=eng.beam_pack8)
+        writes = writes + torch.round(w_cnt).to(torch.int32).sum()
+        if not eng.kernel_endpoints and eng.endpoint_hits:
+            logodds, w_ep = endpoint_scatter(
+                logodds, endpoint_rays(axy, ryaw, db, tb, alive, spec),
+                cfg.grid)
+            writes = writes + w_ep
+    return logodds, writes.to(torch.int32)
+
+
+def _frontier_event(logodds, rx, ry, online, cfg: SwarmConfig,
+                    enable_targets: bool,
+                    target_rooms: Optional[TargetRooms]):
+    """One frontier event: the tri-state view of the map, frontier
+    centroids (exact clusters up to a 512 grid, block-pooled beyond), and
+    with `enable_targets` the greedy assignment (per room at swarm scale).
+    Returns (centroids, count, targets [N, 2] or None, has [N] or None)."""
+    ffn = (frontier_clusters if cfg.grid.size <= 512
+           else frontier_targets_coarse)
+    cents, _, n_fr = ffn(tri_state_view(logodds, cfg.grid), cfg.grid,
+                         cfg.coord)
+    if not enable_targets:
+        return cents, n_fr, None, None
+    agent_xy = torch.stack([rx, ry], dim=-1)
+    if target_rooms is not None and target_rooms.rounds is not None:
+        tg, has = greedy_assign_rooms(agent_xy, online, cents, n_fr,
+                                      cfg.coord, target_rooms.rounds)
+    else:
+        tg, has = greedy_assign(
+            agent_xy, online, cents, n_fr, cfg.coord,
+            room_boxes=None if target_rooms is None else target_rooms.boxes)
+    return cents, n_fr, tg, has
+
+
 def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
                     alive, t, step_no: int, cfg: SwarmConfig,
-                    params: AgentParams, scan_dist, merge_win_box=None):
+                    params: AgentParams, scan_dist, merge_win_box=None,
+                    enable_targets: bool = False,
+                    target_rooms: Optional[TargetRooms] = None):
     """One step's N packets into the mapping server (the beam + kernel
     branch of the reference's _ingest_batched): frame-tracker advance, the
-    anchored merge on merge steps, the beam raster (window or room
-    kernel), zones, the closure ring, heartbeat and the anchor freeze."""
+    anchored merge on merge steps, the beam rasters of every fan (window or
+    room kernel, then the endpoint scatter where the kernel has no ring),
+    zones, the closure ring, heartbeat, frontiers and targets on frontier
+    steps, and the anchor freeze. `scan_dist` is None without a sweep."""
     n = cfg.n_agents
     sens = cfg.sensors
     dev = est_x.device
@@ -461,23 +574,11 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     hx = rx[:, None] + rng * torch.cos(angles)
     hy = ry[:, None] + rng * torch.sin(angles)
 
-    # beam raster of the servo sweep through a kernel; its applied counts
-    # (per agent, or per room tile) are rounded to int32 BEFORE the sum
-    axy = torch.stack([rx, ry], dim=-1)
-    spec = BeamSpec.scan(scan_dist.shape[-1])
-    db, tb = beams_from_scan(scan_dist, sens.max_range, sens.min_range)
-    if cfg.engine.room_tile_per_row > 0:
-        # the reference passes the room kernel no pack8: pack16 table
-        logodds, w_cnt = room_raster(
-            srv.logodds, axy, ryaw, db, alive, spec, cfg.grid,
-            n_groups=spec.n_beams, per_row=cfg.engine.room_tile_per_row,
-            trusted=tb, reach=reach_cells(cfg))
-    else:
-        logodds, w_cnt = free_raster(srv.logodds, axy, ryaw, db, alive, tb,
-                                     spec, cfg.grid, reach=reach_cells(cfg))
-    writes = torch.round(w_cnt).to(torch.int32).sum().to(torch.int32)
-    # (the reference also builds tri_state_view(logodds) here; with
-    # frontiers off nothing reads it, so the port does not compute it)
+    # beam rasters of the fans through a kernel (the reference also builds
+    # tri_state_view(logodds) here; only a frontier event reads it, so the
+    # port builds it there)
+    logodds, writes = _raster_fans(srv.logodds, torch.stack([rx, ry], -1),
+                                   ryaw, dist4, scan_dist, alive, cfg)
 
     # territory AABBs fold the path point + valid hits
     agents = torch.arange(n, dtype=torch.int32, device=dev)
@@ -500,6 +601,16 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
         zone_boxes, zone_active = zones_for_agents(
             zone, torch.stack([rx, ry], dim=-1), online)
 
+    # frontier cadence (3 s; step 0 included)
+    target_every = max(1, round(cfg.coord.target_interval_s / dt))
+    cents, n_fr = srv.frontier_centroids, srv.n_frontiers
+    targets = None
+    if cfg.engine.compute_frontiers and step_no % target_every == 0:
+        cents, n_fr, tg, has = _frontier_event(logodds, rx, ry, online, cfg,
+                                               enable_targets, target_rooms)
+        if tg is not None:
+            targets = (tg, has)
+
     # freeze newly confident cells into the anchor at the merge cadence
     anchor = srv.anchor
     if cfg.slam.merge_anchor and merge_step and (
@@ -514,11 +625,12 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
         logodds=logodds, closure=closure, zone=zone,
         last_packet_t=last_packet_t, pkt_counts=pkt_counts,
         zone_boxes=zone_boxes, zone_active=zone_active,
+        frontier_centroids=cents, n_frontiers=n_fr,
         total_writes=writes_accumulate(srv.total_writes, writes),
         merge_dx=merge_dx, merge_dy=merge_dy, merge_dyaw=merge_dyaw,
         anchor=anchor, merge_fail=merge_fail, frame=frame)
-    return new_srv, closed, online, (rx, ry, ryaw, hx, hy, hit_valid), \
-        merge_m
+    return new_srv, closed, online, targets, \
+        (rx, ry, ryaw, hx, hy, hit_valid), merge_m
 
 
 def agent_merge_box(cfg: SwarmConfig, walls_grouped, room_of_agent,
@@ -538,15 +650,18 @@ def agent_merge_box(cfg: SwarmConfig, walls_grouped, room_of_agent,
 
 def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
              params: AgentParams, faults: Optional[FaultSchedule] = None,
-             walls_grouped=None, room_of_agent=None,
-             step_no: Optional[int] = None, merge_win_box=None):
+             enable_targets: bool = False, walls_grouped=None,
+             room_of_agent=None, step_no: Optional[int] = None,
+             merge_win_box=None, target_rooms: Optional[TargetRooms] = None):
     """Advance the whole swarm by one tick. Returns (new_state, StepMetrics).
 
     walls [S, 4] tensor; walls_grouped [G, S_g, 4] + room_of_agent [N]:
-    culled casting, each agent against its own room's segments, and the
-    per-agent merge-window boxes (`agent_merge_box`, built here when not
-    given). step_no: `state.step` as a host int, which decides the merge
-    and zone cadences; read from the state (one device sync) when None."""
+    culled casting, each agent against its own room's segments, the
+    per-agent merge-window boxes (`agent_merge_box`) and, with
+    `enable_targets`, the room boxes of target assignment
+    (`agent_target_rooms`), each built here when not given. step_no:
+    `state.step` as a host int, which decides the merge, zone and frontier
+    cadences; read from the state (one device sync) when None."""
     check_supported(cfg)
     if step_no is None:
         step_no = int(state.step)
@@ -559,6 +674,9 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
     if merge_win_box is None:
         merge_win_box = agent_merge_box(cfg, walls_grouped, room_of_agent,
                                         dev)
+    if enable_targets and target_rooms is None:
+        target_rooms = agent_target_rooms(cfg, walls_grouped, room_of_agent,
+                                          dev)
     alive = alive_mask(faults, n, state.t)
     zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
 
@@ -570,8 +688,10 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
     # 1. sense from the TRUE pose
     dist4 = sense_4way(noise.sense, state.pose_true, walls_agent,
                        cfg.sensors)
-    scan_dist = sense_scan(noise.scan, state.pose_true, walls_agent,
-                           cfg.engine.scan_rays, cfg.sensors)
+    scan_dist = None
+    if cfg.engine.scan_rays > 0:
+        scan_dist = sense_scan(noise.scan, state.pose_true, walls_agent,
+                               cfg.engine.scan_rays, cfg.sensors)
 
     # 2. landmark signature
     lm = detect_landmark_sim(dist4[:, 0], dist4[:, 1], dist4[:, 3],
@@ -584,20 +704,31 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
                                      cfg.noise.yaw_quantize_deg))
 
     # 4. server ingest
-    srv, closed, online, proj, merge_m = _ingest_batched(
+    srv, closed, online, targets, proj, merge_m = _ingest_batched(
         state.srv, odom.x_est, odom.y_est, yaw_q, dist4, lm, alive,
-        state.t, step_no, cfg, params, scan_dist, merge_win_box)
+        state.t, step_no, cfg, params, scan_dist, merge_win_box,
+        enable_targets, target_rooms)
     rx_t, ry_t, ryaw_t, hx_t, hy_t, hv_t = proj
     n_merges, merge_fit, merge_ok_a, merge_fit_a = merge_m
     est_x_t = odom.x_est + params.x_offset
     est_y_t = odom.y_est
     est_yaw_t = odom.yaw_est
 
+    # target delivery on frontier steps: targets arrive in the server frame,
+    # agents navigate in their odometry frame
+    nav = state.nav
+    if targets is not None:
+        tg, has = targets
+        tgt_local = tg - torch.stack(
+            [params.x_offset + srv.closure.drift_dx + srv.merge_dx,
+             srv.closure.drift_dy + srv.merge_dy], dim=-1)
+        nav = navm.assign_target(nav, tgt_local, has & alive)
+
     # 5. navigate (the estimate drives the FSM)
     est_pose = torch.stack([odom.x_est, odom.y_est, odom.yaw_est], dim=-1)
     zone_local = srv.zone_boxes - torch.stack(
         [params.x_offset, zeros, params.x_offset, zeros], dim=-1)
-    nav, cmd = navm.nav_step(state.nav, navm.NavParams(
+    nav, cmd = navm.nav_step(nav, navm.NavParams(
         wall_side=params.wall_side, motor_pwm=params.motor_pwm,
         return_style=params.return_style,
         home_x=params.home_x, home_y=params.home_y),
@@ -677,14 +808,16 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
 def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
                   generator: torch.Generator,
                   faults: Optional[FaultSchedule] = None,
-                  walls_grouped=None, room_of_agent=None):
+                  enable_targets: bool = False, walls_grouped=None,
+                  room_of_agent=None):
     """A single-argument step closure — the deployable engine. Noise comes
     from `generator` (on the params' device) unless a StepNoise is passed.
 
-    The closure keeps the step number on the host, so the merge cadence
-    costs no device sync: it reads `state.step` once, on the first call
-    and whenever it is handed a state it did not return, and counts from
-    there. The merge-window boxes are built once."""
+    The closure keeps the step number on the host, so the merge and
+    frontier cadences cost no device sync: it reads `state.step` once, on
+    the first call and whenever it is handed a state it did not return, and
+    counts from there. The merge-window boxes and the target-assignment
+    room boxes are built once."""
     check_supported(cfg)
     dev = params.home_x.device
 
@@ -694,6 +827,8 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
     walls_t, wg_t, roa_t = as_t(walls), as_t(walls_grouped), \
         as_t(room_of_agent)
     win_box = agent_merge_box(cfg, wg_t, roa_t, dev)
+    rooms = (agent_target_rooms(cfg, wg_t, roa_t, dev) if enable_targets
+             else None)
     host = {"state": None, "step": 0}
 
     def step(state: SimState, noise: Optional[StepNoise] = None):
@@ -703,8 +838,9 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
         if state is not host["state"]:
             host["step"] = int(state.step)
         out = sim_step(state, noise, cfg, walls_t, params, faults,
-                       walls_grouped=wg_t, room_of_agent=roa_t,
-                       step_no=host["step"], merge_win_box=win_box)
+                       enable_targets, walls_grouped=wg_t,
+                       room_of_agent=roa_t, step_no=host["step"],
+                       merge_win_box=win_box, target_rooms=rooms)
         host["state"], host["step"] = out[0], host["step"] + 1
         return out
 
@@ -714,11 +850,12 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
 def sim_rollout(state: SimState, n_steps: int, cfg: SwarmConfig, walls,
                 params: AgentParams, generator: torch.Generator,
                 faults: Optional[FaultSchedule] = None,
-                walls_grouped=None, room_of_agent=None):
+                enable_targets: bool = False, walls_grouped=None,
+                room_of_agent=None):
     """n_steps of the fused step in a Python loop. Returns (final state,
     StepMetrics with every field stacked over steps)."""
     step = make_sim_step(cfg, walls, params, generator, faults,
-                         walls_grouped, room_of_agent)
+                         enable_targets, walls_grouped, room_of_agent)
     ms = []
     for _ in range(n_steps):
         state, m = step(state)

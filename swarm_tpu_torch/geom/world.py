@@ -64,6 +64,18 @@ def walls_by_group(walls: np.ndarray, segs_per_group: int = 4) -> np.ndarray:
     return walls.reshape(s // segs_per_group, segs_per_group, 4)
 
 
+def agent_room_boxes(walls_grouped, room_of_agent) -> np.ndarray:
+    """Per-agent room box in world metres, [N, 4] float32 (x0, y0, x1, y1):
+    the bounds of each agent's own room's segments. Host numpy; restricts
+    frontier-target assignment to frontiers the agent can reach."""
+    wg = np.asarray(walls_grouped)
+    roa = np.asarray(room_of_agent)
+    xs = wg[..., [0, 2]].reshape(wg.shape[0], -1)
+    ys = wg[..., [1, 3]].reshape(wg.shape[0], -1)
+    return np.stack([xs.min(1)[roa], ys.min(1)[roa],
+                     xs.max(1)[roa], ys.max(1)[roa]], -1).astype(np.float32)
+
+
 def ray_segment_t(ox, oy, dx, dy, walls):
     """Parametric hit distances of rays against wall segments.
 

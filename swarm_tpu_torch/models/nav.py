@@ -254,3 +254,20 @@ def nav_step(nav: NavState, params: NavParams, ranges_m, est_pose,
                      moving=(drive_m > 0) | (torch.abs(turn_cmd) > 0))
     return new_nav, cmd
 
+
+
+def assign_target(nav: NavState, target_xy, mask):
+    """A server target arrives (the firmware's TARG handler, present but
+    disabled in the reference system, enabled behind the engine's
+    `enable_targets`): take it and switch to GO_TO_TARGET unless avoiding
+    an obstacle or done. target_xy [N, 2] in the agent's odometry frame,
+    mask [N] bool."""
+    take = mask & (nav.state != AVOID_FRONT) & ~nav.mission_complete
+    go = torch.full_like(nav.state, GO_TO_TARGET)
+    return nav._replace(
+        has_target=nav.has_target | take,
+        target_x=torch.where(take, target_xy[..., 0], nav.target_x),
+        target_y=torch.where(take, target_xy[..., 1], nav.target_y),
+        target_age_s=torch.where(take, torch.zeros_like(nav.target_age_s),
+                                 nav.target_age_s),
+        state=torch.where(take, go, nav.state))

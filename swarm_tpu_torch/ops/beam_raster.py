@@ -1,10 +1,10 @@
 """Polar beam-model raster helpers (swarm_tpu/ops/beam_raster.py): the
 beam fan, the evidence reach, the per-agent window and its placement, the
 fan's bounding box, the 8- and 16-bit range quantisations (the 16-bit pair
-packing of swarm_tpu/ops/beam_raster_pallas.py:186-209), and the beam
-tables built from sensor readings. The rasters themselves are
-ops/beam_raster_cuda.py (per-agent windows) and ops/room_raster_cuda.py
-(room tiles).
+packing of swarm_tpu/ops/beam_raster_pallas.py:186-209), the beam tables
+built from sensor readings and the endpoint rays of a fan. The rasters
+themselves are ops/beam_raster_cuda.py (per-agent windows) and
+ops/room_raster_cuda.py (room tiles).
 """
 
 from __future__ import annotations
@@ -38,12 +38,13 @@ def quantize_ranges_cells8(ranges_cells):
 
 
 def _pack_range16(dist_cells_raw, trusted):
-    """[N, B] raw ranges in cells + trusted mask -> [N, P] int32 pair
-    words, beam 2p in bits 0-15 and beam 2p+1 in bits 16-31 (15-bit
-    1/256-cell range, trusted bit 15)."""
+    """[N, B] raw ranges in cells + trusted mask (or None: no trusted bit)
+    -> [N, P] int32 pair words, beam 2p in bits 0-15 and beam 2p+1 in bits
+    16-31 (15-bit 1/256-cell range, trusted bit 15)."""
     ints = torch.round(torch.clamp(dist_cells_raw, 0.0, RANGE_MAX_CELLS)
                        * RANGE_QUANT).to(torch.int32)
-    ints = ints | (trusted.to(torch.int32) << 15)
+    if trusted is not None:
+        ints = ints | (trusted.to(torch.int32) << 15)
     b_n = ints.shape[-1]
     n_pairs = -(-b_n // 2)
     ints = torch.nn.functional.pad(ints, (0, 2 * n_pairs - b_n))
@@ -142,6 +143,22 @@ def fan_bbox_cells(yaw, spec: BeamSpec, reach_r: float):
     z = torch.zeros_like(yaw)
     return (torch.minimum(z, xmin * reach_r), torch.maximum(z, xmax * reach_r),
             torch.minimum(z, ymin * reach_r), torch.maximum(z, ymax * reach_r))
+
+
+def endpoint_rays(agent_xy, yaw, dist_m, trusted, active, spec: BeamSpec):
+    """Trusted beam endpoints as zero-length rays for the exact endpoint
+    scatter (`ops.raster.endpoint_scatter`, or `logodds_delta` with
+    k_max=1). agent_xy [N, 2], yaw [N], dist_m / trusted [N, B]."""
+    from swarm_tpu_torch.ops.raster import RayBatch
+
+    b = dist_m.shape[1]
+    ang = yaw[:, None] + spec.theta0 + \
+        torch.arange(b, dtype=dist_m.dtype,
+                     device=dist_m.device)[None, :] * spec.dtheta
+    hx = (agent_xy[:, 0:1] + dist_m * torch.cos(ang)).reshape(-1)
+    hy = (agent_xy[:, 1:2] + dist_m * torch.sin(ang)).reshape(-1)
+    ok = (trusted & active[:, None]).reshape(-1)
+    return RayBatch(ox=hx, oy=hy, hx=hx, hy=hy, hit_valid=ok, active=ok)
 
 
 def beams_from_4way(dist4_m, sens_max_range: float, sens_min_range: float):

@@ -1,31 +1,42 @@
-"""The beam-model free-space + endpoint raster: a CUDA kernel for Hopper and
-its plain torch version.
+"""The beam-model free-space raster over per-agent windows: a CUDA kernel
+for Hopper and its plain torch version.
 
 Replaces `swarm_tpu/ops/beam_raster_pallas.py::_free_kernel` (entry point
-`free_raster_pallas`) in the form the deployable step runs: per-beam carve
-(`n_groups == n_beams`), pack8 range table (7-bit 1/4-cell ranges + trusted
-bit 7, four beams per int32 word), in-kernel endpoint ring, float32 grid,
-no band. Per agent, over its aligned [64, 256] window, every cell gets the
+`free_raster_pallas`) in the per-beam forms (`n_groups == n_beams`) the
+ported paths run, on a float32 grid without a band:
+- pack8 + ring (`trusted` given, `pack8=True`): 7-bit 1/4-cell ranges +
+  trusted bit 7, four beams per int32 word, and the in-kernel endpoint ring
+  (the deployable step, `bench.py`'s defaults);
+- pack16 without the ring (`trusted=None`, `pack8=False`): 16-bit 1/256-cell
+  ranges, two beams per word, the free carve alone; the endpoints go to the
+  exact scatter (`ops/raster.endpoint_scatter`) after the kernel
+  (`EngineConfig`'s own defaults, the coverage tool's configuration).
+Each table serves a fan (the 181-beam scan) and the wrapped 4-way fan
+(`spec.wrap`: every direction is in the fan, the beam bin is a floor-mod).
+Per agent, over its aligned [64, 256] window, every cell gets the
 inverse-sensor-model evidence of its nearest beam (free carve
-`r < rb - 0.5` weighted by the crossing count, endpoint ring
+`r < rb - 0.5` weighted by the crossing count, and with the ring
 `|r - rb| <= 0.71` weighted by the trusted bit), and the window is clipped
 to [-clamp, clamp] after each agent, agents in index order. The per-agent
 painted count is the engine's applied-write counter.
 
 What bounds it on the H100: at 1024 agents x 64 x 256 cells per step the
-kernel evaluates ~17 M cells, each ~40 float operations (a division, a
-square root, the atan2 polynomial, the bin and the table lookup), and reads
-and writes the tiles the windows cover once (~128 MB on the 4096^2 grid).
-The range table is 184 bytes per agent and is not the bound. The design
-(csrc/free_raster.cu) gives each block one 64 x 128 tile held in registers,
-so the read-modify-write of overlapping windows happens in registers in
-agent order and the grid is read and written once per step, and each agent's
-table sits in shared memory. It is simple, not yet fast: the per-cell work
-of inactive fan-bbox strips is skipped, but nothing else is pruned.
+kernel evaluates up to ~17 M cells, each ~40 float operations (a division,
+a square root, the atan2 polynomial, the bin and the table lookup), and
+reads and writes the tiles the windows cover once (~128 MB on the 4096^2
+grid). The range table (at most 364 bytes per agent) is not the bound. The
+design (csrc/free_raster.cu) gives each block one 64 x 128 tile held in
+registers, so the read-modify-write of overlapping windows happens in
+registers in agent order and the grid is read and written once per launch,
+and each agent's table sits in shared memory. It is simple, not yet fast:
+the per-cell work of inactive fan-bbox strips is skipped (the wrapped fan's
+bbox is the full disc, so it skips nothing), but nothing else is pruned.
 
 `free_raster` dispatches on where the grid lies: a CPU tensor goes to
 `free_raster_plain`; a CUDA tensor launches the kernel or raises.
-`free_raster.launches` counts kernel launches and nothing else.
+`free_raster.launches` counts kernel launches and nothing else;
+`free_raster.launches_by_form` splits that count by table form and fan
+(`form_name`).
 """
 
 from __future__ import annotations
@@ -37,22 +48,35 @@ from typing import NamedTuple
 import torch
 
 from swarm_tpu_torch._device import div as _div
+from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.ops import cuda_build
-from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT8,
-                                             REACH_CELLS, BeamSpec,
+from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT,
+                                             RANGE_QUANT8, REACH_CELLS,
+                                             BeamSpec, _pack_range16,
                                              fan_bbox_cells, patch_dims,
                                              patch_origin)
 
 TILE_R = 64            # grid tile owned by one CUDA block (csrc TILE_R/C)
 TILE_C = 128
-MAX_WORDS = 64         # csrc MAX_WORDS: pack8 tables up to 256 beams
+MAX_WORDS = 128        # csrc MAX_WORDS: table words per agent
+FORM_PACK8_RING = 0    # csrc Form
+FORM_PACK16 = 1
 
 _SOURCE = cuda_build.source("free_raster")
 
 
 # --------------------------------------------------------------------------
 # semantics shared by the kernel and the plain version
+
+
+def cells_of(agent_xy, cfg: GridConfig):
+    """Agent positions [N, 2] in world metres -> (ax, ay) [N] in cells,
+    multiplied by the float32 reciprocal of the resolution, as the jitted
+    reference computes them."""
+    inv = recip32(cfg.resolution)
+    return ((agent_xy[:, 0] - cfg.origin_x) * inv,
+            (agent_xy[:, 1] - cfg.origin_y) * inv)
 
 
 def _dense_fan(spec: BeamSpec, reach_cells: float) -> bool:
@@ -114,20 +138,33 @@ class _Windows(NamedTuple):
     ay: torch.Tensor
     yaw: torch.Tensor
     act: torch.Tensor     # [N] f32 0/1
-    table: torch.Tensor   # [N, W] int32 pack8 words
+    table: torch.Tensor   # [N, W] int32 pack8 or pack16 words
     rows: int
     cols: int
+    form: int             # FORM_PACK8_RING or FORM_PACK16
 
 
-def _check_supported(logodds, spec: BeamSpec, reach: int):
-    if spec.wrap:
+def form_name(spec: BeamSpec, pack8: bool) -> str:
+    """The launch-count key of a form: table (`pack8-ring` / `pack16`) and
+    fan (`-wrapped` for the 4-way fan)."""
+    return ("pack8-ring" if pack8 else "pack16") + \
+        ("-wrapped" if spec.wrap else "")
+
+
+def _check_supported(logodds, spec: BeamSpec, reach: int, trusted,
+                     pack8: bool):
+    if pack8 and trusted is None:
         raise NotImplementedError(
-            "the 4-way (wrapped) fan raster is not ported yet "
-            "(ROADMAP Queue B1 variants)")
+            "the pack8 window raster without its endpoint ring is not "
+            "ported yet (ROADMAP Queue B1 variants)")
+    if not pack8 and trusted is not None:
+        raise NotImplementedError(
+            "the pack16 window raster with the endpoint ring is not ported "
+            "yet (ROADMAP Queue B1 variants)")
     if logodds.dtype != torch.float32:
         raise NotImplementedError(
             "bfloat16 grids are not ported yet (ROADMAP Queue B1 variants)")
-    if reach > 31:
+    if pack8 and reach > 31:
         raise ValueError(
             f"pack8 range field (31.75 cells) cannot cover the beam reach "
             f"({reach} cells)")
@@ -138,12 +175,11 @@ def _check_supported(logodds, spec: BeamSpec, reach: int):
 
 
 def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
-             cfg: GridConfig, trusted, reach: int) -> _Windows:
+             cfg: GridConfig, trusted, reach: int,
+             pack8: bool = True) -> _Windows:
     size = logodds.shape[0]
     rows, cols = patch_dims(size, reach)
-    res = cfg.resolution
-    ax = _div(agent_xy[:, 0] - cfg.origin_x, res)
-    ay = _div(agent_xy[:, 1] - cfg.origin_y, res)
+    ax, ay = cells_of(agent_xy, cfg)
     row0, col0 = patch_origin(ax, ay, size, rows, cols, reach)
     # fan-bbox column-strip bounds: reach + 1.5 covers the endpoint ring
     # and the half-cell centre offset; +-1.5 cells absorb fan-edge rounding
@@ -154,11 +190,15 @@ def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
                        0, n_cb).to(torch.int32)
     t_ch = torch.clamp(torch.ceil(_div(ax + bxmax + 1.5 - c0f, 128.0)),
                        0, n_cb).to(torch.int32)
-    table = _pack_range8(_div(dist_m, res).to(torch.float32), trusted)
+    cells = (dist_m * recip32(cfg.resolution)).to(torch.float32)
+    if pack8:
+        table, form = _pack_range8(cells, trusted), FORM_PACK8_RING
+    else:
+        table, form = _pack_range16(cells, None), FORM_PACK16
     return _Windows(row0=row0, col0=col0, t_cl=t_cl, t_ch=t_ch, ax=ax, ay=ay,
                     yaw=yaw.to(torch.float32),
                     act=active.to(torch.float32), table=table,
-                    rows=rows, cols=cols)
+                    rows=rows, cols=cols, form=form)
 
 
 def _constants(spec: BeamSpec, cfg: GridConfig):
@@ -167,9 +207,11 @@ def _constants(spec: BeamSpec, cfg: GridConfig):
     gdt = spec.dtheta                        # per-beam tier: one beam/group
     return dict(theta0=spec.theta0, half_gdt=gdt / 2.0,
                 half_dt=spec.dtheta / 2.0, gdt=gdt, dt=spec.dtheta,
+                inv_gdt=recip32(gdt), inv_dt=recip32(spec.dtheta),
                 fan_lo=-gdt / 2.0, fan_hi=(spec.n_beams - 0.5) * gdt,
                 cover=spec.dtheta * 0.999, miss=cfg.logodds_miss,
-                hit=cfg.logodds_hit, clampv=cfg.logodds_clamp)
+                hit=cfg.logodds_hit, clampv=cfg.logodds_clamp,
+                wrap=spec.wrap)
 
 
 # --------------------------------------------------------------------------
@@ -186,10 +228,15 @@ def _polar(dx, dy, yaw, k: dict, n_beams: int, dense: bool):
     theta = _atan2_poly(dy, dx)
     rel = theta - yaw - k["theta0"] - k["half_gdt"] + k["half_dt"]
     rel = _wrap_pi_cheap(rel)
-    g = torch.floor(_div(rel, k["gdt"]) + 0.5).to(torch.int32)
-    in_fan = (rel >= k["fan_lo"]) & (rel < k["fan_hi"])
-    g = torch.clamp(g, 0, n_beams - 1)
-    cnt = torch.clamp_min(torch.round(_div(rinv, k["dt"])), 1.0)
+    g = torch.floor(rel * k["inv_gdt"] + 0.5).to(torch.int32)
+    if k["wrap"]:
+        # floor-mod, as jnp.mod; the residual below uses the wrapped bin
+        in_fan = torch.ones_like(rel, dtype=torch.bool)
+        g = torch.remainder(g, n_beams)
+    else:
+        in_fan = (rel >= k["fan_lo"]) & (rel < k["fan_hi"])
+        g = torch.clamp(g, 0, n_beams - 1)
+    cnt = torch.clamp_min(torch.round(rinv * k["inv_dt"]), 1.0)
     if dense:
         base_ok = in_fan & (r2 > 1e-6)
     else:
@@ -216,18 +263,29 @@ def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
                                 cy - w.ay[:, None, None],
                                 w.yaw[:, None, None], k, spec.n_beams, dense)
 
-    words = torch.gather(w.table, 1, (g >> 2).reshape(n, -1).to(torch.int64))
-    v8 = (words.reshape(g.shape) >> (8 * (g & 3))) & 0xFF
-    rb, tf = _unpack_range8(v8)
-
     zero = torch.zeros_like(r)
     act = w.act[:, None, None]
-    free = base_ok & (r < rb - 0.5)
-    delta = torch.where(free, k["miss"] * cnt, zero) * act
-    on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
-    delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero) * act
-    painted = torch.where(free, cnt, zero) + \
-        torch.where(on_ring, cnt * tf, zero)
+    if w.form == FORM_PACK8_RING:
+        words = torch.gather(w.table, 1,
+                             (g >> 2).reshape(n, -1).to(torch.int64))
+        v8 = (words.reshape(g.shape) >> (8 * (g & 3))) & 0xFF
+        rb, tf = _unpack_range8(v8)
+        free = base_ok & (r < rb - 0.5)
+        delta = torch.where(free, k["miss"] * cnt, zero) * act
+        on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
+        delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero) * act
+        painted = torch.where(free, cnt, zero) + \
+            torch.where(on_ring, cnt * tf, zero)
+    else:
+        words = torch.gather(w.table, 1,
+                             (g >> 1).reshape(n, -1).to(torch.int64))
+        v16 = (words.reshape(g.shape) >> (16 * (g & 1))) & 0xFFFF
+        # no trusted bit: all 16 bits are range (`_unpack_range16(v16,
+        # False)` of the reference)
+        rb = v16.to(torch.float32) * (1.0 / RANGE_QUANT)
+        free = base_ok & (r < rb - 0.5)
+        delta = torch.where(free, k["miss"] * cnt, zero) * act
+        painted = torch.where(free, cnt, zero)
     strip = (cc // 128)
     on = (strip >= w.t_cl[:, None, None]) & (strip < w.t_ch[:, None, None])
     delta = torch.where(on, delta, zero)
@@ -237,14 +295,14 @@ def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
 
 def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
                       spec: BeamSpec, cfg: GridConfig = GridConfig(),
-                      reach: int = REACH_CELLS):
+                      reach: int = REACH_CELLS, pack8: bool = True):
     """The raster in plain torch: deltas vectorised over [N, rows, cols],
     then applied window by window in agent index order, each window
     clipped after its agent. Updates `logodds` IN PLACE and returns
     (logodds, counts [N] f32)."""
-    _check_supported(logodds, spec, reach)
+    _check_supported(logodds, spec, reach, trusted, pack8)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
-                 reach)
+                 reach, pack8)
     delta, counts = _window_deltas(w, spec, cfg, _dense_fan(spec, reach))
     c = cfg.logodds_clamp
     for a, (r0, c0) in enumerate(zip(w.row0.tolist(), w.col0.tolist())):
@@ -259,8 +317,8 @@ def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
 
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.free_raster_pack8.argtypes = [P] * 8 + [I] * 7 + [F] * 11 + [P]
-    lib.free_raster_pack8.restype = I
+    lib.free_raster_launch.argtypes = [P] * 8 + [I] * 9 + [F] * 11 + [P]
+    lib.free_raster_launch.restype = I
 
 
 def _tile_pairs(w: _Windows, size: int):
@@ -298,13 +356,14 @@ class _Launch(NamedTuple):
     """The kernel's operands, prepared from the windows (`_prepare`)."""
     origins: torch.Tensor     # [N, 4] int32 row0, col0, t_cl, t_ch
     meta: torch.Tensor        # [N, 4] f32 ax, ay, yaw, act
-    table: torch.Tensor       # [N, W] int32 pack8 words
+    table: torch.Tensor       # [N, W] int32 table words
     tile_start: torch.Tensor  # [T + 1] int32 CSR offsets per tile
     pair_agent: torch.Tensor  # [P] int32
     pair_slot: torch.Tensor   # [P] int32
     k: int                    # candidate tiles per agent
     rows: int
     cols: int
+    form: int                 # FORM_PACK8_RING or FORM_PACK16
 
 
 def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
@@ -312,7 +371,7 @@ def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
         raise ValueError("the raster kernel updates a contiguous grid")
     if w.table.shape[1] > MAX_WORDS:
         raise ValueError(f"{spec.n_beams} beams exceed the kernel's "
-                         f"{4 * MAX_WORDS}-beam table")
+                         f"{MAX_WORDS}-word table")
     origins = torch.stack([w.row0, w.col0, w.t_cl, w.t_ch], -1).to(
         torch.int32).contiguous()
     meta = torch.stack([w.ax, w.ay, w.yaw, w.act], -1).to(
@@ -324,7 +383,7 @@ def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
     tile_start, pair_agent, pair_slot, k, _ = _tile_pairs(w,
                                                           logodds.shape[0])
     return _Launch(origins, meta, table, tile_start, pair_agent, pair_slot,
-                   k, w.rows, w.cols)
+                   k, w.rows, w.cols, w.form)
 
 
 def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
@@ -334,46 +393,52 @@ def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
     partial = torch.zeros(n * ln.k, dtype=torch.float32,
                           device=logodds.device)
     c = _constants(spec, cfg)
-    err = cuda_build.load("free_raster", _bind).free_raster_pack8(
+    err = cuda_build.load("free_raster", _bind).free_raster_launch(
         logodds.data_ptr(), ln.origins.data_ptr(), ln.meta.data_ptr(),
         ln.table.data_ptr(), ln.tile_start.data_ptr(),
         ln.pair_agent.data_ptr(), ln.pair_slot.data_ptr(),
         partial.data_ptr(), ln.tile_start.shape[0] - 1, logodds.shape[0],
-        ln.rows, ln.cols, ln.table.shape[1], spec.n_beams, int(dense),
-        c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
-        c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
-        c["clampv"], torch.cuda.current_stream(logodds.device).cuda_stream)
+        ln.rows, ln.cols, ln.table.shape[1], ln.form, spec.n_beams,
+        int(dense), int(spec.wrap), c["theta0"], c["half_gdt"],
+        c["half_dt"], c["gdt"], c["dt"], c["fan_lo"], c["fan_hi"],
+        c["cover"], c["miss"], c["hit"], c["clampv"],
+        torch.cuda.current_stream(logodds.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"free_raster_pack8 launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"free_raster launch failed: CUDA error {err}")
     free_raster.launches += 1
+    name = form_name(spec, ln.form == FORM_PACK8_RING)
+    free_raster.launches_by_form[name] = \
+        free_raster.launches_by_form.get(name, 0) + 1
     # pair slots reduced per agent in a fixed order (no float atomics)
     return partial.reshape(n, ln.k).sum(dim=1) * ln.meta[:, 3]
 
 
 def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
                 spec: BeamSpec, cfg: GridConfig = GridConfig(),
-                reach: int = REACH_CELLS):
+                reach: int = REACH_CELLS, pack8: bool = True):
     """The engine's raster: (new_logodds, counts [N] f32) as
-    `free_raster_pallas(..., n_groups=n_beams, pack8=True, trusted=...)`
-    returns them; counts is the per-agent in-kernel applied-write counter.
-    agent_xy [N, 2] world metres, yaw [N], dist_m / trusted [N, B] the
-    range-limited sweep and its trust mask, active [N] bool. `logodds`
+    `free_raster_pallas(..., n_groups=n_beams, pack8=pack8,
+    trusted=trusted)` returns them; counts is the per-agent in-kernel
+    applied-write counter. agent_xy [N, 2] world metres, yaw [N], dist_m
+    [N, B] the range-limited readings, trusted [N, B] their trust mask (the
+    ring, with `pack8=True`) or None (no ring, with `pack8=False`), active
+    [N] bool. `spec` is the scan's fan or the wrapped 4-way fan. `logodds`
     [S, S] float32 is updated IN PLACE.
 
     A CPU grid goes to `free_raster_plain`. A CUDA grid launches the
     kernel; a failed build or launch raises."""
     if logodds.device.type == "cpu":
         return free_raster_plain(logodds, agent_xy, yaw, dist_m, active,
-                                 trusted, spec, cfg, reach=reach)
+                                 trusted, spec, cfg, reach=reach, pack8=pack8)
     if logodds.device.type != "cuda":
         raise ValueError(f"no raster for a grid on {logodds.device}")
-    _check_supported(logodds, spec, reach)
+    _check_supported(logodds, spec, reach, trusted, pack8)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
-                 reach)
+                 reach, pack8)
     counts = _launch(logodds, _prepare(logodds, w, spec), spec, cfg,
                      _dense_fan(spec, reach))
     return logodds, counts
 
 
 free_raster.launches = 0
+free_raster.launches_by_form = {}

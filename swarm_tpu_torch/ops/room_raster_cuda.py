@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.geom.world import TILE_COLS, TILE_ROWS
 from swarm_tpu_torch.ops import cuda_build
@@ -46,7 +47,7 @@ from swarm_tpu_torch.ops.beam_raster import (REACH_CELLS, BeamSpec,
                                              _pack_range16, _unpack_range16,
                                              patch_origin)
 from swarm_tpu_torch.ops.beam_raster_cuda import (_constants, _dense_fan,
-                                                  _div, _polar)
+                                                  _polar, cells_of)
 
 AGENTS_PER_ROOM = 2    # csrc SLOTS
 META = 8               # csrc META: ax, ay, yaw, act, r_loc, 0, 0, 0
@@ -108,10 +109,9 @@ def _rooms(logodds, agent_xy, yaw, dist_m, active, cfg: GridConfig,
     if per_row > bc_n or (n_rooms > 0 and (n_rooms - 1) // per_row >= br_n):
         raise ValueError(f"{n_rooms} rooms at {per_row} per row do not fit "
                          f"the {br_n} x {bc_n} tiles of a {size}^2 grid")
-    res = cfg.resolution
-    ax = _div(agent_xy[:, 0] - cfg.origin_x, res)
-    ay = _div(agent_xy[:, 1] - cfg.origin_y, res)
-    words = _pack_range16(_div(dist_m, res).to(torch.float32), trusted)
+    ax, ay = cells_of(agent_xy, cfg)
+    words = _pack_range16((dist_m * recip32(cfg.resolution)).to(
+        torch.float32), trusted)
     tab_rows = _round_up(words.shape[1], 8)
 
     i = torch.arange(n, device=dev)

@@ -1,12 +1,23 @@
-"""The deployable preset: what `bench.py` runs, built without jax.
+"""The repository's preset worlds, built without jax.
 
-`deployable` returns what `__graft_entry__._cfg_and_world(n, frontiers=False,
-parity=False, raster_mode="beam", use_pallas=True, scan_rays=181,
-tiled=True, room_kernel=...)` returns, with bench.py's replacements and
-defaults (`beam_groups=0`, `kernel_endpoints=True`, `beam_pack8=True`,
-`raster_4way=False`, `merge_every=16`). `room_kernel=True` is
+Both return what `__graft_entry__._cfg_and_world(n, frontiers=...,
+parity=False, raster_mode="beam", use_pallas=True, scan_rays=...,
+tiled=True, room_kernel=...)` returns, for the tool that runs it:
+
+`deployable` adds bench.py's replacements and defaults (`beam_groups=0`,
+`kernel_endpoints=True`, `beam_pack8=True`, `raster_4way=(scan_rays == 0)`,
+`merge_every=16` when there is a sweep, else 0). `room_kernel=True` is
 `bench.py --room-kernel`: `room_tile_per_row = per_row`, so the raster runs
 the room-tile kernel instead of the per-agent window kernel.
+`frontiers=True` is `bench.py --frontiers` (run it with
+`enable_targets=True`); `scan_rays=0` is `bench.py --scan-rays 0`, the
+4-way ultrasonic fan alone.
+
+`coverage` is the configuration of tools/bench_coverage.py: EngineConfig's
+own raster defaults (`raster_4way=True`, `kernel_endpoints=False`,
+`endpoint_hits=True`, `beam_pack8=False`, `beam_groups=0`), the merge off.
+Its variants are wall-following (`frontiers=False`) and frontier targets
+(`frontiers=True`, run with `enable_targets=True`).
 """
 
 from __future__ import annotations
@@ -23,13 +34,10 @@ from swarm_tpu_torch.engine.sim import make_agent_params
 from swarm_tpu_torch.geom.world import make_tiled_rooms, walls_by_group
 
 
-def deployable(n_agents: int, device=None, merge_every: int = 16,
-               room_kernel: bool = False):
+def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
+                 room_kernel: bool, **engine):
     """Tiled-rooms world (two agents per room, each room on its own
-    [128, 256]-cell grid tile) + config for an n-agent swarm. Returns
-    (cfg, walls [S, 4], params, (walls_grouped [G, 4, 4], room_of_agent
-    [N] int32)), tensors on `device` (the card when None). At 1024 agents:
-    a 4096^2 grid, 512 rooms (2048 wall segments), 181-beam sweeps."""
+    [128, 256]-cell grid tile) + config with the given engine fields."""
     device = default_device(device)
     n_rooms = max(1, n_agents // 2)
     per_row = max(1, round(math.sqrt(n_rooms / 2.0)))
@@ -41,11 +49,9 @@ def deployable(n_agents: int, device=None, merge_every: int = 16,
         n_agents=n_agents,
         grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0),
         engine=EngineConfig(
-            parity_mode=False, compute_frontiers=False, raster_mode="beam",
-            use_pallas=True, scan_rays=181,
-            room_tile_per_row=per_row if room_kernel else 0,
-            beam_groups=0, kernel_endpoints=True, beam_pack8=True,
-            raster_4way=False, merge_every=merge_every),
+            parity_mode=False, compute_frontiers=frontiers,
+            raster_mode="beam", use_pallas=True, scan_rays=scan_rays,
+            room_tile_per_row=per_row if room_kernel else 0, **engine),
         # same-agent closures, anchor map, no closure snap, frame tracker on
         # (the reference preset's settings and reasons,
         # __graft_entry__.py:65-91)
@@ -65,3 +71,28 @@ def deployable(n_agents: int, device=None, merge_every: int = 16,
     rooms = (torch.tensor(walls_by_group(walls), device=device),
              torch.tensor(room, dtype=torch.int32, device=device))
     return cfg, torch.tensor(walls, device=device), params, rooms
+
+
+def deployable(n_agents: int, device=None, merge_every: int = 16,
+               room_kernel: bool = False, frontiers: bool = False,
+               scan_rays: int = 181):
+    """bench.py's world + config for an n-agent swarm. Returns (cfg, walls
+    [S, 4], params, (walls_grouped [G, 4, 4], room_of_agent [N] int32)),
+    tensors on `device` (the card when None). At 1024 agents: a 4096^2
+    grid, 512 rooms (2048 wall segments), 181-beam sweeps. Without a sweep
+    (`scan_rays=0`) the merge is off, as bench.py sets it."""
+    return _tiled_world(
+        n_agents, device, frontiers, scan_rays, room_kernel,
+        beam_groups=0, kernel_endpoints=True, beam_pack8=True,
+        raster_4way=scan_rays == 0,
+        merge_every=merge_every if scan_rays > 0 else 0)
+
+
+def coverage(n_agents: int, frontiers: bool = True, device=None):
+    """tools/bench_coverage.py's world + config (the exploration path):
+    the same tiled world, EngineConfig's raster defaults (the wrapped 4-way
+    fan and the 181-beam sweep, each through the pack16 window table
+    without the endpoint ring, then the exact endpoint scatter), the merge
+    off, frontiers at the 3 s cadence when `frontiers`. Returns what
+    `deployable` returns. At 64 agents: a 1024^2 grid; at 1024: 4096^2."""
+    return _tiled_world(n_agents, device, frontiers, 181, False)

@@ -2,7 +2,10 @@
 
 The plain torch version (`free_raster_plain`, the function the CUDA kernel
 is held bit-equal to on the card) runs against
-`free_raster_pallas(..., pack8=True, trusted=..., interpret=True)`.
+`free_raster_pallas(..., pack8=True, trusted=..., interpret=True)`, and in
+the exploration path's forms against `pack8=False, trusted=None` (the
+scan and the wrapped 4-way fan) and `pack8=True, trusted=...` on the
+wrapped fan.
 Integer work (pack8 packing, window origins, fan-bbox strip bounds) is
 bit-exact. The map is decision-equal within a bound: XLA on the CPU fuses
 dx*dx + dy*dy into an FMA and its `lax.rsqrt` is not IEEE 1/sqrt, so a cell
@@ -171,6 +174,85 @@ def test_overlap_saturation_clip_order(rng):
         sum_then_clip[r0:r0 + 64, c0:c0 + 256] += delta[a].numpy()
     sum_then_clip = np.clip(sum_then_clip, -10.0, 10.0)
     assert (np.abs(sum_then_clip - np.asarray(ref)) > 1e-3).sum() > 20
+
+
+# the window raster's forms on the exploration path: (beams, pack8, ring)
+FORMS = {"scan-pack16": (181, False, False), "4way-pack16": (4, False, False),
+         "4way-pack8-ring": (4, True, True)}
+
+
+def _specs(n_beams):
+    if n_beams == 4:
+        return jb.BeamSpec.four_way(), pb.BeamSpec.four_way()
+    return jb.BeamSpec.scan(n_beams), pb.BeamSpec.scan(n_beams)
+
+
+@pytest.mark.parametrize("case", ["spread", "edges", "overlap"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_forms_match_pallas(rng, form, case):
+    """The pack16 table without the ring (scan and wrapped 4-way fan) and
+    the pack8 table with the ring on the wrapped fan, against
+    `free_raster_pallas(..., trusted=None | tb, pack8=..., interpret=True)`:
+    agents spread out, on the grid's edges, or overlapping on a grid
+    pre-filled near +-clamp. Headings include 0, pi and -2.5 rad, where
+    the wrapped fan's bin is negative before its floor-mod."""
+    n_beams, pack8, ring = FORMS[form]
+    spec_j, spec_p = _specs(n_beams)
+    if case == "overlap":
+        pos = np.array([200.0, 260.0]) + rng.uniform(-4, 4, (6, 2))
+        grid = rng.choice([-9.9, 9.7, -9.6, 9.95],
+                          (512, 512)).astype(np.float32)
+    else:
+        pos = SPREAD if case == "spread" else EDGES
+        grid = np.zeros((512, 512), np.float32)
+    xy, yaw, dist, trusted = _agents(rng, n_beams, pos, n_beams + len(pos))
+    yaw[:3] = [0.0, np.pi, -2.5]
+    act = np.ones(len(pos), bool)
+    act[3] = False
+    # under jit, as the engine runs it (XLA folds its divisions by
+    # constants into multiplications, which the port follows)
+    ref, rc = jax.jit(lambda *a: jp.free_raster_pallas(
+        *a[:5], spec_j, GRID, n_groups=n_beams, reach=26, trusted=a[5],
+        interpret=True, pack8=pack8))(
+        jnp.asarray(grid), jnp.asarray(xy), jnp.asarray(yaw),
+        jnp.asarray(dist), jnp.asarray(act),
+        jnp.asarray(trusted) if ring else None)
+    before = pc.free_raster.launches
+    got, gc = pc.free_raster(torch.from_numpy(grid.copy()), t(xy), t(yaw),
+                             t(dist), t(act), t(trusted) if ring else None,
+                             spec_p, GRID, reach=26, pack8=pack8)
+    assert pc.free_raster.launches == before     # CPU: the plain version
+    np.testing.assert_allclose(gc.numpy(), np.asarray(rc), rtol=1e-5)
+    assert float(gc.sum()) > 0 and float(gc[3]) == 0.0
+    decision_equal(got, ref, f"{form} map",
+                   painted=int((np.asarray(ref) != grid).sum()))
+
+
+def test_wrapped_fan_sectors():
+    """The reference's wrapped 4-way fan takes the on-beam residual from
+    the WRAPPED bin, so cells whose bin is negative before the floor-mod
+    (the right beam and the lower half of the back beam) are painted only
+    within ~0.6 cells of the agent; the port does the same (ROADMAP Queue
+    C)."""
+    spec_j, spec_p = _specs(4)
+    xy = np.array([[10.0, 10.0]], np.float32)        # cell centre 200, 200
+    for yaw in (0.0, 0.7):
+        args = (np.array([yaw], np.float32), np.full((1, 4), 1.0, np.float32),
+                np.ones(1, bool), np.ones((1, 4), bool))
+        ref, _ = jax.jit(lambda *a: jp.free_raster_pallas(
+            *a[:5], spec_j, GRID, n_groups=4, reach=26, trusted=a[5],
+            interpret=True, pack8=True))(
+            jnp.zeros((512, 512)), jnp.asarray(xy),
+            *(jnp.asarray(a) for a in args))
+        got, _ = pc.free_raster(torch.zeros(512, 512), t(xy),
+                                *(t(a) for a in args), spec_p, GRID,
+                                reach=26, pack8=True)
+        assert_exact(got, ref)
+        ys, xs = np.nonzero(got.numpy())
+        rel = np.arctan2(ys + 0.5 - 200, xs + 0.5 - 200) - yaw
+        rel = (rel + np.pi) % (2 * np.pi) - np.pi
+        assert ((rel > -np.pi / 4) & (rel < np.pi)).sum() > 60
+        assert ((rel < -np.pi / 4) & (rel > -np.pi + 1e-3)).sum() == 0
 
 
 def test_kernel_constants_are_the_reference_literals():

@@ -1,6 +1,7 @@
-"""The hand-written CUDA raster kernels (the per-agent window raster and
-the room-tile raster) against their plain torch versions, on the card, at
-small sizes.
+"""The hand-written CUDA raster kernels (the per-agent window raster in
+each of its forms, and the room-tile raster) against their plain torch
+versions, on the card, at small sizes; and the endpoint scatter on the card
+against the CPU.
 
 Needs an NVIDIA GPU with the CUDA toolkit; every test skips without one.
 This file imports no jax, so on a card (whose machine need not have jax,
@@ -22,6 +23,7 @@ from swarm_tpu_torch.geom.world import make_tiled_rooms
 from swarm_tpu_torch.ops.beam_raster import BeamSpec
 from swarm_tpu_torch.ops.beam_raster_cuda import (free_raster,
                                                   free_raster_plain)
+from swarm_tpu_torch.ops.raster import RayBatch, endpoint_scatter
 from swarm_tpu_torch.ops.room_raster_cuda import (room_raster,
                                                   room_raster_plain)
 
@@ -86,6 +88,70 @@ def test_kernel_bit_equal_plain(cuda, n_beams, overlap, prefill):
     np.testing.assert_allclose(cnt_k.cpu().numpy(), cnt_p.cpu().numpy(),
                                rtol=1e-6)
     assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams,pack8,overlap,prefill", [
+    (181, False, False, False),
+    (181, False, True, True),
+    (4, False, False, True),
+    (4, False, True, False),
+    (4, True, False, False),
+    (4, True, True, True),
+])
+def test_kernel_forms_bit_equal_plain(cuda, n_beams, pack8, overlap,
+                                      prefill):
+    """The exploration path's forms: the pack16 table without the ring on
+    the scan and on the wrapped 4-way fan, the pack8 table with the ring on
+    the wrapped fan."""
+    size = 512
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    grid, xy, yaw, dist, trusted, active = _case(
+        n_beams + 7, 48, n_beams, size, overlap, prefill)
+    args = [torch.from_numpy(a).to(cuda) for a in (xy, yaw, dist)]
+    act = torch.from_numpy(active).to(cuda)
+    tr = torch.from_numpy(trusted).to(cuda) if pack8 else None
+    g_k = torch.from_numpy(grid).to(cuda)
+    g_p = g_k.clone()
+
+    before = free_raster.launches
+    _, cnt_k = free_raster(g_k, *args, act, tr, spec, cfg, reach=26,
+                           pack8=pack8)
+    torch.cuda.synchronize()
+    assert free_raster.launches == before + 1
+    _, cnt_p = free_raster_plain(g_p, *args, act, tr, spec, cfg, reach=26,
+                                 pack8=pack8)
+    assert free_raster.launches == before + 1
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_endpoint_scatter_card_equals_cpu(cuda):
+    """The endpoint scatter (torch ops: a sort, searches, one indexed
+    write) gives the same map on the card as on the CPU, with many
+    endpoints in some cells and some outside the grid."""
+    rng = np.random.default_rng(5)
+    cfg = GridConfig(size=256, origin_x=-1.0, origin_y=-1.0)
+    r = 20000
+    hx = rng.uniform(-1.5, 12.0, r).astype(np.float32)
+    hy = rng.uniform(-1.5, 12.0, r).astype(np.float32)
+    hx[:5000] = hx[:50].repeat(100)
+    hy[:5000] = hy[:50].repeat(100)
+    ok = rng.random(r) < 0.8
+    grid = rng.choice([-9.9, 9.7, 0.0, -3.2], (256, 256)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        rays = RayBatch(*(torch.from_numpy(a).to(dev)
+                          for a in (hx, hy, hx, hy, ok, ok)))
+        # a copy: the scatter updates the grid in place
+        g, w = endpoint_scatter(torch.tensor(grid, device=dev), rays, cfg)
+        outs.append((g.cpu(), int(w)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1] > 0
 
 
 @pytest.mark.cuda

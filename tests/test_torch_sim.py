@@ -149,20 +149,43 @@ def test_free_running_rollout(world):
 def test_unported_paths_refuse(world):
     cfg, params, _, port = world
     cfg = convert.config_from(cfg)
-    for eng, slam in (
-            (dict(beam_groups=8, room_tile_per_row=1), {}),
-            (dict(beam_groups=8), {}), (dict(raster_4way=True), {}),
-            (dict(compute_frontiers=True), {}), (dict(parity_mode=True), {}),
-            (dict(beam_pack8=False), {}),
-            (dict(merge_every=16), dict(merge_bias_alpha=0.1)),
-            ({}, dict(closure_scanmatch=True))):
+    for eng, slam, grid in (
+            (dict(beam_groups=8, room_tile_per_row=1), {}, {}),
+            (dict(beam_groups=8), {}, {}),
+            (dict(parity_mode=True), {}, {}),
+            (dict(raster_mode="line"), {}, {}),
+            (dict(use_pallas=False), {}, {}),
+            # pack16 + ring and pack8 without the ring on the window path
+            (dict(beam_pack8=False), {}, {}),
+            (dict(kernel_endpoints=False), {}, {}),
+            # the room kernel: no wrapped fan, no form without the ring
+            (dict(room_tile_per_row=1, raster_4way=True), {}, {}),
+            (dict(room_tile_per_row=1, kernel_endpoints=False,
+                  beam_pack8=False), {}, {}),
+            (dict(merge_every=16), dict(merge_bias_alpha=0.1), {}),
+            ({}, dict(closure_scanmatch=True), {}),
+            ({}, {}, dict(logodds_dtype="bfloat16"))):
         bad = cfg.replace(engine=dataclasses.replace(cfg.engine, **eng),
-                          slam=dataclasses.replace(cfg.slam, **slam))
+                          slam=dataclasses.replace(cfg.slam, **slam),
+                          grid=dataclasses.replace(cfg.grid, **grid))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ps.sim_init(bad, port["params"])
-    # the merge and the room kernel (pack16, whatever beam_pack8 says) run
+    # the merge matches sweeps: refused without one
+    with pytest.raises(ValueError, match="scan_rays"):
+        ps.check_supported(cfg.replace(engine=dataclasses.replace(
+            cfg.engine, merge_every=16, scan_rays=0)))
+    # these run: the merge, the room kernel (pack16, whatever beam_pack8
+    # says), the wrapped 4-way fan (with and without a sweep), frontiers,
+    # the pack16 window table without the ring (the exact endpoint
+    # scatter), and the coverage tool's configuration
     for eng in (dict(merge_every=16), dict(room_tile_per_row=1),
-                dict(room_tile_per_row=1, beam_pack8=False)):
+                dict(room_tile_per_row=1, beam_pack8=False),
+                dict(raster_4way=True), dict(compute_frontiers=True),
+                dict(raster_4way=True, scan_rays=0, merge_every=0),
+                dict(beam_pack8=False, kernel_endpoints=False),
+                dict(beam_pack8=False, kernel_endpoints=False,
+                     raster_4way=True, compute_frontiers=True,
+                     merge_every=0)):
         ps.check_supported(cfg.replace(
             engine=dataclasses.replace(cfg.engine, **eng)))
 

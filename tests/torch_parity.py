@@ -73,17 +73,21 @@ def jax_step_noise(key, n: int, n_rays: int, cfg=None) -> StepNoise:
         drift=drift_noise_from_keys(k_drift))
 
 
-def jax_deployable(n: int, merge_every: int = 16, room_kernel=False):
+def jax_deployable(n: int, merge_every: int = 16, room_kernel=False,
+                   frontiers=False, scan_rays=181):
     """The JAX preset the port's presets.deployable mirrors:
-    _cfg_and_world(tiled=True, ...) + bench.py's replacements."""
+    _cfg_and_world(tiled=True, ...) + bench.py's replacements (the 4-way
+    raster without a sweep, the merge only with one)."""
     from __graft_entry__ import _cfg_and_world
 
     cfg, walls, params, rooms = _cfg_and_world(
-        n, frontiers=False, parity=False, raster_mode="beam",
-        use_pallas=True, scan_rays=181, tiled=True, room_kernel=room_kernel)
+        n, frontiers=frontiers, parity=False, raster_mode="beam",
+        use_pallas=True, scan_rays=scan_rays, tiled=True,
+        room_kernel=room_kernel)
     cfg = cfg.replace(engine=dataclasses.replace(
         cfg.engine, beam_groups=0, kernel_endpoints=True, beam_pack8=True,
-        raster_4way=False, merge_every=merge_every))
+        raster_4way=scan_rays == 0,
+        merge_every=merge_every if scan_rays > 0 else 0))
     return cfg, walls, params, rooms
 
 
