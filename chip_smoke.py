@@ -6,55 +6,78 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
   1. build both raster kernels (swarm_tpu_torch/csrc/free_raster.cu and
      room_raster.cu) from the checkout, one nvcc each, started together;
      print each build time;
-  2. each kernel, in each form a path runs, vs its plain torch version at
-     the main path's shapes: 1024 agents in the tiled 4096^2 world, preset
-     start poses with random headings, noisy readings (181-beam sweeps, or
-     the 4-way ultrasonics for the wrapped fan), plus an overlap case on a
-     grid pre-filled near +-clamp (window kernel: 64 agents around one
-     point; room kernel: both agents of every room within a few cells of
-     each other), so the per-agent clip order decides cells. Window forms:
-     pack8 + ring on the sweep (the deployable path), pack16 without the
-     ring on the sweep and on the 4-way fan (the exploration path), pack8
-     + ring on the 4-way fan (the ultrasonic-only path). Maps BIT-EQUAL,
-     counts equal. Timed with CUDA events: the kernel launch alone on
-     prepared operands, the wrapper with its preparation, the plain
-     version; the bound is computed from this run's inputs;
-  3. the window path: presets.deployable(1024) (merge every 16 steps) ->
+  2. each kernel, in each of its per-beam forms, vs its plain torch version
+     at the shapes of the path that runs it: 1024 agents in the tiled
+     4096^2 world, preset start poses with random headings, noisy readings
+     (181-beam sweeps, or the 4-way ultrasonics for the wrapped fan), plus
+     an overlap case on a grid pre-filled near +-clamp (window kernel: 64
+     agents around one point; room kernel: both agents of every room within
+     a few cells of each other), so the per-agent clip order (and on a bf16
+     grid the per-agent rounding) decides cells. The window kernel's 16
+     instances: pack8 / pack16 table x with / without the endpoint ring x
+     the 181-beam scan / the wrapped 4-way fan x a float32 / bfloat16 grid;
+     the room kernel's four forms: with / without the ring x scan / wrapped
+     fan. Maps BIT-EQUAL, counts equal. Timed with CUDA events: the kernel
+     launch alone on prepared operands, the wrapper with its preparation,
+     the plain version; the bound is computed from this run's inputs. The
+     slice's form (pack8 + ring on bf16) also at the slice's shapes (32,768
+     agents on 23,296^2, the plain version in agent chunks);
+  3. the slice: bench.py --agents 32768 --grid-dtype bfloat16
+     (presets.deployable(32768, grid_dtype="bfloat16")): one warm-up step,
+     the counters set to 0, 65 steps (bench.py's 400 cut to fit the time
+     limit), the counters read: pack8-ring-bf16 launched once per step and
+     nothing else, every step writes, merges at steps 15, 31, 47 and 63,
+     all agents online, poses finite; steps/s, applied cells/s (an int64
+     sum), peak memory; then 17 more steps split on the device timeline
+     into raster, merge, sensing and the rest;
+  4. the window path: presets.deployable(1024) (merge every 16 steps) ->
      sim_init -> 1 warm-up step -> timed steps, with every kernel launch
      counter set to 0 just before and read just after: the window kernel
-     launched once per step and the room kernel never, every step writes,
-     merges > 0, all 1024 agents online, poses finite;
-  4. the room path: presets.deployable(1024, room_kernel=True), the same
-     checks with the roles of the two kernels swapped, and one merge
-     event's time (a 128-agent chunk matched through scan_merge_recover),
-     and the matcher on that chunk with its translation scoring as the
-     port runs it (one grouped conv2d) and in the JAX package's im2col form
-     (bmm over unfolded patches, the reference `_scores_im2col`);
-  5. the exploration path: presets.coverage(1024, frontiers=True) with
+     launched once per step (pack8-ring) and the room kernel never, every
+     step writes, merges > 0, all 1024 agents online, poses finite;
+  5. the room path: presets.deployable(1024, room_kernel=True), the same
+     checks with the roles of the two kernels swapped (pack16-ring), and one
+     merge event's time (a 128-agent chunk matched through
+     scan_merge_recover), and the matcher on that chunk with its
+     translation scoring as the port runs it (one grouped conv2d) and in the
+     JAX package's im2col form (bmm over unfolded patches, the reference
+     `_scores_im2col`);
+  6. the exploration path: presets.coverage(1024, frontiers=True) with
      targets, 201 steps: the window kernel twice per step (pack16 on the
      4-way fan, then on the sweep) and the room kernel never, 26 frontier
      events with frontiers found from step 8 on, targets assigned, every
      step writes, all agents online, poses finite; steps/s, device step
      medians with and without a frontier event, the endpoint scatter's
      time per fan, peak memory, coverage of the reachable cells;
-  6. the ultrasonic-only path: presets.deployable(1024, scan_rays=0), 101
+  7. the ultrasonic-only path: presets.deployable(1024, scan_rays=0), 101
      steps, one pack8 + ring launch on the 4-way fan per step;
-  7. the coverage tool's own configuration (64 agents, 1024^2): 400 steps
+  8. the coverage tool's own configuration (64 agents, 1024^2): 400 steps
      wall-following, then 400 with frontier targets; both coverages > 0;
      then each entry point of the exploration path through sim_rollout at
      1024 agents for 17 steps (coverage with and without frontier targets,
      bench.py --frontiers, bench.py --scan-rays 0), its launches per form
      checked;
-  8. reference checks at 8 agents: both deployable paths over the same 34
-     steps (two merge events) on the card and on the CPU (plain rasters)
-     from the same state and noise (online equal, writes within 1%,
-     tri-state maps on >= 99% of explored cells; merge counts of both
-     sides printed, any merge decision that differs reported with the
-     match fitness on both sides), and the exploration path over 17 steps
-     (three frontier events; writes within 1%, maps on >= 99%, frontier
-     counts equal).
-The line before the last two is the per-kernel JSON record, then the card's
-name and power limit; the last line is {"ok": true, "device": {...}}.
+  9. every other single-chip bench.py raster flag row (--no-pack8,
+     --exact-endpoints, --scan-rays 0, --grid-dtype bfloat16 and
+     --room-kernel in the combinations WINDOW_ROWS and ROOM_ROWS list)
+     through sim_rollout at 1024 agents for 17 steps: exactly its form
+     launched once per step, the other kernel never, every step writes;
+     --room-kernel --grid-dtype bfloat16 raises ValueError (sim_init, and
+     the room wrapper on a card grid);
+ 10. bf16 against f32: the 1024-agent window path on each grid dtype, same
+     seed, 33 steps: tri-state agreement over explored cells >= 0.98;
+ 11. reference checks at 8 agents: both deployable paths over the same 34
+     steps (two merge events) and the bf16 window path over 17 (one merge
+     event) on the card and on the CPU (plain rasters) from the same state
+     and noise (online equal, writes within 1%, tri-state maps on >= 99% of
+     explored cells; merge counts of both sides printed, and equal on bf16;
+     any merge decision that differs reported with the match fitness on
+     both sides), and the exploration path over 17 steps (three frontier
+     events; writes within 1%, maps on >= 99%, frontier counts equal).
+The line before the last two is the per-kernel JSON record (one entry per
+kernel form, `free_raster[<form>]` / `room_raster[<form>]`), then the
+card's name and power limit; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -68,6 +91,12 @@ import time
 import torch
 
 N_AGENTS = 1024
+SLICE_AGENTS = 32768         # bench.py --agents 32768 --grid-dtype bfloat16
+SLICE_STEPS = 65             # bench.py's 400 steps, cut to fit the limit
+SPLIT_STEPS = 17             # the slice's step split (one merge step)
+PLAIN_CHUNK = 1024           # the plain raster at the slice's size, per call
+FLAG_STEPS = 17              # one merge event (step 15)
+BF16_CMP_STEPS = 33
 TIMED_STEPS = 200
 REF_AGENTS = 8
 REF_STEPS = 34
@@ -167,10 +196,64 @@ def _raster_inputs(cfg, params, rooms, gen, dev, four_way=False):
     return pose[:, :2].contiguous(), yaw, db, tb
 
 
-def _prefilled(size, gen, dev):
+def _prefilled(size, gen, dev, dtype=torch.float32):
     levels = torch.tensor([-9.9, 9.7, -9.6, 9.95], device=dev)
     return levels[torch.randint(0, 4, (size, size), generator=gen,
-                                device=dev)]
+                                device=dev)].to(dtype)
+
+
+# bench.py's single-chip raster flags beyond the paths with a phase of
+# their own (presets.deployable's arguments), each launching one form of
+# one kernel once per step (`_form_of`)
+WINDOW_ROWS = [
+    dict(pack8=False), dict(exact_endpoints=True),
+    dict(scan_rays=0, pack8=False), dict(scan_rays=0, exact_endpoints=True),
+    dict(grid_dtype="bfloat16", exact_endpoints=True),
+    dict(grid_dtype="bfloat16", scan_rays=0),
+    dict(grid_dtype="bfloat16", pack8=False),
+    dict(grid_dtype="bfloat16", pack8=False, exact_endpoints=True),
+    dict(grid_dtype="bfloat16", scan_rays=0, pack8=False),
+    dict(grid_dtype="bfloat16", scan_rays=0, pack8=False,
+         exact_endpoints=True),
+    dict(grid_dtype="bfloat16", scan_rays=0, exact_endpoints=True)]
+ROOM_ROWS = [
+    dict(room_kernel=True, exact_endpoints=True),
+    dict(room_kernel=True, scan_rays=0),
+    dict(room_kernel=True, scan_rays=0, exact_endpoints=True)]
+SLICE = dict(grid_dtype="bfloat16")
+
+
+def _flags(flags) -> str:
+    """bench.py's command-line flags for presets.deployable's arguments."""
+    words = {"pack8": "--no-pack8", "exact_endpoints": "--exact-endpoints",
+             "room_kernel": "--room-kernel"}
+    out = [words[k] for k in ("room_kernel", "pack8", "exact_endpoints")
+           if k in flags]
+    if "scan_rays" in flags:
+        out.append(f"--scan-rays {flags['scan_rays']}")
+    if "grid_dtype" in flags:
+        out.append(f"--grid-dtype {flags['grid_dtype']}")
+    return " ".join(out)
+
+
+def _form_of(flags):
+    """(four_way, pack8, ring, dtype, form key) of the raster form a
+    bench.py flag row launches: the room kernel's key from
+    room_raster_cuda.form_name, the window kernel's from
+    beam_raster_cuda.form_name."""
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+    from swarm_tpu_torch.ops import room_raster_cuda as rc
+    from swarm_tpu_torch.ops.beam_raster import BeamSpec
+
+    four_way = flags.get("scan_rays", 181) == 0
+    pack8 = flags.get("pack8", True)
+    ring = not flags.get("exact_endpoints", False)
+    dtype = (torch.bfloat16 if flags.get("grid_dtype") == "bfloat16"
+             else torch.float32)
+    spec = BeamSpec.four_way() if four_way else BeamSpec.scan()
+    key = (rc.form_name(spec, ring) if flags.get("room_kernel")
+           else bc.form_name(spec, pack8, ring, dtype))
+    return four_way, pack8, ring, dtype, key
 
 
 def _hold_equal(name, kernel, plain, cases, size):
@@ -200,13 +283,31 @@ def _hold_equal(name, kernel, plain, cases, size):
     return worst
 
 
+def _plain_in_chunks(plain):
+    """The plain raster over agent chunks of PLAIN_CHUNK, in index order:
+    each agent's window is applied after the previous agent's whatever
+    the chunking, so this is the same function at a fraction of the
+    memory (the slice's [32768, 80, 256] float32 deltas would be 2.7 GB
+    per temporary)."""
+    def run(g, xy, yaw, db, alive, tr, *rest):
+        counts = []
+        for i in range(0, xy.shape[0], PLAIN_CHUNK):
+            j = slice(i, i + PLAIN_CHUNK)
+            counts.append(plain(g, xy[j], yaw[j], db[j], alive[j],
+                                None if tr is None else tr[j], *rest)[1])
+        return g, torch.cat(counts)
+    return run
+
+
 def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
-                 pack8):
-    """One form of the window kernel at the main path's shapes: held
-    bit-equal to its plain version at N_AGENTS agents and in an overlap
-    case (64 agents around one point on a grid pre-filled near +-clamp),
-    then timed: the launch on prepared operands, the wrapper with its
-    preparation, the plain version; the bound from this run's inputs."""
+                 pack8, ring):
+    """One form of the window kernel at a path's shapes (the grid's dtype
+    from `cfg`): held bit-equal to its plain version at the path's swarm
+    size and in an overlap case (64 agents around one point on a grid
+    pre-filled near +-clamp), then timed: the launch on prepared operands,
+    the wrapper with its preparation, the plain version (in agent chunks
+    above PLAIN_CHUNK agents); the bound from this run's inputs. Returns
+    (the form's launch-count key, its record)."""
     from swarm_tpu_torch.ops import beam_raster_cuda as bc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
 
@@ -215,31 +316,35 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
             else BeamSpec.scan(cfg.engine.scan_rays))
     reach = reach_cells(cfg)
     size = cfg.grid.size
-    alive = torch.ones((N_AGENTS,), dtype=torch.bool, device=dev)
+    dtype = cfg.grid.lo_dtype
+    n = cfg.n_agents
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
     xy, yaw, db, tb = _raster_inputs(cfg, params, rooms, gen, dev, four_way)
-    tr = tb if pack8 else None
+    tr = tb if ring else None
 
     def kernel(g, *a):
         return bc.free_raster(g, *a, pack8=pack8)
 
-    def plain(g, *a):
+    def plain_one(g, *a):
         return bc.free_raster_plain(g, *a, pack8=pack8)
 
+    plain = _plain_in_chunks(plain_one) if n > PLAIN_CHUNK else plain_one
     # overlap case: 64 agents within +-4 cells of one point
-    k = min(64, N_AGENTS)
+    k = min(64, n)
     xy_o = xy[:1] + 0.2 + (torch.rand((k, 2), generator=gen, device=dev)
                            - 0.5) * 0.4
     cases = {
-        "main": (torch.zeros((size, size), device=dev),
+        "main": (torch.zeros((size, size), device=dev, dtype=dtype),
                  (xy, yaw, db, alive, tr, spec, cfg.grid, reach)),
-        "overlap": (_prefilled(size, gen, dev),
+        "overlap": (_prefilled(size, gen, dev, dtype),
                     (xy_o, yaw[:k], db[:k], alive[:k],
                      None if tr is None else tr[:k], spec, cfg.grid,
                      reach)),
     }
     worst = _hold_equal(name, kernel, plain, cases, size)
+    del cases
 
-    g_t = torch.zeros((size, size), device=dev)
+    g_t = torch.zeros((size, size), device=dev, dtype=dtype)
     w = bc._windows(g_t, xy, yaw, db, alive, spec, cfg.grid, tr, reach,
                     pack8)
     ln = bc._prepare(g_t, w, spec)
@@ -247,14 +352,14 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
     t_kernel, t_plain, runs = _ab_ms(
         lambda: bc._launch(g_t, ln, spec, cfg.grid, dense),
         lambda: plain(g_t, xy, yaw, db, alive, tr, spec, cfg.grid, reach),
-        20, 3)
+        20, 3 if n <= PLAIN_CHUNK else 1)
     t_wrapper = _median_ms(lambda: kernel(
         g_t, xy, yaw, db, alive, tr, spec, cfg.grid, reach), 20)
 
     # bound: the union of the windows read and written once (windows are
-    # 8-row and 128-column aligned, so an [S/8, S/128] mask counts it
-    # exactly), the operands read once, the counts written once; every
-    # cell of the fan-bbox strips the kernel evaluates
+    # 8-row (16 on bf16) and 128-column aligned, so an [S/8, S/128] mask
+    # counts it exactly), the operands read once, the counts written once;
+    # every cell of the fan-bbox strips the kernel evaluates
     blocks = torch.zeros((size // 8, size // 128), dtype=torch.bool,
                          device=dev)
     rb = (w.row0 // 8).long()[:, None] + torch.arange(w.rows // 8,
@@ -263,19 +368,21 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
                                                         device=dev)
     blocks[rb[:, :, None], cb[:, None, :]] = True
     cells = int(blocks.sum()) * 8 * 128
-    n_bytes = 2 * 4 * cells + _nbytes(ln.origins, ln.meta, ln.table) + \
-        4 * N_AGENTS
+    n_bytes = 2 * g_t.element_size() * cells + \
+        _nbytes(ln.origins, ln.meta, ln.table) + 4 * n
     evaluated = int(((w.t_ch - w.t_cl).clamp_min(0) * w.rows * 128).sum())
     bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
-    print(f"{name} raster at {N_AGENTS} agents x {spec.n_beams} beams "
-          f"({bc.form_name(spec, pack8)}) on {size}^2 [{card}]: kernel "
+    form = bc.form_name(spec, pack8, ring, dtype)
+    print(f"{name} raster at {n} agents x {spec.n_beams} beams "
+          f"({form}, [{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: "
+          f"kernel "
           f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), wrapper "
           f"with its preparation {t_wrapper:.4f} ms, plain torch "
           f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
           f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} cell "
           f"evaluations)")
-    return dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
-                bound_ms=bound, bound_by=bound_by)
+    return form, dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+                      bound_ms=bound, bound_by=bound_by)
 
 
 def phase_window_kernel(card, dev):
@@ -283,8 +390,8 @@ def phase_window_kernel(card, dev):
     from swarm_tpu_torch import presets
 
     cfg, _, params, rooms = presets.deployable(N_AGENTS, device=dev)
-    return _window_form(card, dev, "window", cfg, params, rooms, SEED,
-                        four_way=False, pack8=True)
+    return dict([_window_form(card, dev, "window", cfg, params, rooms, SEED,
+                              four_way=False, pack8=True, ring=True)])
 
 
 def phase_form_kernels(card, dev):
@@ -294,33 +401,52 @@ def phase_form_kernels(card, dev):
     from swarm_tpu_torch import presets
 
     cfg, _, params, rooms = presets.coverage(N_AGENTS, device=dev)
-    out = {"pack16": _window_form(card, dev, "window pack16 scan", cfg,
-                                  params, rooms, SEED + 3, False, False),
-           "pack16-wrapped": _window_form(card, dev, "window pack16 4-way",
-                                          cfg, params, rooms, SEED + 4,
-                                          True, False)}
+    out = dict([_window_form(card, dev, "window pack16 scan", cfg, params,
+                             rooms, SEED + 3, four_way=False, pack8=False,
+                             ring=False),
+                _window_form(card, dev, "window pack16 4-way", cfg, params,
+                             rooms, SEED + 4, four_way=True, pack8=False,
+                             ring=False)])
     cfg, _, params, rooms = presets.deployable(N_AGENTS, device=dev,
                                                scan_rays=0)
-    out["pack8-ring-wrapped"] = _window_form(
-        card, dev, "window pack8 4-way", cfg, params, rooms, SEED + 5, True,
-        True)
+    out.update([_window_form(card, dev, "window pack8 4-way", cfg, params,
+                             rooms, SEED + 5, four_way=True, pack8=True,
+                             ring=True)])
+    # every other instance (table x ring x fan x storage), each in the
+    # world of the bench.py flags that launch it; the slice's own
+    # (pack8-ring-bf16) here at 1024 agents too
+    for i, flags in enumerate(WINDOW_ROWS + [SLICE]):
+        cfg, _, params, rooms = presets.deployable(N_AGENTS, device=dev,
+                                                   **flags)
+        four_way, pack8, ring, _, key = _form_of(flags)
+        out.update([_window_form(card, dev, f"window {key}", cfg, params,
+                                 rooms, SEED + 7 + i, four_way, pack8,
+                                 ring)])
     return out
 
 
-def phase_room_kernel(card, dev):
+def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
+    """One form of the room kernel (the ring on the scan, or the form a
+    ROOM_ROWS row launches) at 1024 agents: held bit-equal to its plain
+    version on the main case and an overlap case, then timed as the
+    window forms are."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
 
+    flags = flags or dict(room_kernel=True)
+    four_way, _, ring, _, key = _form_of(flags)
     cfg, _, params, rooms = presets.deployable(N_AGENTS, device=dev,
-                                               room_kernel=True)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    spec = BeamSpec.scan(cfg.engine.scan_rays)
+                                               **flags)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = BeamSpec.four_way() if four_way else BeamSpec.scan(
+        cfg.engine.scan_rays)
     reach = reach_cells(cfg)
     size = cfg.grid.size
     per_row = cfg.engine.room_tile_per_row
     alive = torch.ones((N_AGENTS,), dtype=torch.bool, device=dev)
-    xy, yaw, db, tb = _raster_inputs(cfg, params, rooms, gen, dev)
+    xy, yaw, db, tb = _raster_inputs(cfg, params, rooms, gen, dev, four_way)
+    tb = tb if ring else None
     alive[-3] = False                       # one inactive agent
 
     # overlap case: the second agent of every room within +-3 cells of the
@@ -342,7 +468,7 @@ def phase_room_kernel(card, dev):
                  (xy, yaw, db, alive)),
         "overlap": (_prefilled(size, gen, dev), (xy_o, yaw, db, alive)),
     }
-    worst = _hold_equal("room", kernel, plain, cases, size)
+    worst = _hold_equal(f"room {key}", kernel, plain, cases, size)
 
     g_t = torch.zeros((size, size), device=dev)
     rm = rc._rooms(g_t, xy, yaw, db, alive, cfg.grid, per_row, tb, reach)
@@ -366,7 +492,8 @@ def phase_room_kernel(card, dev):
     evaluated = n_tiles * rc.AGENTS_PER_ROOM * rm.win_rows * 256
     bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
     print(f"room raster at {N_AGENTS} agents ({n_tiles} tiles, {per_row} "
-          f"rooms per row) x {spec.n_beams} beams on {size}^2 [{card}]: "
+          f"rooms per row) x {spec.n_beams} beams ({key}) on {size}^2 "
+          f"[{card}]: "
           f"kernel {t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
           f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
           f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
@@ -416,8 +543,10 @@ def phase_path(card, dev, room_kernel: bool):
     writes = torch.stack([m.writes for m in ms]).cpu()
     online = torch.stack([m.online for m in ms]).cpu()
     merges = torch.stack([m0.merges] + [m.merges for m in ms]).cpu()
+    forms = _room_by_form() if room_kernel else by_form
+    want = "pack16-ring" if room_kernel else "pack8-ring"
     if launches[own] != steps_run or launches[other] != 0 or \
-            (not room_kernel and by_form != {"pack8-ring": steps_run}):
+            forms != {want: steps_run}:
         raise AssertionError(f"{name} path: launches {launches} in "
                              f"{steps_run} steps")
     if not bool((writes > 0).all()) or int(m0.writes) <= 0:
@@ -508,19 +637,20 @@ def phase_merge(card, dev, cfg, rooms, state, m):
         raise AssertionError("conv and im2col scoring disagree")
 
 
-def phase_reference(dev, room_kernel: bool):
-    """The same REF_STEPS steps at REF_AGENTS agents on the card and on the
-    CPU, from the same state and noise."""
+def phase_reference(dev, name: str, steps: int = REF_STEPS,
+                    equal_merges: bool = False, **flags):
+    """The same `steps` steps of presets.deployable(REF_AGENTS, **flags) on
+    the card and on the CPU, from the same state and noise; with
+    `equal_merges` the merge counts must be equal on both sides."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.engine.sim import (agent_merge_box, draw_step_noise,
                                             sim_init, sim_step)
     from swarm_tpu_torch.ops.raster import tri_state_view
 
-    name = "room" if room_kernel else "window"
     n = REF_AGENTS
     cpu = torch.device("cpu")
     gen = torch.Generator(device=cpu).manual_seed(SEED)
-    worlds = {d: presets.deployable(n, device=d, room_kernel=room_kernel)
+    worlds = {d: presets.deployable(n, device=d, **flags)
               for d in (cpu, dev)}
     states = {d: sim_init(w[0], w[2]) for d, w in worlds.items()}
     boxes = {d: agent_merge_box(w[0], w[3][0], w[3][1], d)
@@ -528,7 +658,7 @@ def phase_reference(dev, room_kernel: bool):
     writes = {cpu: [], dev: []}
     merges = {cpu: [], dev: []}
     last = {}
-    for k in range(REF_STEPS):
+    for k in range(steps):
         noise = draw_step_noise(gen, n, 181, cpu)
         ms = {}
         for d, (cfg, walls, params, rooms) in worlds.items():
@@ -559,8 +689,8 @@ def phase_reference(dev, room_kernel: bool):
     explored = (tri_c != cfg.grid.unknown) | (tri_d != cfg.grid.unknown)
     agree = float(((tri_c == tri_d) & explored).sum()) / max(
         int(explored.sum()), 1)
-    ev = [k for k in range(REF_STEPS) if merges[cpu][k] or merges[dev][k]]
-    print(f"reference [{name}] at {n} agents, {REF_STEPS} steps: writes "
+    ev = [k for k in range(steps) if merges[cpu][k] or merges[dev][k]]
+    print(f"reference [{name}] at {n} agents, {steps} steps: writes "
           f"{w_d} (card) vs {w_c} (CPU), tri-state agreement {agree:.6f} "
           f"over {int(explored.sum())} explored cells, merges at steps {ev}:"
           f" {[merges[dev][k] for k in ev]} (card) vs "
@@ -570,6 +700,8 @@ def phase_reference(dev, room_kernel: bool):
                              f"disagree")
     if not ev:
         raise AssertionError(f"reference [{name}]: no merge event ran")
+    if equal_merges and merges[cpu] != merges[dev]:
+        raise AssertionError(f"reference [{name}]: merge counts differ")
 
 
 def reachable_mask(walls, grid_cfg, inset_cells: int = 1):
@@ -615,6 +747,7 @@ def _reset_counts():
     free_raster.launches = 0
     free_raster.launches_by_form.clear()
     room_raster.launches = 0
+    room_raster.launches_by_form.clear()
 
 
 def _read_counts():
@@ -623,6 +756,12 @@ def _read_counts():
 
     return (free_raster.launches, dict(free_raster.launches_by_form),
             room_raster.launches)
+
+
+def _room_by_form():
+    from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+
+    return dict(room_raster.launches_by_form)
 
 
 def phase_explore(card, dev):
@@ -933,6 +1072,351 @@ def phase_reference_explore(dev):
                              "differ")
 
 
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else 0.0
+
+
+def _step_split(step, state, n_steps: int):
+    """n_steps more steps with CUDA events around the step and around each
+    part the engine calls by name: engine.sim's `sense_4way` and
+    `sense_scan` (sensing), `_raster_fans` (the raster, its preparation
+    and any endpoint scatter), `_merge_event` (the merge, on merge steps),
+    `zones_for_agents` (the zone snapshot, every 2 s of simulated time),
+    `closure_add_poses_batch` (the closure ring's landmark match) and
+    `v2v_stats` (the pairwise radio statistics). Returns (state, split):
+    per part (device-timeline median ms over the steps that ran it, their
+    count, the most device memory allocated while it ran); for the step
+    and its rest (the step less its parts), medians over the steps with
+    neither a merge nor a zone snapshot."""
+    from swarm_tpu_torch.engine import sim
+
+    parts = {"sensing": ("sense_4way", "sense_scan"),
+             "raster": ("_raster_fans",), "merge": ("_merge_event",),
+             "zones": ("zones_for_agents",),
+             "closure": ("closure_add_poses_batch",),
+             "v2v": ("v2v_stats",)}
+    marks = []
+    originals = {nm: getattr(sim, nm) for names in parts.values()
+                 for nm in names}
+
+    def timed(part, fn):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.reset_peak_memory_stats()
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            marks[-1].append((part, e0, e1,
+                              torch.cuda.max_memory_allocated()))
+            return out
+        return run
+
+    steps = []
+    try:
+        for part, names in parts.items():
+            for nm in names:
+                setattr(sim, nm, timed(part, originals[nm]))
+        for _ in range(n_steps):
+            marks.append([])
+            s0 = torch.cuda.Event(enable_timing=True)
+            s1 = torch.cuda.Event(enable_timing=True)
+            s0.record()
+            state, _ = step(state)
+            s1.record()
+            steps.append((s0, s1))
+        torch.cuda.synchronize()
+    finally:
+        for nm, fn in originals.items():
+            setattr(sim, nm, fn)
+    rows, peaks = [], dict.fromkeys(parts, 0)
+    for (s0, s1), ms in zip(steps, marks):
+        row = {"step": s0.elapsed_time(s1)}
+        for part, e0, e1, peak in ms:
+            row[part] = row.get(part, 0.0) + e0.elapsed_time(e1)
+            peaks[part] = max(peaks[part], peak)
+        row["rest"] = row["step"] - sum(row.get(p, 0.0) for p in parts)
+        rows.append(row)
+    split = {p: (_median([r[p] for r in rows if p in r]),
+                 sum(p in r for r in rows), peaks[p]) for p in parts}
+    plain = [r for r in rows if "merge" not in r and "zones" not in r]
+    for p in ("step", "rest"):
+        split[p] = (_median([r[p] for r in plain]), len(plain), None)
+    return state, split
+
+
+def phase_slice_kernel(card, dev):
+    """The slice's kernel form (pack8 + ring on a bf16 grid) at the slice's
+    shapes: presets.deployable(SLICE_AGENTS, grid_dtype="bfloat16"), its
+    23,296^2 bf16 grid, held bit-equal to the plain version (run in agent
+    chunks) and timed."""
+    from swarm_tpu_torch import presets
+
+    cfg, _, params, rooms = presets.deployable(SLICE_AGENTS, device=dev,
+                                               **SLICE)
+    out = dict([_window_form(card, dev, "window pack8-ring-bf16 (slice)",
+                             cfg, params, rooms, SEED + 30, four_way=False,
+                             pack8=True, ring=True)])
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice(card, dev):
+    """The slice: bench.py --agents 32768 --grid-dtype bfloat16, i.e.
+    presets.deployable(SLICE_AGENTS, grid_dtype="bfloat16") -> sim_init ->
+    one warm-up step (step 0) -> the counters set to 0 -> SLICE_STEPS
+    timed steps (1..65; merges at 15, 31, 47 and 63) -> the counters read:
+    pack8-ring-bf16 launched once per step and nothing else, every step
+    writes, 4 merge events, all agents online, poses finite. Then
+    SPLIT_STEPS more steps with the step split (`_step_split`)."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import make_sim_step, sim_init
+
+    n = SLICE_AGENTS
+    t_set = time.perf_counter()
+    cfg, walls, params, rooms = presets.deployable(n, device=dev, **SLICE)
+    every = cfg.engine.merge_every
+    state = sim_init(cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = make_sim_step(cfg, walls, params, gen, walls_grouped=rooms[0],
+                         room_of_agent=rooms[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state)                   # warm-up: step 0
+    torch.cuda.synchronize()
+    t_set = time.perf_counter() - t_set
+
+    _reset_counts()                          # the main path starts here
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SLICE_STEPS + 1)]
+    ms = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for k in range(SLICE_STEPS):
+        state, m = step(state)
+        events[k + 1].record()
+        ms.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_free, by_form, n_room = _read_counts()
+
+    writes = torch.stack([m.writes for m in ms]).cpu()
+    online = torch.stack([m.online for m in ms]).cpu()
+    merges = torch.stack([m.merges for m in ms]).cpu()
+    merge_steps = [k for k in range(1, SLICE_STEPS + 1)
+                   if k % every == every - 1]
+    on = [int(merges[k - 1]) for k in merge_steps]
+    if by_form != {"pack8-ring-bf16": SLICE_STEPS} or n_room or \
+            n_free != SLICE_STEPS:
+        raise AssertionError(f"slice: launches {by_form}, room {n_room}, "
+                             f"in {SLICE_STEPS} steps")
+    if not bool((writes > 0).all()):
+        raise AssertionError("slice: a step wrote no cells")
+    if len(merge_steps) != 4 or not all(x > 0 for x in on) or \
+            int(merges.sum()) != sum(on):
+        raise AssertionError(f"slice: merges {merges.tolist()}")
+    if not bool((online == n).all()):
+        raise AssertionError(f"slice: online {online.tolist()[:8]}")
+    if not bool(torch.isfinite(state.pose_true).all()):
+        raise AssertionError("slice: non-finite poses")
+    applied = int(writes.to(torch.int64).sum())
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [events[k].elapsed_time(events[k + 1])
+               for k in range(SLICE_STEPS)]
+    off = [t for k, t in enumerate(step_ms, 1) if k not in merge_steps]
+    print(f"slice: bench.py --agents {n} --grid-dtype bfloat16 on "
+          f"{cfg.grid.size}^2 ({n // 2} rooms), {SLICE_STEPS} steps after a "
+          f"warm-up (set-up and warm-up "
+          f"{t_set:.2f} s): launches {by_form}, room {n_room}, min writes "
+          f"{int(writes.min())}, merges {on} at steps {merge_steps}, online "
+          f"{n}/{n} on every step, poses finite")
+    print(f"slice at {n} agents [{card}]: {SLICE_STEPS / wall:.4f} steps/s, "
+          f"{applied / wall:.6e} applied cells/s ({applied} cells, int64 "
+          f"sum, in {wall:.4f} s), peak memory {peak} bytes; device step "
+          f"median {_median(off):.4f} ms without a merge, "
+          f"{_median([step_ms[k - 1] for k in merge_steps]):.4f} ms with "
+          f"one")
+    state, split = _step_split(step, state, SPLIT_STEPS)
+    print(f"slice step split [{card}], device-timeline medians over steps "
+          f"{SLICE_STEPS + 1}-{SLICE_STEPS + SPLIT_STEPS} (ms, over the n "
+          f"steps that ran each part, with the most device memory "
+          f"allocated while it ran; step and rest over the steps with "
+          f"neither a merge nor a zone snapshot): " + ", ".join(
+              f"{p} {t:.4f} (n={k}" + ("" if peak is None else
+                                       f", peak {peak} bytes") + ")"
+              for p, (t, k, peak) in split.items()))
+    del state, step, ms
+    torch.cuda.empty_cache()
+    return SLICE_STEPS
+
+
+def phase_flag_paths(card, dev):
+    """Every remaining row of bench.py's single-chip raster flags (WINDOW_ROWS,
+    ROOM_ROWS) through sim_rollout at N_AGENTS agents for FLAG_STEPS steps:
+    exactly the row's form launched once per step, the other kernel never,
+    every step writes, poses finite. Then bench.py --room-kernel
+    --grid-dtype bfloat16 must raise ValueError, at sim_init and in the
+    room wrapper on a card grid."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import (rollout_writes, sim_init,
+                                            sim_rollout)
+    from swarm_tpu_torch.ops import room_raster_cuda as rc
+    from swarm_tpu_torch.ops.beam_raster import BeamSpec
+
+    out = {}
+    for flags in WINDOW_ROWS + ROOM_ROWS:
+        room = bool(flags.get("room_kernel"))
+        key = _form_of(flags)[-1]
+        cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev,
+                                                       **flags)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = sim_init(cfg, params)
+        torch.cuda.synchronize()
+        _reset_counts()                      # this path starts here
+        t0 = time.perf_counter()
+        state, m = sim_rollout(state, FLAG_STEPS, cfg, walls, params, gen,
+                               walls_grouped=rooms[0],
+                               room_of_agent=rooms[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_free, by_form, n_room = _read_counts()
+        forms, other = ((_room_by_form(), n_free) if room
+                        else (by_form, n_room))
+        writes = m.writes.cpu()
+        print(f"flags [{_flags(flags)}] at {N_AGENTS} agents [{card}]: "
+              f"{FLAG_STEPS} steps through sim_rollout in {wall:.4f} s, "
+              f"{'room' if room else 'window'} launches {forms}, other "
+              f"kernel {other}, min writes {int(writes.min())}, applied "
+              f"{rollout_writes(m)}, merges {int(m.merges.sum())}, online "
+              f"{int(m.online[-1])}")
+        if forms != {key: FLAG_STEPS} or other:
+            raise AssertionError(f"flags [{_flags(flags)}]: launches "
+                                 f"{forms}, other kernel {other}")
+        if not bool((writes > 0).all()):
+            raise AssertionError(f"flags [{_flags(flags)}]: a step wrote no "
+                                 f"cells")
+        if not bool(torch.isfinite(state.pose_true).all()):
+            raise AssertionError(f"flags [{_flags(flags)}]: non-finite "
+                                 f"poses")
+        out[("room" if room else "window", key)] = forms[key]
+
+    cfg, walls, params, rooms = presets.deployable(
+        N_AGENTS, device=dev, room_kernel=True, grid_dtype="bfloat16")
+    refused = []
+    for what, call in (
+            ("sim_init", lambda: sim_init(cfg, params)),
+            ("room_raster on the card", lambda: rc.room_raster(
+                torch.zeros((cfg.grid.size,) * 2, dtype=torch.bfloat16,
+                            device=dev), params.home_x[:, None].repeat(1, 2),
+                params.yaw0, torch.ones((N_AGENTS, 181), device=dev),
+                torch.ones((N_AGENTS,), dtype=torch.bool, device=dev),
+                BeamSpec.scan(), cfg.grid, n_groups=181,
+                per_row=cfg.engine.room_tile_per_row))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(f"{what}: ValueError({e})")
+        else:
+            raise AssertionError(f"--room-kernel --grid-dtype bfloat16: "
+                                 f"{what} did not raise")
+    print("flags [--room-kernel --grid-dtype bfloat16] refused: " +
+          "; ".join(refused))
+    return out
+
+
+def phase_bf16_vs_f32(card, dev):
+    """The 1024-agent window path on each grid dtype, same seed,
+    BF16_CMP_STEPS steps: tri-state agreement over the explored cells
+    >= 0.98 (the JAX package's own bar, tests/test_beam_raster.py)."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import (rollout_writes, sim_init,
+                                            sim_rollout)
+    from swarm_tpu_torch.ops.raster import tri_state_view
+
+    tri, writes = {}, {}
+    for dt in ("float32", "bfloat16"):
+        cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev,
+                                                       grid_dtype=dt)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state, m = sim_rollout(sim_init(cfg, params), BF16_CMP_STEPS, cfg,
+                               walls, params, gen, walls_grouped=rooms[0],
+                               room_of_agent=rooms[1])
+        tri[dt] = tri_state_view(state.srv.logodds, cfg.grid)
+        writes[dt] = rollout_writes(m)
+    unknown = cfg.grid.unknown
+    a, b = tri["float32"], tri["bfloat16"]
+    explored = (a != unknown) | (b != unknown)
+    agree = float(((a == b) & explored).sum()) / max(int(explored.sum()), 1)
+    print(f"bf16 vs f32 grid, window path at {N_AGENTS} agents, "
+          f"{BF16_CMP_STEPS} steps [{card}]: tri-state agreement "
+          f"{agree:.6f} over {int(explored.sum())} explored cells; writes "
+          f"{writes['bfloat16']} (bf16) vs {writes['float32']} (f32)")
+    if agree < 0.98:
+        raise AssertionError("bf16 and f32 grids disagree")
+
+
+def run(card, dev) -> list:
+    """Every phase after the build, in order; returns the per-kernel
+    records of the JSON line."""
+    k_window = phase_window_kernel(card, dev)
+    k_forms = phase_form_kernels(card, dev)
+    k_room = {"pack16-ring": phase_room_kernel(card, dev)}
+    for i, flags in enumerate(ROOM_ROWS):
+        k_room[_form_of(flags)[-1]] = phase_room_kernel(card, dev, flags,
+                                                        SEED + 20 + i)
+    k_slice = phase_slice_kernel(card, dev)
+    n_slice = phase_slice(card, dev)
+    n_window, _ = phase_path(card, dev, room_kernel=False)
+    n_room, (cfg, rooms, state, m) = phase_path(card, dev, room_kernel=True)
+    phase_merge(card, dev, cfg, rooms, state, m)
+    del cfg, rooms, state, m
+    n_explore = phase_explore(card, dev)
+    n_ultrasonic = phase_ultrasonic(card, dev)
+    phase_coverage_tool(card, dev)
+    phase_entry_points(card, dev)
+    n_flags = phase_flag_paths(card, dev)
+    phase_bf16_vs_f32(card, dev)
+    phase_reference(dev, "window")
+    phase_reference(dev, "room", room_kernel=True)
+    phase_reference(dev, "window bf16", 17, equal_merges=True,
+                    grid_dtype="bfloat16")
+    phase_reference_explore(dev)
+
+    def kernel(name, form, launches, res):
+        src, line = (("room_raster.cu", 672) if name == "room_raster"
+                     else ("free_raster.cu", 305))
+        return {"name": f"{name}[{form}]", "route": "cuda",
+                "source": f"swarm_tpu_torch/csrc/{src}",
+                "replaces": f"swarm_tpu/ops/beam_raster_pallas.py:{line}",
+                "launches": launches, **res, "library_ms": None}
+
+    slice_res = dict(k_slice["pack8-ring-bf16"], max_abs_err=max(
+        k_slice["pack8-ring-bf16"]["max_abs_err"],
+        k_forms["pack8-ring-bf16"]["max_abs_err"]))
+    kernels = [
+        kernel("free_raster", "pack8-ring", n_window,
+               k_window["pack8-ring"]),
+        kernel("free_raster", "pack16", n_explore["pack16"],
+               k_forms["pack16"]),
+        kernel("free_raster", "pack16-wrapped", n_explore["pack16-wrapped"],
+               k_forms["pack16-wrapped"]),
+        kernel("free_raster", "pack8-ring-wrapped",
+               n_ultrasonic["pack8-ring-wrapped"],
+               k_forms["pack8-ring-wrapped"]),
+        kernel("free_raster", "pack8-ring-bf16", n_slice, slice_res)]
+    kernels += [kernel("free_raster", key, n, k_forms[key])
+                for (which, key), n in n_flags.items() if which == "window"]
+    kernels.append(kernel("room_raster", "pack16-ring", n_room,
+                          k_room["pack16-ring"]))
+    kernels += [kernel("room_raster", key, n, k_room[key])
+                for (which, key), n in n_flags.items() if which == "room"]
+    names = {k["name"] for k in kernels}
+    if len(names) != len(kernels) or len(kernels) != 16 + 4:
+        raise AssertionError(f"kernel records: {sorted(names)}")
+    return kernels
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False"
@@ -945,40 +1429,9 @@ def main():
     card = _card()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-
     phase_build()
-    k_window = phase_window_kernel(card, dev)
-    k_forms = phase_form_kernels(card, dev)
-    k_room = phase_room_kernel(card, dev)
-    n_window, _ = phase_path(card, dev, room_kernel=False)
-    n_room, (cfg, rooms, state, m) = phase_path(card, dev, room_kernel=True)
-    phase_merge(card, dev, cfg, rooms, state, m)
-    n_explore = phase_explore(card, dev)
-    n_ultrasonic = phase_ultrasonic(card, dev)
-    phase_coverage_tool(card, dev)
-    phase_entry_points(card, dev)
-    phase_reference(dev, room_kernel=False)
-    phase_reference(dev, room_kernel=True)
-    phase_reference_explore(dev)
-
-    free = dict(route="cuda", source="swarm_tpu_torch/csrc/free_raster.cu",
-                replaces="swarm_tpu/ops/beam_raster_pallas.py:305",
-                library_ms=None)
-    print(json.dumps({"kernels": [
-        {"name": "free_raster_pack8", **free, "launches": n_window,
-         **k_window},
-        {"name": "free_raster_pack16_scan", **free,
-         "launches": n_explore["pack16"], **k_forms["pack16"]},
-        {"name": "free_raster_pack16_4way", **free,
-         "launches": n_explore["pack16-wrapped"],
-         **k_forms["pack16-wrapped"]},
-        {"name": "free_raster_pack8_4way", **free,
-         "launches": n_ultrasonic["pack8-ring-wrapped"],
-         **k_forms["pack8-ring-wrapped"]},
-        {"name": "room_raster_pack16", "route": "cuda",
-         "source": "swarm_tpu_torch/csrc/room_raster.cu",
-         "replaces": "swarm_tpu/ops/beam_raster_pallas.py:672",
-         "launches": n_room, **k_room, "library_ms": None}]}))
+    kernels = run(card, dev)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ numpy arrays). `to_numpy_like(port, template)` goes back: it rebuilds
 `type(template)` — a JAX NamedTuple — with numpy leaves, taking the fields
 the port does not carry (the JAX PRNG key) from `template`. Covers
 AgentParams, SimState, MapState, ClosureState, ZoneState, FrameState,
-OdomState, EkfState and NavState. `config_from(obj)` rebuilds the port's
+OdomState, EkfState and NavState. A bfloat16 leaf (numpy's `bfloat16`
+extension dtype on the JAX side) crosses as its 16-bit pattern.
+`config_from(obj)` rebuilds the port's
 `SwarmConfig` from any config tree with the same fields (a JAX-package
 config), field by field, without importing it.
 """
@@ -50,8 +52,14 @@ def to_torch(src, cls, device=None):
     for f in cls._fields:
         v = getattr(src, f)
         kw[f] = (to_torch(v, nested[f], device) if f in nested
-                 else torch.from_numpy(np.array(v)).to(device))
+                 else _leaf_to_torch(np.array(v)).to(device))
     return cls(**kw)
+
+
+def _leaf_to_torch(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def to_numpy_like(port, template):
@@ -65,7 +73,9 @@ def to_numpy_like(port, template):
         elif hasattr(t, "_fields"):
             out[f] = to_numpy_like(getattr(port, f), t)
         else:
-            out[f] = getattr(port, f).detach().cpu().numpy()
+            v = getattr(port, f).detach().cpu()
+            out[f] = (v.view(torch.int16).numpy().view(np.asarray(t).dtype)
+                      if v.dtype == torch.bfloat16 else v.numpy())
     return type(template)(**out)
 
 

@@ -1,15 +1,19 @@
-// Room-tile beam raster, per-beam pack16 table + endpoint ring, for Hopper.
+// Room-tile beam raster, per-beam pack16 table, for Hopper.
 //
 // Replaces swarm_tpu/ops/beam_raster_pallas.py::_room_kernel (entry point
-// room_raster_pallas) in its per-beam form (n_groups == n_beams) with the
-// trusted endpoint ring and a float32 grid. The world is tiled rooms: agents
+// room_raster_pallas) in its per-beam forms (n_groups == n_beams) on a
+// float32 grid: with the trusted endpoint ring (RING, `trusted` given) or
+// without it (the endpoints then go to the exact scatter), on the 181-beam
+// scan or the wrapped 4-way fan (the wrap is a runtime field of
+// raster_common.cuh `Fan`). The world is tiled rooms: agents
 // 2k and 2k+1 live in room k, which is one [128, 256] grid tile, and only
 // they paint it. Each agent paints a win_rows x 256 window of its own tile
 // (win_rows = 64 at the 1.2 m reach) starting at tile-local row r_loc;
 // evidence outside the tile is dropped, as on the TPU. The per-cell math is
 // _room_kernel's, operation for operation: raster_common.cuh `polar` for
 // the beam bin, the crossing count and the support, then the pack16 lookup
-// (1/256-cell range, trusted bit 15), the free carve and the ring. Slot 0
+// (1/256-cell range: 15 bits and the trusted bit 15 with the ring, all 16
+// bits without it), the free carve and, with the ring, the ring. Slot 0
 // is applied before slot 1 and the cell is clipped to [-clamp, clamp] after
 // each, as the TPU kernel's sequential slot loop does. Every slot of a tile
 // is applied, an empty one too (meta all zero: act 0, r_loc 0), so the
@@ -58,6 +62,7 @@ struct Params {
   Fan f;
 };
 
+template <bool RING>
 __global__ void __launch_bounds__(THREADS)
 room_raster_kernel(float* __restrict__ grid,
                    const float* __restrict__ meta,    // [tiles, 2, 8]
@@ -112,13 +117,17 @@ room_raster_kernel(float* __restrict__ grid,
       // pack16 lookup: word g >> 1, half g & 1
       const uint32_t v16 =
           (s_tab[s][c.g >> 1] >> (16 * (c.g & 1))) & 0xFFFFu;
-      const float rb = (float)(v16 & 0x7FFFu) * QUANT16_INV;
-      const float tf = (float)(v16 >> 15);   // trusted bit
+      const float rb = (float)(RING ? (v16 & 0x7FFFu) : v16) * QUANT16_INV;
       const bool freec = c.base_ok && (c.r < rb - 0.5f);
       float delta = freec ? p.f.miss * c.cnt : 0.f;
-      const bool on_ring = c.base_ok && (fabsf(c.r - rb) <= raster::RING);
-      delta = delta + (on_ring ? p.f.hit * c.cnt * tf : 0.f);
-      painted[s] += (freec ? c.cnt : 0.f) + (on_ring ? c.cnt * tf : 0.f);
+      painted[s] += freec ? c.cnt : 0.f;
+      if (RING) {
+        const float tf = (float)(v16 >> 15);   // trusted bit
+        const bool on_ring =
+            c.base_ok && (fabsf(c.r - rb) <= raster::RING);
+        delta = delta + (on_ring ? p.f.hit * c.cnt * tf : 0.f);
+        painted[s] += on_ring ? c.cnt * tf : 0.f;
+      }
       // apply, clipped after this slot
       v = fminf(fmaxf(v + delta * act[s], -p.f.clampv), p.f.clampv);
     }
@@ -148,15 +157,18 @@ room_raster_kernel(float* __restrict__ grid,
 
 }  // namespace
 
-extern "C" int room_raster_pack16(
+// ring: 1 with the endpoint ring, 0 without; wrap: 1 for the wrapped 4-way
+// fan. A table or grid the kernel does not take returns
+// cudaErrorInvalidValue without a launch.
+extern "C" int room_raster_launch(
     float* grid, const float* meta, const int* table, float* counts,
-    int size, int win_rows, int tab_rows, int n_beams, int dense,
-    float theta0, float half_gdt, float half_dt, float gdt, float dt,
+    int size, int win_rows, int tab_rows, int ring, int n_beams, int dense,
+    int wrap, float theta0, float half_gdt, float half_dt, float gdt, float dt,
     float fan_lo, float fan_hi, float cover, float miss, float hit,
     float clampv, void* stream) {
   if (size % TILE_COLS != 0 || size % TILE_ROWS != 0 || tab_rows < 1 ||
       tab_rows > MAX_WORDS || win_rows < 1 || win_rows > TILE_ROWS ||
-      2 * tab_rows < n_beams)
+      2 * tab_rows < n_beams || (ring != 0 && ring != 1))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.size = size;
@@ -164,12 +176,13 @@ extern "C" int room_raster_pack16(
   p.win_rows = win_rows;
   p.tab_rows = tab_rows;
   p.f = Fan{n_beams, dense, theta0, half_gdt, half_dt, gdt, dt,
-            fan_lo, fan_hi, cover, miss, hit, clampv};
+            fan_lo, fan_hi, cover, miss, hit, clampv, wrap};
   raster::fan_reciprocals(p.f);
   const int n_tiles = (size / TILE_ROWS) * p.n_tile_cols;
   if (n_tiles > 0) {
-    room_raster_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        grid, meta, table, counts, p);
+    auto kernel = ring ? room_raster_kernel<true> : room_raster_kernel<false>;
+    kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(grid, meta, table,
+                                                          counts, p);
   }
   return (int)cudaGetLastError();
 }

@@ -11,21 +11,26 @@ a Python loop replaces `lax.scan`, and noise comes in as tensors
 The raster updates `state.srv.logodds` IN PLACE: the grid of the state
 passed in is the grid of the state returned.
 
-Ported: the deployable preset's paths (presets.deployable) — the per-agent
-window raster (`free_raster`) or the room-tile raster
-(`engine.room_tile_per_row > 0`, `room_raster`), each with the anchored
-scan merge at `engine.merge_every` and the anchor freeze — and the
-exploration path (presets.coverage): the wrapped 4-way ultrasonic fan and
-the servo scan each through the window kernel (pack16 table without the
-ring, or pack8 with it), the exact endpoint scatter after each fan without
-a ring, frontier detection at the 3 s cadence and frontier-target
+Ported: the deployable preset's paths (presets.deployable, every
+single-chip `bench.py` raster flag) — the per-agent window raster
+(`free_raster`: pack8 or pack16 table, with the endpoint ring or without
+it, on a float32 or bfloat16 grid) or the room-tile raster
+(`engine.room_tile_per_row > 0`, `room_raster`: pack16, with or without
+the ring, float32), each with the anchored scan merge at
+`engine.merge_every` and the anchor freeze — and the exploration path
+(presets.coverage): the wrapped 4-way ultrasonic fan and the servo scan
+each through a raster kernel, the exact endpoint scatter after each fan
+without a ring, frontier detection at the 3 s cadence and frontier-target
 assignment (`enable_targets`), delivered in each agent's odometry frame.
 With `scan_rays == 0` the 4-way fan is the only raster and no sweep is
 sensed. The merge, zone and frontier cadences are host `if`s on a
 host-side step number: `make_sim_step` keeps it, `sim_step` takes it as
 `step_no` (or reads `state.step` once). Every config path the port does not
-run raises NotImplementedError naming its ROADMAP item
-(`check_supported`).
+run raises NotImplementedError naming its ROADMAP item, and the
+combinations the reference refuses raise its ValueError
+(`check_supported`). `StepMetrics.writes` is one step's int32 count; sum a
+rollout's on the host in int64 (`rollout_writes`): at 32,768 agents a step
+writes ~1e8 cells and a few dozen steps pass 2^31.
 """
 
 from __future__ import annotations
@@ -280,9 +285,17 @@ def draw_step_noise(generator: torch.Generator, n: int, n_rays: int,
 
 def check_supported(cfg: SwarmConfig):
     """Raise NotImplementedError for every config path the port does not run
-    yet, naming its ROADMAP item — never a silently different path."""
+    yet, naming its ROADMAP item — never a silently different path — and
+    ValueError for the combinations the reference itself refuses."""
     e, s = cfg.engine, cfg.slam
-    room, window = e.room_tile_per_row > 0, e.room_tile_per_row == 0
+    if cfg.grid.logodds_dtype != "float32" and (
+            e.parity_mode or e.raster_mode != "beam"
+            or e.room_tile_per_row > 0):
+        # the reference's sim_init refuses these (swarm_tpu/engine/
+        # sim.py:310-315), in these words
+        raise ValueError(
+            "logodds_dtype=bfloat16 is supported by the fused beam "
+            "tiers (window kernel + XLA reference) only")
     todo = [
         (e.parity_mode, "parity_mode (tri-state line raster)",
          "Queue A, reference-parity path"),
@@ -290,28 +303,14 @@ def check_supported(cfg: SwarmConfig):
          "Queue A, reference-parity path"),
         (not e.use_pallas, "use_pallas=False (the XLA beam tier)",
          "Queue B1 variants"),
-        (e.beam_groups > 0 and room,
+        (e.beam_groups > 0 and e.room_tile_per_row > 0,
          "beam_groups > 0 with room_tile_per_row > 0 (grouped room kernel)",
          "Queue B2"),
         (e.beam_groups > 0, "beam_groups > 0 (grouped tier)",
          "Queue B1 variants"),
-        (room and (e.raster_4way or e.scan_rays <= 0),
-         "the wrapped 4-way fan on the room kernel", "Queue B2"),
-        (room and not e.kernel_endpoints,
-         "the room kernel without its endpoint ring "
-         "(kernel_endpoints=False)", "Queue B2"),
-        # the room kernel takes its pack16 table whatever beam_pack8 says
-        (window and e.beam_pack8 and not e.kernel_endpoints,
-         "the pack8 window table without the endpoint ring",
-         "Queue B1 variants"),
-        (window and not e.beam_pack8 and e.kernel_endpoints,
-         "the pack16 window table with the endpoint ring",
-         "Queue B1 variants"),
         (s.merge_bias_alpha > 0.0, "merge_bias_alpha > 0",
          "Queue A, anchored merge"),
         (s.closure_scanmatch, "closure_scanmatch", "Queue A, offline SLAM"),
-        (cfg.grid.logodds_dtype != "float32", "bfloat16 grids",
-         "Queue B1 variants"),
     ]
     for off_path, what, item in todo:
         if off_path:
@@ -845,6 +844,14 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
         return out
 
     return step
+
+
+def rollout_writes(metrics: StepMetrics) -> int:
+    """The applied writes of a rollout (`StepMetrics` stacked over steps,
+    as `sim_rollout` returns them), summed in int64 on the host: each
+    step's count fits int32, their sum need not (bench.py sums its chunks
+    the same way)."""
+    return int(metrics.writes.cpu().to(torch.int64).sum())
 
 
 def sim_rollout(state: SimState, n_steps: int, cfg: SwarmConfig, walls,

@@ -51,11 +51,16 @@ def _pack_range16(dist_cells_raw, trusted):
     return ints[:, 0::2] | (ints[:, 1::2] << 16)
 
 
-def _unpack_range16(v16):
+def _unpack_range16(v16, trusted_bit: bool = True):
     """Packed 16-bit field (int32 in [0, 65535]) -> (range cells f32,
-    trusted flag f32)."""
-    return ((v16 & 0x7FFF).to(torch.float32) * (1.0 / RANGE_QUANT),
-            (v16 >> 15).to(torch.float32))
+    trusted flag f32). Bit 15 is the trusted flag when the table carries
+    one (the endpoint ring); without it all 16 bits are range and the flag
+    is 0 (`paint_hits` of the reference's `_unpack_range16`)."""
+    if trusted_bit:
+        return ((v16 & 0x7FFF).to(torch.float32) * (1.0 / RANGE_QUANT),
+                (v16 >> 15).to(torch.float32))
+    return (v16.to(torch.float32) * (1.0 / RANGE_QUANT),
+            torch.zeros(v16.shape, dtype=torch.float32, device=v16.device))
 
 
 @dataclasses.dataclass(frozen=True)

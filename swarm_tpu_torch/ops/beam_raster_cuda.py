@@ -2,18 +2,26 @@
 for Hopper and its plain torch version.
 
 Replaces `swarm_tpu/ops/beam_raster_pallas.py::_free_kernel` (entry point
-`free_raster_pallas`) in the per-beam forms (`n_groups == n_beams`) the
-ported paths run, on a float32 grid without a band:
-- pack8 + ring (`trusted` given, `pack8=True`): 7-bit 1/4-cell ranges +
-  trusted bit 7, four beams per int32 word, and the in-kernel endpoint ring
-  (the deployable step, `bench.py`'s defaults);
-- pack16 without the ring (`trusted=None`, `pack8=False`): 16-bit 1/256-cell
-  ranges, two beams per word, the free carve alone; the endpoints go to the
-  exact scatter (`ops/raster.endpoint_scatter`) after the kernel
-  (`EngineConfig`'s own defaults, the coverage tool's configuration).
-Each table serves a fan (the 181-beam scan) and the wrapped 4-way fan
-(`spec.wrap`: every direction is in the fan, the beam bin is a floor-mod).
-Per agent, over its aligned [64, 256] window, every cell gets the
+`free_raster_pallas`) in every per-beam form (`n_groups == n_beams`)
+without a band:
+- the table: pack8 (`pack8=True`: 7-bit 1/4-cell ranges, four beams per
+  int32 word) or pack16 (`pack8=False`: 15-bit 1/256-cell ranges, two beams
+  per word);
+- the endpoint ring: with `trusted` given the table carries each beam's
+  trusted bit (bit 7 / bit 15) and the kernel paints the ring; with
+  `trusted=None` every bit of the field is range, the kernel carves free
+  space alone and the engine scatters the endpoints exactly after it
+  (`ops/raster.endpoint_scatter`);
+- the grid's storage: float32, or bfloat16 (`GridConfig.logodds_dtype`),
+  whose windows are 16-row aligned ([80, 256] at the 26-cell reach); the
+  evidence adds in float32 and each agent's window is stored as bf16 before
+  the next agent reads it, as the reference does;
+- the fan: the 181-beam scan, or the wrapped 4-way fan (`spec.wrap`: every
+  direction is in the fan, the beam bin is a floor-mod).
+`bench.py`'s defaults run pack8 + ring on the scan; `--no-pack8`,
+`--exact-endpoints`, `--grid-dtype bfloat16` and `--scan-rays 0` pick the
+others, and the coverage tool runs pack16 without the ring on both fans.
+Per agent, over its aligned window, every cell gets the
 inverse-sensor-model evidence of its nearest beam (free carve
 `r < rb - 0.5` weighted by the crossing count, and with the ring
 `|r - rb| <= 0.71` weighted by the trusted bit), and the window is clipped
@@ -24,19 +32,21 @@ What bounds it on the H100: at 1024 agents x 64 x 256 cells per step the
 kernel evaluates up to ~17 M cells, each ~40 float operations (a division,
 a square root, the atan2 polynomial, the bin and the table lookup), and
 reads and writes the tiles the windows cover once (~128 MB on the 4096^2
-grid). The range table (at most 364 bytes per agent) is not the bound. The
-design (csrc/free_raster.cu) gives each block one 64 x 128 tile held in
-registers, so the read-modify-write of overlapping windows happens in
-registers in agent order and the grid is read and written once per launch,
-and each agent's table sits in shared memory. It is simple, not yet fast:
-the per-cell work of inactive fan-bbox strips is skipped (the wrapped fan's
-bbox is the full disc, so it skips nothing), but nothing else is pruned.
+float32 grid, half that in bf16). The range table (at most 364 bytes per
+agent) is not the bound. The design (csrc/free_raster.cu) gives each block
+one 64 x 128 tile held in float registers, so the read-modify-write of
+overlapping windows happens in registers in agent order (with the bf16
+rounding after each agent on a bf16 grid) and the grid is read and written
+once per launch, and each agent's table sits in shared memory. It is
+simple, not yet fast: the per-cell work of inactive fan-bbox strips is
+skipped (the wrapped fan's bbox is the full disc, so it skips nothing), but
+nothing else is pruned.
 
 `free_raster` dispatches on where the grid lies: a CPU tensor goes to
 `free_raster_plain`; a CUDA tensor launches the kernel or raises.
 `free_raster.launches` counts kernel launches and nothing else;
-`free_raster.launches_by_form` splits that count by table form and fan
-(`form_name`).
+`free_raster.launches_by_form` splits that count by table, ring, fan and
+storage (`form_name`).
 """
 
 from __future__ import annotations
@@ -51,17 +61,20 @@ from swarm_tpu_torch._device import div as _div
 from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.ops import cuda_build
-from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT,
-                                             RANGE_QUANT8, REACH_CELLS,
-                                             BeamSpec, _pack_range16,
+from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT8,
+                                             REACH_CELLS, BeamSpec,
+                                             _pack_range16, _unpack_range16,
                                              fan_bbox_cells, patch_dims,
                                              patch_origin)
 
 TILE_R = 64            # grid tile owned by one CUDA block (csrc TILE_R/C)
 TILE_C = 128
 MAX_WORDS = 128        # csrc MAX_WORDS: table words per agent
-FORM_PACK8_RING = 0    # csrc Form
-FORM_PACK16 = 1
+# csrc Form: the launch's form code from (pack8, ring)
+FORMS = {(True, True): 0, (False, False): 1, (False, True): 2,
+         (True, False): 3}
+# csrc Storage: the launch's storage code from the grid's dtype
+STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 _SOURCE = cuda_build.source("free_raster")
 
@@ -87,11 +100,13 @@ def _dense_fan(spec: BeamSpec, reach_cells: float) -> bool:
 
 
 def _pack_range8(dist_cells_raw, trusted):
-    """[N, B] raw ranges in cells + trusted mask -> [N, W] int32 words,
-    beam 4w+j in bits 8j..8j+7 (7-bit 1/4-cell range, trusted bit 7)."""
+    """[N, B] raw ranges in cells + trusted mask (or None: no trusted bit)
+    -> [N, W] int32 words, beam 4w+j in bits 8j..8j+7 (7-bit 1/4-cell
+    range, trusted bit 7)."""
     ints = torch.round(torch.clamp(dist_cells_raw, 0.0, RANGE_MAX_CELLS8)
                        * RANGE_QUANT8).to(torch.int32)
-    ints = ints | (trusted.to(torch.int32) << 7)
+    if trusted is not None:
+        ints = ints | (trusted.to(torch.int32) << 7)
     b_n = ints.shape[-1]
     n_words = -(-b_n // 4)
     ints = torch.nn.functional.pad(ints, (0, 4 * n_words - b_n))
@@ -99,10 +114,15 @@ def _pack_range8(dist_cells_raw, trusted):
             (ints[:, 2::4] << 16) | (ints[:, 3::4] << 24))
 
 
-def _unpack_range8(v8):
-    """Packed 8-bit field -> (range cells f32, trusted flag f32)."""
-    return ((v8 & 0x7F).to(torch.float32) * (1.0 / RANGE_QUANT8),
-            (v8 >> 7).to(torch.float32))
+def _unpack_range8(v8, trusted_bit: bool = True):
+    """Packed 8-bit field -> (range cells f32, trusted flag f32). Without
+    a trusted bit all 8 bits are range and the flag is 0, as the
+    reference's `_unpack_range8(v8, paint_hits=False)` reads them."""
+    if trusted_bit:
+        return ((v8 & 0x7F).to(torch.float32) * (1.0 / RANGE_QUANT8),
+                (v8 >> 7).to(torch.float32))
+    return (v8.to(torch.float32) * (1.0 / RANGE_QUANT8),
+            torch.zeros(v8.shape, dtype=torch.float32, device=v8.device))
 
 
 def _wrap_pi_cheap(x):
@@ -141,29 +161,24 @@ class _Windows(NamedTuple):
     table: torch.Tensor   # [N, W] int32 pack8 or pack16 words
     rows: int
     cols: int
-    form: int             # FORM_PACK8_RING or FORM_PACK16
+    pack8: bool           # the table: pack8 or pack16
+    ring: bool            # the table carries the trusted bit; the ring runs
 
 
-def form_name(spec: BeamSpec, pack8: bool) -> str:
-    """The launch-count key of a form: table (`pack8-ring` / `pack16`) and
-    fan (`-wrapped` for the 4-way fan)."""
-    return ("pack8-ring" if pack8 else "pack16") + \
-        ("-wrapped" if spec.wrap else "")
+def form_name(spec: BeamSpec, pack8: bool, ring: bool,
+              dtype=torch.float32) -> str:
+    """The launch-count key of a form: table (`pack8` / `pack16`), ring
+    (`-ring`), fan (`-wrapped` for the 4-way fan) and storage (`-bf16`),
+    e.g. `pack8-ring`, `pack16-wrapped`, `pack8-ring-wrapped-bf16`."""
+    return ("pack8" if pack8 else "pack16") + ("-ring" if ring else "") + \
+        ("-wrapped" if spec.wrap else "") + \
+        ("-bf16" if dtype == torch.bfloat16 else "")
 
 
-def _check_supported(logodds, spec: BeamSpec, reach: int, trusted,
-                     pack8: bool):
-    if pack8 and trusted is None:
-        raise NotImplementedError(
-            "the pack8 window raster without its endpoint ring is not "
-            "ported yet (ROADMAP Queue B1 variants)")
-    if not pack8 and trusted is not None:
-        raise NotImplementedError(
-            "the pack16 window raster with the endpoint ring is not ported "
-            "yet (ROADMAP Queue B1 variants)")
-    if logodds.dtype != torch.float32:
-        raise NotImplementedError(
-            "bfloat16 grids are not ported yet (ROADMAP Queue B1 variants)")
+def _check_supported(logodds, reach: int, pack8: bool):
+    if logodds.dtype not in STORAGE:
+        raise ValueError(f"the window raster takes a float32 or bfloat16 "
+                         f"grid, got {logodds.dtype}")
     if pack8 and reach > 31:
         raise ValueError(
             f"pack8 range field (31.75 cells) cannot cover the beam reach "
@@ -178,9 +193,13 @@ def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
              cfg: GridConfig, trusted, reach: int,
              pack8: bool = True) -> _Windows:
     size = logodds.shape[0]
-    rows, cols = patch_dims(size, reach)
+    # bf16 windows are 16-row aligned, as free_raster_pallas aligns them
+    # (beam_raster_pallas.py:541-543)
+    align = 16 if logodds.dtype == torch.bfloat16 else 8
+    rows, cols = patch_dims(size, reach, row_align=align)
     ax, ay = cells_of(agent_xy, cfg)
-    row0, col0 = patch_origin(ax, ay, size, rows, cols, reach)
+    row0, col0 = patch_origin(ax, ay, size, rows, cols, reach,
+                              row_align=align)
     # fan-bbox column-strip bounds: reach + 1.5 covers the endpoint ring
     # and the half-cell centre offset; +-1.5 cells absorb fan-edge rounding
     bxmin, bxmax, _, _ = fan_bbox_cells(yaw, spec, reach + 1.5)
@@ -191,14 +210,12 @@ def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
     t_ch = torch.clamp(torch.ceil(_div(ax + bxmax + 1.5 - c0f, 128.0)),
                        0, n_cb).to(torch.int32)
     cells = (dist_m * recip32(cfg.resolution)).to(torch.float32)
-    if pack8:
-        table, form = _pack_range8(cells, trusted), FORM_PACK8_RING
-    else:
-        table, form = _pack_range16(cells, None), FORM_PACK16
+    table = (_pack_range8 if pack8 else _pack_range16)(cells, trusted)
     return _Windows(row0=row0, col0=col0, t_cl=t_cl, t_ch=t_ch, ax=ax, ay=ay,
                     yaw=yaw.to(torch.float32),
                     act=active.to(torch.float32), table=table,
-                    rows=rows, cols=cols, form=form)
+                    rows=rows, cols=cols, pack8=pack8,
+                    ring=trusted is not None)
 
 
 def _constants(spec: BeamSpec, cfg: GridConfig):
@@ -265,27 +282,23 @@ def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
 
     zero = torch.zeros_like(r)
     act = w.act[:, None, None]
-    if w.form == FORM_PACK8_RING:
+    if w.pack8:
         words = torch.gather(w.table, 1,
                              (g >> 2).reshape(n, -1).to(torch.int64))
         v8 = (words.reshape(g.shape) >> (8 * (g & 3))) & 0xFF
-        rb, tf = _unpack_range8(v8)
-        free = base_ok & (r < rb - 0.5)
-        delta = torch.where(free, k["miss"] * cnt, zero) * act
-        on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
-        delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero) * act
-        painted = torch.where(free, cnt, zero) + \
-            torch.where(on_ring, cnt * tf, zero)
+        rb, tf = _unpack_range8(v8, w.ring)
     else:
         words = torch.gather(w.table, 1,
                              (g >> 1).reshape(n, -1).to(torch.int64))
         v16 = (words.reshape(g.shape) >> (16 * (g & 1))) & 0xFFFF
-        # no trusted bit: all 16 bits are range (`_unpack_range16(v16,
-        # False)` of the reference)
-        rb = v16.to(torch.float32) * (1.0 / RANGE_QUANT)
-        free = base_ok & (r < rb - 0.5)
-        delta = torch.where(free, k["miss"] * cnt, zero) * act
-        painted = torch.where(free, cnt, zero)
+        rb, tf = _unpack_range16(v16, w.ring)
+    free = base_ok & (r < rb - 0.5)
+    delta = torch.where(free, k["miss"] * cnt, zero) * act
+    painted = torch.where(free, cnt, zero)
+    if w.ring:
+        on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
+        delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero) * act
+        painted = painted + torch.where(on_ring, cnt * tf, zero)
     strip = (cc // 128)
     on = (strip >= w.t_cl[:, None, None]) & (strip < w.t_ch[:, None, None])
     delta = torch.where(on, delta, zero)
@@ -298,16 +311,17 @@ def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
                       reach: int = REACH_CELLS, pack8: bool = True):
     """The raster in plain torch: deltas vectorised over [N, rows, cols],
     then applied window by window in agent index order, each window
-    clipped after its agent. Updates `logodds` IN PLACE and returns
-    (logodds, counts [N] f32)."""
-    _check_supported(logodds, spec, reach, trusted, pack8)
+    clipped (in float32) and stored in the grid's dtype after its agent.
+    Updates `logodds` IN PLACE and returns (logodds, counts [N] f32)."""
+    _check_supported(logodds, reach, pack8)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
                  reach, pack8)
     delta, counts = _window_deltas(w, spec, cfg, _dense_fan(spec, reach))
     c = cfg.logodds_clamp
     for a, (r0, c0) in enumerate(zip(w.row0.tolist(), w.col0.tolist())):
         win = logodds[r0:r0 + w.rows, c0:c0 + w.cols]
-        win.copy_(torch.clamp(win + delta[a], -c, c))
+        # copy_ rounds to nearest even on a bf16 grid, as `astype` does
+        win.copy_(torch.clamp(win.to(torch.float32) + delta[a], -c, c))
     return logodds, counts
 
 
@@ -317,7 +331,7 @@ def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
 
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.free_raster_launch.argtypes = [P] * 8 + [I] * 9 + [F] * 11 + [P]
+    lib.free_raster_launch.argtypes = [P] * 8 + [I] * 10 + [F] * 11 + [P]
     lib.free_raster_launch.restype = I
 
 
@@ -363,7 +377,8 @@ class _Launch(NamedTuple):
     k: int                    # candidate tiles per agent
     rows: int
     cols: int
-    form: int                 # FORM_PACK8_RING or FORM_PACK16
+    pack8: bool
+    ring: bool
 
 
 def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
@@ -383,7 +398,7 @@ def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
     tile_start, pair_agent, pair_slot, k, _ = _tile_pairs(w,
                                                           logodds.shape[0])
     return _Launch(origins, meta, table, tile_start, pair_agent, pair_slot,
-                   k, w.rows, w.cols, w.form)
+                   k, w.rows, w.cols, w.pack8, w.ring)
 
 
 def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
@@ -398,15 +413,15 @@ def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
         ln.table.data_ptr(), ln.tile_start.data_ptr(),
         ln.pair_agent.data_ptr(), ln.pair_slot.data_ptr(),
         partial.data_ptr(), ln.tile_start.shape[0] - 1, logodds.shape[0],
-        ln.rows, ln.cols, ln.table.shape[1], ln.form, spec.n_beams,
-        int(dense), int(spec.wrap), c["theta0"], c["half_gdt"],
+        ln.rows, ln.cols, ln.table.shape[1], FORMS[ln.pack8, ln.ring],
+        STORAGE[logodds.dtype], spec.n_beams, int(dense), int(spec.wrap), c["theta0"], c["half_gdt"],
         c["half_dt"], c["gdt"], c["dt"], c["fan_lo"], c["fan_hi"],
         c["cover"], c["miss"], c["hit"], c["clampv"],
         torch.cuda.current_stream(logodds.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"free_raster launch failed: CUDA error {err}")
     free_raster.launches += 1
-    name = form_name(spec, ln.form == FORM_PACK8_RING)
+    name = form_name(spec, ln.pack8, ln.ring, logodds.dtype)
     free_raster.launches_by_form[name] = \
         free_raster.launches_by_form.get(name, 0) + 1
     # pair slots reduced per agent in a fixed order (no float atomics)
@@ -421,9 +436,10 @@ def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
     trusted=trusted)` returns them; counts is the per-agent in-kernel
     applied-write counter. agent_xy [N, 2] world metres, yaw [N], dist_m
     [N, B] the range-limited readings, trusted [N, B] their trust mask (the
-    ring, with `pack8=True`) or None (no ring, with `pack8=False`), active
-    [N] bool. `spec` is the scan's fan or the wrapped 4-way fan. `logodds`
-    [S, S] float32 is updated IN PLACE.
+    table's trusted bit and the endpoint ring) or None (no ring), active
+    [N] bool; `pack8` picks the pack8 or the pack16 table. `spec` is the
+    scan's fan or the wrapped 4-way fan. `logodds` [S, S] float32 or
+    bfloat16 is updated IN PLACE.
 
     A CPU grid goes to `free_raster_plain`. A CUDA grid launches the
     kernel; a failed build or launch raises."""
@@ -432,7 +448,7 @@ def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
                                  trusted, spec, cfg, reach=reach, pack8=pack8)
     if logodds.device.type != "cuda":
         raise ValueError(f"no raster for a grid on {logodds.device}")
-    _check_supported(logodds, spec, reach, trusted, pack8)
+    _check_supported(logodds, reach, pack8)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
                  reach, pack8)
     counts = _launch(logodds, _prepare(logodds, w, spec), spec, cfg,

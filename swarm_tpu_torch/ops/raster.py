@@ -116,7 +116,9 @@ def endpoint_scatter(logodds, rays: RayBatch, cfg: GridConfig = GridConfig()):
     """`clip(logodds + logodds_delta(rays, cfg, k_max=1)[0])` IN PLACE, for
     zero-length rays (origin == end, as `beam_raster.endpoint_rays` builds
     them: each valid, trusted, in-bounds ray adds +hit to its cell).
-    Returns (logodds, writes int).
+    Returns (logodds, writes int). On a bfloat16 grid the sum and the clip
+    are float32 and the cell is stored rounded to nearest even, once, as
+    the reference engine computes it (swarm_tpu/engine/sim.py:613-616).
 
     Sparse and sync-free: each ray finds how many valid rays share its cell
     (a sort and two searches), takes the in-order sum of that many hits
@@ -138,7 +140,8 @@ def endpoint_scatter(logodds, rays: RayBatch, cfg: GridConfig = GridConfig()):
     add = sums[torch.clamp(cnt, max=sums.shape[0] - 1)]
     cells = logodds.view(-1)
     c = cfg.logodds_clamp
-    cells.index_put_((flat,), torch.clamp(cells[flat] + add, -c, c))
+    cells.index_put_((flat,), torch.clamp(cells[flat].to(torch.float32)
+                                          + add, -c, c).to(cells.dtype))
     return logodds, ok.sum()
 
 
@@ -146,7 +149,8 @@ def tri_state_view(logodds, cfg: GridConfig = GridConfig(),
                    occ_thresh: float = OCC_THRESH,
                    free_thresh: float = FREE_THRESH):
     """int8 map: cfg.free where log-odds <= free_thresh, cfg.occupied where
-    >= occ_thresh, cfg.unknown elsewhere."""
+    >= occ_thresh, cfg.unknown elsewhere. On a bfloat16 grid each threshold
+    rounds to bfloat16, as the reference's weakly typed float does."""
     out = torch.full(logodds.shape, cfg.unknown, dtype=torch.int8,
                      device=logodds.device)
     out = torch.where(logodds <= free_thresh,

@@ -2,13 +2,17 @@
 version.
 
 Replaces `swarm_tpu/ops/beam_raster_pallas.py::_room_kernel` (entry point
-`room_raster_pallas`) in the form `bench.py --room-kernel` runs: per-beam
-carve (`n_groups == n_beams`), a pack16 range table (15-bit 1/256-cell
-ranges + trusted bit 15, two beams per int32 word, padded to a multiple of
-8 words), the in-kernel endpoint ring, a float32 grid. The engine passes
-this kernel no `pack8` (swarm_tpu/engine/sim.py:591-597), so the room path
-uses pack16 even where `EngineConfig.beam_pack8` is True; the port keeps
-that.
+`room_raster_pallas`) in every per-beam form (`n_groups == n_beams`) that
+`bench.py --room-kernel` reaches: a pack16 range table (two beams per int32
+word, padded to a multiple of 8 words) with the in-kernel endpoint ring
+(`trusted` given: 15-bit 1/256-cell ranges + trusted bit 15) or without it
+(`trusted=None`, `--exact-endpoints`: 16-bit ranges, the endpoints
+scattered exactly after the kernel), on the 181-beam scan or the wrapped
+4-way fan (`--scan-rays 0`), on a float32 grid. The engine passes this
+kernel no `pack8` (swarm_tpu/engine/sim.py:591-597), so the room path uses
+pack16 even where `EngineConfig.beam_pack8` is True; the port keeps that.
+A bfloat16 grid is refused with a ValueError, as the reference's `sim_init`
+refuses it for the room kernel (swarm_tpu/engine/sim.py:310-315).
 
 The world is tiled rooms (`geom.world.make_tiled_rooms`): agents 2k and
 2k+1 live in room k = grid tile (k // per_row, k % per_row) of [128, 256]
@@ -29,7 +33,10 @@ updated in place, the tables in shared memory.
 
 `room_raster` dispatches on where the grid lies: a CPU tensor goes to
 `room_raster_plain`; a CUDA tensor launches the kernel or raises.
-`room_raster.launches` counts kernel launches and nothing else.
+`room_raster.launches` counts kernel launches and nothing else;
+`room_raster.launches_by_form` splits that count by ring and fan
+(`form_name`: `pack16-ring`, `pack16`, `pack16-ring-wrapped`,
+`pack16-wrapped`).
 """
 
 from __future__ import annotations
@@ -65,25 +72,21 @@ class _Rooms(NamedTuple):
     meta: torch.Tensor    # [BR, BC, 2, 8] f32
     table: torch.Tensor   # [BR, BC, 2, tab_rows] int32 pack16 words
     win_rows: int
+    ring: bool            # the table carries the trusted bit; the ring runs
 
 
-def _check_supported(logodds, spec: BeamSpec, n_groups: int, trusted,
-                     reach: int):
-    if spec.wrap:
-        raise NotImplementedError(
-            "the 4-way (wrapped) fan raster is not ported yet "
-            "(ROADMAP Queue B1 variants)")
+def _check_supported(logodds, spec: BeamSpec, n_groups: int, reach: int):
     if min(n_groups, spec.n_beams) < spec.n_beams:
         raise NotImplementedError(
             "the grouped room kernel (beam_groups > 0) is not ported yet "
             "(ROADMAP Queue B2)")
-    if trusted is None:
-        raise NotImplementedError(
-            "the room kernel without its endpoint ring is not ported yet "
-            "(ROADMAP Queue B2)")
     if logodds.dtype != torch.float32:
-        raise NotImplementedError(
-            "bfloat16 grids are not ported yet (ROADMAP Queue B1 variants)")
+        # the reference's sim_init refuses a bf16 grid with the room kernel
+        # (swarm_tpu/engine/sim.py:310-315); the port follows it
+        raise ValueError(
+            "logodds_dtype=bfloat16 is supported by the fused beam tiers "
+            "(window kernel + XLA reference) only: the room kernel takes a "
+            f"float32 grid, got {logodds.dtype}")
     if -(-spec.n_beams // 2) > MAX_WORDS:
         raise ValueError(f"{spec.n_beams} beams exceed the kernel's "
                          f"{2 * MAX_WORDS}-beam table")
@@ -133,7 +136,15 @@ def _rooms(logodds, agent_xy, yaw, dist_m, active, cfg: GridConfig,
     table = torch.zeros((br_n, bc_n, AGENTS_PER_ROOM, tab_rows),
                         dtype=torch.int32, device=dev)
     table[tile_r, tile_c, slot, :words.shape[1]] = words
-    return _Rooms(meta=meta, table=table, win_rows=win_rows)
+    return _Rooms(meta=meta, table=table, win_rows=win_rows,
+                  ring=trusted is not None)
+
+
+def form_name(spec: BeamSpec, ring: bool) -> str:
+    """The launch-count key of a room form: `pack16`, `-ring` with the
+    endpoint ring, `-wrapped` on the 4-way fan."""
+    return "pack16" + ("-ring" if ring else "") + \
+        ("-wrapped" if spec.wrap else "")
 
 
 # --------------------------------------------------------------------------
@@ -164,15 +175,16 @@ def _room_deltas(rm: _Rooms, spec: BeamSpec, cfg: GridConfig, dense: bool):
     tab = rm.table.reshape(br_n * bc_n * AGENTS_PER_ROOM, -1)
     words = torch.gather(tab, 1, (g >> 1).reshape(tab.shape[0], -1).to(
         torch.int64)).reshape(g.shape)
-    rb, tf = _unpack_range16((words >> (16 * (g & 1))) & 0xFFFF)
+    rb, tf = _unpack_range16((words >> (16 * (g & 1))) & 0xFFFF, rm.ring)
 
     zero = torch.zeros_like(r)
     free = base_ok & (r < rb - 0.5)
     delta = torch.where(free, k["miss"] * cnt, zero)
-    on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
-    delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero)
-    painted = torch.where(free, cnt, zero) + \
-        torch.where(on_ring, cnt * tf, zero)
+    painted = torch.where(free, cnt, zero)
+    if rm.ring:
+        on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
+        delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero)
+        painted = painted + torch.where(on_ring, cnt * tf, zero)
     return delta, painted.sum(dim=(-2, -1))
 
 
@@ -183,7 +195,7 @@ def room_raster_plain(logodds, agent_xy, yaw, dist_m, active,
     """The room raster in plain torch: deltas vectorised over every (tile,
     slot) window, then applied slot 0 then slot 1, each clipped. Updates
     `logodds` IN PLACE and returns (logodds, counts [BR, BC] f32)."""
-    _check_supported(logodds, spec, n_groups, trusted, reach)
+    _check_supported(logodds, spec, n_groups, reach)
     rm = _rooms(logodds, agent_xy, yaw, dist_m, active, cfg, per_row,
                 trusted, reach)
     delta, painted = _room_deltas(rm, spec, cfg, _dense_fan(spec, reach))
@@ -211,8 +223,8 @@ def room_raster_plain(logodds, agent_xy, yaw, dist_m, active,
 
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.room_raster_pack16.argtypes = [P] * 4 + [I] * 5 + [F] * 11 + [P]
-    lib.room_raster_pack16.restype = I
+    lib.room_raster_launch.argtypes = [P] * 4 + [I] * 7 + [F] * 11 + [P]
+    lib.room_raster_launch.restype = I
 
 
 def _launch(logodds, rm: _Rooms, spec: BeamSpec, cfg: GridConfig,
@@ -227,17 +239,19 @@ def _launch(logodds, rm: _Rooms, spec: BeamSpec, cfg: GridConfig,
     counts = torch.empty((br_n, bc_n), dtype=torch.float32,
                          device=logodds.device)
     c = _constants(spec, cfg)
-    err = cuda_build.load("room_raster", _bind).room_raster_pack16(
+    err = cuda_build.load("room_raster", _bind).room_raster_launch(
         logodds.data_ptr(), meta.data_ptr(), table.data_ptr(),
         counts.data_ptr(), logodds.shape[0], rm.win_rows, table.shape[-1],
-        spec.n_beams, int(dense),
+        int(rm.ring), spec.n_beams, int(dense), int(spec.wrap),
         c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
         c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
         c["clampv"], torch.cuda.current_stream(logodds.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"room_raster_pack16 launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"room_raster launch failed: CUDA error {err}")
     room_raster.launches += 1
+    name = form_name(spec, rm.ring)
+    room_raster.launches_by_form[name] = \
+        room_raster.launches_by_form.get(name, 0) + 1
     return counts
 
 
@@ -247,9 +261,10 @@ def room_raster(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
     """The engine's room raster: (new_logodds, counts [BR, BC] f32) as
     `room_raster_pallas(..., n_groups=n_beams, trusted=...)` returns them.
     agent_xy [N, 2] world metres, yaw [N], dist_m / trusted [N, B] the
-    range-limited sweep and its trust mask, active [N] bool; per_row rooms
-    per tile row (default: every tile column). `logodds` [S, S] float32 is
-    updated IN PLACE.
+    range-limited readings and their trust mask (the endpoint ring) or
+    trusted=None (no ring), active [N] bool; `spec` is the scan's fan or the
+    wrapped 4-way fan; per_row rooms per tile row (default: every tile
+    column). `logodds` [S, S] float32 is updated IN PLACE.
 
     A CPU grid goes to `room_raster_plain`. A CUDA grid launches the
     kernel; a failed build or launch raises."""
@@ -260,10 +275,11 @@ def room_raster(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
                                  reach=reach)
     if logodds.device.type != "cuda":
         raise ValueError(f"no raster for a grid on {logodds.device}")
-    _check_supported(logodds, spec, n_groups, trusted, reach)
+    _check_supported(logodds, spec, n_groups, reach)
     rm = _rooms(logodds, agent_xy, yaw, dist_m, active, cfg, per_row,
                 trusted, reach)
     return logodds, _launch(logodds, rm, spec, cfg, _dense_fan(spec, reach))
 
 
 room_raster.launches = 0
+room_raster.launches_by_form = {}

@@ -5,13 +5,18 @@ parity=False, raster_mode="beam", use_pallas=True, scan_rays=...,
 tiled=True, room_kernel=...)` returns, for the tool that runs it:
 
 `deployable` adds bench.py's replacements and defaults (`beam_groups=0`,
-`kernel_endpoints=True`, `beam_pack8=True`, `raster_4way=(scan_rays == 0)`,
-`merge_every=16` when there is a sweep, else 0). `room_kernel=True` is
-`bench.py --room-kernel`: `room_tile_per_row = per_row`, so the raster runs
-the room-tile kernel instead of the per-agent window kernel.
-`frontiers=True` is `bench.py --frontiers` (run it with
-`enable_targets=True`); `scan_rays=0` is `bench.py --scan-rays 0`, the
-4-way ultrasonic fan alone.
+`kernel_endpoints=not exact_endpoints`, `beam_pack8=pack8`,
+`raster_4way=(scan_rays == 0)`, `merge_every=16` when there is a sweep,
+else 0, and the grid's `logodds_dtype=grid_dtype`), bench.py:114-128. Its
+flags are bench.py's: `room_kernel=True` is `--room-kernel`
+(`room_tile_per_row = per_row`, so the raster runs the room-tile kernel
+instead of the per-agent window kernel); `frontiers=True` is `--frontiers`
+(run it with `enable_targets=True`); `scan_rays=0` is `--scan-rays 0`, the
+4-way ultrasonic fan alone; `pack8=False` is `--no-pack8`;
+`exact_endpoints=True` is `--exact-endpoints`; `grid_dtype="bfloat16"` is
+`--grid-dtype bfloat16`. `deployable(32768, grid_dtype="bfloat16")` is the
+largest configuration the repository publishes: a 23,296^2 bf16 grid,
+16,384 rooms at 91 per tile row.
 
 `coverage` is the configuration of tools/bench_coverage.py: EngineConfig's
 own raster defaults (`raster_4way=True`, `kernel_endpoints=False`,
@@ -35,7 +40,7 @@ from swarm_tpu_torch.geom.world import make_tiled_rooms, walls_by_group
 
 
 def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
-                 room_kernel: bool, **engine):
+                 room_kernel: bool, grid_dtype: str = "float32", **engine):
     """Tiled-rooms world (two agents per room, each room on its own
     [128, 256]-cell grid tile) + config with the given engine fields."""
     device = default_device(device)
@@ -47,7 +52,8 @@ def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
     walls, origins = make_tiled_rooms(n_rooms, per_row=per_row)
     cfg = SwarmConfig(
         n_agents=n_agents,
-        grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0),
+        grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0,
+                        logodds_dtype=grid_dtype),
         engine=EngineConfig(
             parity_mode=False, compute_frontiers=frontiers,
             raster_mode="beam", use_pallas=True, scan_rays=scan_rays,
@@ -75,16 +81,17 @@ def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
 
 def deployable(n_agents: int, device=None, merge_every: int = 16,
                room_kernel: bool = False, frontiers: bool = False,
-               scan_rays: int = 181):
+               scan_rays: int = 181, pack8: bool = True,
+               exact_endpoints: bool = False, grid_dtype: str = "float32"):
     """bench.py's world + config for an n-agent swarm. Returns (cfg, walls
     [S, 4], params, (walls_grouped [G, 4, 4], room_of_agent [N] int32)),
     tensors on `device` (the card when None). At 1024 agents: a 4096^2
     grid, 512 rooms (2048 wall segments), 181-beam sweeps. Without a sweep
     (`scan_rays=0`) the merge is off, as bench.py sets it."""
     return _tiled_world(
-        n_agents, device, frontiers, scan_rays, room_kernel,
-        beam_groups=0, kernel_endpoints=True, beam_pack8=True,
-        raster_4way=scan_rays == 0,
+        n_agents, device, frontiers, scan_rays, room_kernel, grid_dtype,
+        beam_groups=0, kernel_endpoints=not exact_endpoints,
+        beam_pack8=pack8, raster_4way=scan_rays == 0,
         merge_every=merge_every if scan_rays > 0 else 0)
 
 

@@ -91,9 +91,7 @@ def scan_merge(logodds, rx, ry, ryaw, scan_dist, alive, cfg: SwarmConfig,
         sxg = torch.minimum(torch.maximum(sxg, lo_c), hi_c)
     min_pts = min(slam.merge_min_points, max(6, r_scan // 4))
 
-    # occupancy mass in [0, 1] (~saturates at 2 endpoint hits)
-    win = _crop(logodds, syg - r0, sxg - c0, side).to(torch.float32)
-    mass = torch.clamp(div(win, 2.0 * grid.logodds_hit), 0.0, 1.0)
+    mass = occupancy_mass(_crop(logodds, syg - r0, sxg - c0, side), grid)
     # agent float coords inside the inner region; -0.5 aligns the splat's
     # integer-centred cells with the raster's floor() binning
     ax = gx - sxg - search - 0.5
@@ -113,6 +111,16 @@ def scan_merge(logodds, rx, ry, ryaw, scan_dist, alive, cfg: SwarmConfig,
                            else theta_prior_scale),
         distinct_margin=slam.merge_distinct_margin,
         distinct_radius=slam.merge_distinct_radius)
+
+
+def occupancy_mass(logodds, grid) -> torch.Tensor:
+    """Occupancy mass in [0, 1] (~saturates at 2 endpoint hits) of log-odds
+    cells, as float32. The quotient is taken in the grid's dtype: on a
+    bfloat16 grid the jitted reference divides by bf16(2 hit) = 1.703125
+    and rounds the quotient to bf16 before its float32 cast (ROADMAP C17),
+    which `div` does with a bf16 divisor tensor."""
+    return torch.clamp(div(logodds, 2.0 * grid.logodds_hit), 0.0,
+                       1.0).to(torch.float32)
 
 
 def chunk_attempt(cfg: SwarmConfig, event: int, n_global: int, n_loc: int,

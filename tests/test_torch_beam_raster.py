@@ -34,21 +34,25 @@ from tests.torch_parity import assert_close, assert_exact, decision_equal, t
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 
 
-def test_pack_range8_exact(rng):
+@pytest.mark.parametrize("ring", [True, False])
+def test_pack_range8_exact(rng, ring):
+    """The pack8 table with the trusted bit (the ring) and without it
+    (every bit range), and its unpack, bit-exact."""
     for n_beams in (61, 181):
         d = rng.uniform(-1.0, 40.0, (7, n_beams)).astype(np.float32)
         trusted = rng.random((7, n_beams)) < 0.6
-        ref = jp._pack_range8(jnp.asarray(d), jnp.asarray(trusted))
-        got = pc._pack_range8(t(d), t(trusted))
+        ref = jp._pack_range8(jnp.asarray(d),
+                              jnp.asarray(trusted) if ring else None)
+        got = pc._pack_range8(t(d), t(trusted) if ring else None)
         assert got.dtype == torch.int32
         assert_exact(got, ref)
         # the unpack of every lane gives the reference's fields back
         for lane in range(4):
             v8 = (got >> (8 * lane)) & 0xFF
-            rb, tf = pc._unpack_range8(v8)
+            rb, tf = pc._unpack_range8(v8, ring)
             jrb, jtf = jp._unpack_range8(
                 jax.lax.shift_right_logical(jnp.asarray(ref), 8 * lane)
-                & 0xFF, True, v8.shape)
+                & 0xFF, ring, v8.shape)
             assert_exact(rb, jrb)
             assert_exact(tf, jtf)
 
@@ -171,14 +175,21 @@ def test_overlap_saturation_clip_order(rng):
     delta, _ = pc._window_deltas(w, spec_p, GRID, True)
     for a in range(n):
         r0, c0 = int(w.row0[a]), int(w.col0[a])
-        sum_then_clip[r0:r0 + 64, c0:c0 + 256] += delta[a].numpy()
+        sum_then_clip[r0:r0 + w.rows, c0:c0 + w.cols] += delta[a].numpy()
     sum_then_clip = np.clip(sum_then_clip, -10.0, 10.0)
     assert (np.abs(sum_then_clip - np.asarray(ref)) > 1e-3).sum() > 20
 
 
-# the window raster's forms on the exploration path: (beams, pack8, ring)
+# the window raster's per-beam forms besides the deployable one (pack8 +
+# ring on the scan, above): (beams, pack8, ring). The exploration path's
+# pack16 without the ring, bench.py --scan-rays 0's pack8 + ring on the
+# wrapped fan, --no-pack8's pack16 + ring, --exact-endpoints' pack8
+# without the ring, each on the scan and the wrapped fan.
 FORMS = {"scan-pack16": (181, False, False), "4way-pack16": (4, False, False),
-         "4way-pack8-ring": (4, True, True)}
+         "4way-pack8-ring": (4, True, True),
+         "scan-pack16-ring": (181, False, True),
+         "4way-pack16-ring": (4, False, True),
+         "scan-pack8": (181, True, False), "4way-pack8": (4, True, False)}
 
 
 def _specs(n_beams):
@@ -190,8 +201,7 @@ def _specs(n_beams):
 @pytest.mark.parametrize("case", ["spread", "edges", "overlap"])
 @pytest.mark.parametrize("form", list(FORMS))
 def test_forms_match_pallas(rng, form, case):
-    """The pack16 table without the ring (scan and wrapped 4-way fan) and
-    the pack8 table with the ring on the wrapped fan, against
+    """Each form of FORMS against
     `free_raster_pallas(..., trusted=None | tb, pack8=..., interpret=True)`:
     agents spread out, on the grid's edges, or overlapping on a grid
     pre-filled near +-clamp. Headings include 0, pi and -2.5 rad, where

@@ -1,7 +1,8 @@
 """The hand-written CUDA raster kernels (the per-agent window raster in
-each of its forms, and the room-tile raster) against their plain torch
-versions, on the card, at small sizes; and the endpoint scatter on the card
-against the CPU.
+each of its 16 per-beam instances: table x ring x fan x float32/bfloat16
+grid, and the room-tile raster in its four per-beam forms) against their
+plain torch versions, on the card, at small sizes; and the endpoint scatter
+on the card against the CPU, on float32 and bfloat16 grids.
 
 Needs an NVIDIA GPU with the CUDA toolkit; every test skips without one.
 This file imports no jax, so on a card (whose machine need not have jax,
@@ -10,9 +11,12 @@ which tests/conftest.py imports) it runs on its own with
         tests/test_torch_kernel_cuda.py
 
 Kernel and plain version issue the same float32 operation sequence (the
-kernel is built with --fmad=false, IEEE division and 1/sqrtf), so the map is
-held BIT-EQUAL and the counts (integer-valued sums) to rtol 1e-6.
+kernel is built with --fmad=false, IEEE division and 1/sqrtf), and on a
+bf16 grid both round each agent's window to bf16 after that agent, so the
+map is held BIT-EQUAL and the counts (integer-valued sums) to rtol 1e-6.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -202,3 +206,118 @@ def test_room_kernel_bit_equal_plain(cuda, n_rooms, overlap):
     assert diff == 0, f"{diff} cells differ"
     assert torch.equal(cnt_k, cnt_p)
     assert float(cnt_k.sum()) > 0
+
+
+# every window instance: (beams, pack8, ring, dtype)
+WINDOW_INSTANCES = list(itertools.product(
+    (181, 4), (True, False), (True, False), (torch.float32, torch.bfloat16)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams,pack8,ring,dtype", WINDOW_INSTANCES)
+@pytest.mark.parametrize("overlap", [False, True])
+def test_window_instances_bit_equal_plain(cuda, n_beams, pack8, ring, dtype,
+                                          overlap):
+    """All 16 instances of the window kernel, agents spread out on a zero
+    grid or overlapping on a grid pre-filled near +-clamp (where the
+    per-agent clip, and on bf16 the per-agent rounding, decides cells)."""
+    size = 512
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0,
+                     logodds_dtype="bfloat16" if dtype == torch.bfloat16
+                     else "float32")
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    grid, xy, yaw, dist, trusted, active = _case(
+        n_beams + 2 * pack8 + ring, 48, n_beams, size, overlap, overlap)
+    args = [torch.from_numpy(a).to(cuda) for a in (xy, yaw, dist)]
+    act = torch.from_numpy(active).to(cuda)
+    tr = torch.from_numpy(trusted).to(cuda) if ring else None
+    g_k = torch.from_numpy(grid).to(cuda).to(dtype)
+    g_p = g_k.clone()
+
+    before = free_raster.launches
+    _, cnt_k = free_raster(g_k, *args, act, tr, spec, cfg, reach=26,
+                           pack8=pack8)
+    torch.cuda.synchronize()
+    assert free_raster.launches == before + 1
+    _, cnt_p = free_raster_plain(g_p, *args, act, tr, spec, cfg, reach=26,
+                                 pack8=pack8)
+    assert free_raster.launches == before + 1
+    assert g_k.dtype == dtype
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("four_way,ring", [(False, False), (True, True),
+                                           (True, False)])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_room_forms_bit_equal_plain(cuda, four_way, ring, overlap):
+    """The room kernel without its ring, and on the wrapped 4-way fan with
+    and without it."""
+    size, per_row, n_rooms = 512, 2, 4
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    rng = np.random.default_rng(11 + 2 * four_way + ring)
+    _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    n = 2 * n_rooms
+    n_beams = 4 if four_way else 181
+    room = np.arange(n) // 2
+    if overlap:
+        c = origins[room] + rng.uniform([1.0, 1.0], [5.0, 3.0],
+                                        (n_rooms, 2))[room]
+        xy = c + rng.uniform(-0.15, 0.15, (n, 2))
+        grid = rng.choice([-9.9, 9.7, -9.6, 9.95], (size, size))
+    else:
+        xy = origins[room] + rng.uniform([0.3, 0.3], [5.7, 3.7], (n, 2))
+        grid = np.zeros((size, size))
+    dist = rng.uniform(0.02, 1.6, (n, n_beams))
+    trusted = (dist > 0.05) & (dist <= 1.2)
+
+    def dev(a, dtype=None):
+        x = torch.from_numpy(np.asarray(a)).to(cuda)
+        return x if dtype is None else x.to(dtype)
+
+    f32 = torch.float32
+    spec = BeamSpec.four_way() if four_way else BeamSpec.scan(181)
+    args = (dev(xy, f32), dev(rng.uniform(-np.pi, np.pi, n), f32),
+            dev(np.minimum(dist, 1.2), f32), dev(np.ones(n, bool)))
+    kw = dict(n_groups=n_beams, per_row=per_row,
+              trusted=dev(trusted) if ring else None, reach=26)
+    g_k = dev(grid, f32)
+    g_p = g_k.clone()
+    before = room_raster.launches
+    _, cnt_k = room_raster(g_k, *args, spec, cfg, **kw)
+    torch.cuda.synchronize()
+    assert room_raster.launches == before + 1
+    _, cnt_p = room_raster_plain(g_p, *args, spec, cfg, **kw)
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_endpoint_scatter_bf16_card_equals_cpu(cuda):
+    """The endpoint scatter on a bf16 grid: the same map on the card as on
+    the CPU, with many endpoints in some cells."""
+    rng = np.random.default_rng(6)
+    cfg = GridConfig(size=256, origin_x=-1.0, origin_y=-1.0,
+                     logodds_dtype="bfloat16")
+    r = 20000
+    hx = rng.uniform(-1.5, 12.0, r).astype(np.float32)
+    hy = rng.uniform(-1.5, 12.0, r).astype(np.float32)
+    hx[:5000] = hx[:50].repeat(100)
+    hy[:5000] = hy[:50].repeat(100)
+    ok = rng.random(r) < 0.8
+    grid = rng.choice([-9.9, 9.7, 0.0, -3.2], (256, 256)).astype(np.float32)
+    outs = []
+    for d in ("cpu", cuda):
+        rays = RayBatch(*(torch.from_numpy(a).to(d)
+                          for a in (hx, hy, hx, hy, ok, ok)))
+        g, w = endpoint_scatter(torch.tensor(grid, device=d).to(
+            torch.bfloat16), rays, cfg)
+        outs.append((g.cpu(), int(w)))
+    assert outs[0][0].dtype == torch.bfloat16
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1] > 0

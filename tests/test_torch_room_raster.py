@@ -2,7 +2,9 @@
 
 The plain torch version (`room_raster_plain`, the function the CUDA kernel
 is held bit-equal to on the card) runs against
-`room_raster_pallas(..., n_groups=n_beams, trusted=..., interpret=True)`.
+`room_raster_pallas(..., n_groups=n_beams, trusted=..., interpret=True)`,
+with the endpoint ring and without it (`trusted=None`), on the 181-beam
+scan and on the wrapped 4-way fan.
 The pack16 table is bit-exact. The map is decision-equal within a bound:
 XLA on the CPU fuses dx*dx + dy*dy into an FMA and its `lax.rsqrt` is not
 IEEE 1/sqrt (ROADMAP C9), so a cell on the `r < rb - 0.5` or
@@ -102,6 +104,46 @@ def test_plain_matches_pallas_room_kernel(rng, n_rooms, overlap):
     assert int((got.numpy() != grid).sum()) > 1000
 
 
+# the room kernel's forms besides the ring on the scan: (beams, ring) —
+# bench.py --room-kernel with --exact-endpoints, --scan-rays 0, or both
+ROOM_FORMS = {"scan": (181, False), "4way-ring": (4, True), "4way": (4, False)}
+
+
+@pytest.mark.parametrize("form,n_rooms,overlap", [
+    ("scan", 3, False), ("scan", 4, True), ("4way-ring", 3, False),
+    ("4way-ring", 4, True), ("4way", 4, True)])
+def test_room_forms_match_pallas(rng, form, n_rooms, overlap):
+    """The room kernel without the ring (every bit of the pack16 field is
+    range) and on the wrapped 4-way fan, with and without the ring, against
+    the jitted `room_raster_pallas(..., trusted=None | tb,
+    interpret=True)`; headings include 0, pi and -2.5 rad, where the
+    wrapped fan's bin is negative before its floor-mod."""
+    n_beams, ring = ROOM_FORMS[form]
+    grid, xy, yaw, db, tb, act = _rooms_case(rng, n_rooms, overlap, n_beams)
+    yaw[:3] = [0.0, np.pi, -2.5]
+    if n_beams == 4:
+        spec_j, spec_p = jb.BeamSpec.four_way(), pb.BeamSpec.four_way()
+    else:
+        spec_j, spec_p = jb.BeamSpec.scan(181), pb.BeamSpec.scan(181)
+    # under jit, as the engine runs it (ROADMAP C15)
+    ref, rc = jax.jit(lambda *a: jp.room_raster_pallas(
+        *a[:5], spec_j, GRID, n_groups=n_beams, per_row=PER_ROW,
+        trusted=a[5], reach=26, interpret=True))(
+        jnp.asarray(grid), jnp.asarray(xy), jnp.asarray(yaw),
+        jnp.asarray(db), jnp.asarray(act), jnp.asarray(tb) if ring else None)
+    before = pr.room_raster.launches
+    got, gc = pr.room_raster(torch.from_numpy(grid.copy()), t(xy), t(yaw),
+                             t(db), t(act), spec_p, GRID, n_groups=n_beams,
+                             per_row=PER_ROW, trusted=t(tb) if ring else None,
+                             reach=26)
+    assert pr.room_raster.launches == before      # CPU: the plain version
+    np.testing.assert_allclose(gc.numpy(), np.asarray(rc), rtol=1e-5)
+    assert bool((gc.reshape(-1)[:n_rooms] > 0).all())
+    changed = int((np.asarray(ref) != grid).sum())
+    decision_equal(got, ref, f"room {form} map", painted=changed)
+    assert changed > 100
+
+
 def test_inactive_room_is_a_noop():
     """All agents inactive on a zero grid: the map and counts stay zero
     (the act multiply), on both sides."""
@@ -124,8 +166,9 @@ def test_inactive_room_is_a_noop():
 
 def test_refusals():
     """The reach that does not fit a tile is refused on both sides; the
-    grouped form and a grid on neither the CPU nor the card are refused by
-    the port."""
+    grouped form, a bfloat16 grid (the reference's sim_init refuses it with
+    the room kernel) and a grid on neither the CPU nor the card are refused
+    by the port."""
     spec = pb.BeamSpec.scan(181)
     args = (torch.zeros(1, 2), torch.zeros(1), torch.ones(1, 181),
             torch.ones(1, dtype=torch.bool))
@@ -143,6 +186,9 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pr.room_raster(torch.zeros(512, 512), *args, spec, GRID, n_groups=16,
                        trusted=torch.ones(1, 181, dtype=bool), reach=26)
+    with pytest.raises(ValueError, match="bfloat16"):
+        pr.room_raster(torch.zeros(512, 512, dtype=torch.bfloat16), *args,
+                       spec, GRID, n_groups=181, reach=26)
     with pytest.raises(ValueError):
         pr.room_raster(torch.zeros(512, 512, device="meta"), *args, spec,
                        GRID, n_groups=181,

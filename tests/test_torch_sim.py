@@ -149,45 +149,100 @@ def test_free_running_rollout(world):
 def test_unported_paths_refuse(world):
     cfg, params, _, port = world
     cfg = convert.config_from(cfg)
-    for eng, slam, grid in (
-            (dict(beam_groups=8, room_tile_per_row=1), {}, {}),
-            (dict(beam_groups=8), {}, {}),
-            (dict(parity_mode=True), {}, {}),
-            (dict(raster_mode="line"), {}, {}),
-            (dict(use_pallas=False), {}, {}),
-            # pack16 + ring and pack8 without the ring on the window path
-            (dict(beam_pack8=False), {}, {}),
-            (dict(kernel_endpoints=False), {}, {}),
-            # the room kernel: no wrapped fan, no form without the ring
-            (dict(room_tile_per_row=1, raster_4way=True), {}, {}),
-            (dict(room_tile_per_row=1, kernel_endpoints=False,
-                  beam_pack8=False), {}, {}),
-            (dict(merge_every=16), dict(merge_bias_alpha=0.1), {}),
-            ({}, dict(closure_scanmatch=True), {}),
-            ({}, {}, dict(logodds_dtype="bfloat16"))):
-        bad = cfg.replace(engine=dataclasses.replace(cfg.engine, **eng),
-                          slam=dataclasses.replace(cfg.slam, **slam),
-                          grid=dataclasses.replace(cfg.grid, **grid))
+
+    def with_(eng=None, slam=None, grid=None):
+        return cfg.replace(
+            engine=dataclasses.replace(cfg.engine, **(eng or {})),
+            slam=dataclasses.replace(cfg.slam, **(slam or {})),
+            grid=dataclasses.replace(cfg.grid, **(grid or {})))
+
+    for bad in (with_(dict(beam_groups=8, room_tile_per_row=1)),
+                with_(dict(beam_groups=8)),
+                with_(dict(parity_mode=True)),
+                with_(dict(raster_mode="line")),
+                with_(dict(use_pallas=False)),
+                with_(dict(merge_every=16), dict(merge_bias_alpha=0.1)),
+                with_({}, dict(closure_scanmatch=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ps.sim_init(bad, port["params"])
     # the merge matches sweeps: refused without one
     with pytest.raises(ValueError, match="scan_rays"):
-        ps.check_supported(cfg.replace(engine=dataclasses.replace(
-            cfg.engine, merge_every=16, scan_rays=0)))
+        ps.check_supported(with_(dict(merge_every=16, scan_rays=0)))
+    # a bf16 grid with the room kernel, the parity path or a non-beam
+    # raster: the reference's sim_init refuses these, and so does the port
+    bf16 = dict(logodds_dtype="bfloat16")
+    for eng in (dict(room_tile_per_row=1), dict(parity_mode=True),
+                dict(raster_mode="line")):
+        with pytest.raises(ValueError, match="bfloat16"):
+            ps.sim_init(with_(eng, grid=bf16), port["params"])
+    jcfg, jparams = world[0], world[1]
+    with pytest.raises(ValueError, match="bfloat16"):
+        js.sim_init(jcfg.replace(
+            engine=dataclasses.replace(jcfg.engine, room_tile_per_row=1),
+            grid=dataclasses.replace(jcfg.grid, **bf16)), jparams)
     # these run: the merge, the room kernel (pack16, whatever beam_pack8
-    # says), the wrapped 4-way fan (with and without a sweep), frontiers,
-    # the pack16 window table without the ring (the exact endpoint
-    # scatter), and the coverage tool's configuration
-    for eng in (dict(merge_every=16), dict(room_tile_per_row=1),
-                dict(room_tile_per_row=1, beam_pack8=False),
-                dict(raster_4way=True), dict(compute_frontiers=True),
-                dict(raster_4way=True, scan_rays=0, merge_every=0),
-                dict(beam_pack8=False, kernel_endpoints=False),
-                dict(beam_pack8=False, kernel_endpoints=False,
-                     raster_4way=True, compute_frontiers=True,
-                     merge_every=0)):
-        ps.check_supported(cfg.replace(
-            engine=dataclasses.replace(cfg.engine, **eng)))
+    # says) with and without its ring and on the wrapped 4-way fan, the
+    # wrapped fan (with and without a sweep), frontiers, the window table
+    # in all four forms (pack8 / pack16, with / without the ring), a bf16
+    # grid on the window kernel, and the coverage tool's configuration
+    for eng, grid in (
+            (dict(merge_every=16), {}), (dict(room_tile_per_row=1), {}),
+            (dict(room_tile_per_row=1, beam_pack8=False), {}),
+            (dict(room_tile_per_row=1, kernel_endpoints=False), {}),
+            (dict(room_tile_per_row=1, raster_4way=True), {}),
+            (dict(room_tile_per_row=1, raster_4way=True, scan_rays=0,
+                  merge_every=0, kernel_endpoints=False), {}),
+            (dict(raster_4way=True), {}), (dict(compute_frontiers=True), {}),
+            (dict(raster_4way=True, scan_rays=0, merge_every=0), {}),
+            (dict(beam_pack8=False), {}), (dict(kernel_endpoints=False), {}),
+            (dict(beam_pack8=False, kernel_endpoints=False), {}),
+            (dict(beam_pack8=False, kernel_endpoints=False,
+                  raster_4way=True, compute_frontiers=True,
+                  merge_every=0), {}),
+            ({}, bf16), (dict(kernel_endpoints=False), bf16),
+            (dict(raster_4way=True, scan_rays=0, merge_every=0), bf16)):
+        ps.check_supported(with_(eng, grid=grid))
+
+
+# bench.py's single-chip raster flags (plus --agents): presets.deployable's
+# arguments, each a path chip_smoke.py drives
+BENCH_ROWS = [
+    dict(grid_dtype="bfloat16"), dict(pack8=False),
+    dict(exact_endpoints=True), dict(scan_rays=0, pack8=False),
+    dict(scan_rays=0, exact_endpoints=True),
+    dict(grid_dtype="bfloat16", exact_endpoints=True),
+    dict(grid_dtype="bfloat16", scan_rays=0),
+    dict(room_kernel=True, exact_endpoints=True),
+    dict(room_kernel=True, scan_rays=0),
+    dict(room_kernel=True, scan_rays=0, exact_endpoints=True),
+    dict(room_kernel=True, grid_dtype="bfloat16")]
+
+
+@pytest.mark.parametrize("flags", BENCH_ROWS,
+                         ids=["-".join(f"{k}={v}" for k, v in r.items())
+                              for r in BENCH_ROWS])
+def test_bench_flags_preset_is_the_reference_preset(flags):
+    """presets.deployable with bench.py's flags equals the JAX config built
+    the way bench.py builds it (torch_parity.jax_deployable); at 32,768
+    agents with a bf16 grid that is a 23,296^2 grid at 91 rooms per row."""
+    cfg_p = presets.deployable(N, device="cpu", **flags)[0]
+    assert cfg_p == convert.config_from(jax_deployable(N, **flags)[0])
+    if flags == dict(grid_dtype="bfloat16"):
+        big = presets.deployable(32768, device="cpu", **flags)[0]
+        assert big.grid.size == 23296 and big.grid.lo_dtype == torch.bfloat16
+        assert big.engine.merge_every == 16 and big == convert.config_from(
+            jax_deployable(32768, **flags)[0])
+        assert presets.deployable(32768, device="cpu", room_kernel=True)[
+            0].engine.room_tile_per_row == 91
+
+
+def test_rollout_writes_sum_in_int64():
+    """A rollout's per-step int32 writes summed on the host in int64, past
+    2^31 (65 steps of 1e8, the 32,768-agent step's order)."""
+    m = ps.StepMetrics(*([torch.zeros(65, dtype=torch.int32)]
+                         * len(ps.StepMetrics._fields)))
+    m = m._replace(writes=torch.full((65,), 10 ** 8, dtype=torch.int32))
+    assert ps.rollout_writes(m) == 65 * 10 ** 8
 
 
 def test_merge_step_parity_window_kernel():

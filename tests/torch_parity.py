@@ -74,20 +74,28 @@ def jax_step_noise(key, n: int, n_rays: int, cfg=None) -> StepNoise:
 
 
 def jax_deployable(n: int, merge_every: int = 16, room_kernel=False,
-                   frontiers=False, scan_rays=181):
-    """The JAX preset the port's presets.deployable mirrors:
-    _cfg_and_world(tiled=True, ...) + bench.py's replacements (the 4-way
-    raster without a sweep, the merge only with one)."""
+                   frontiers=False, scan_rays=181, pack8=True,
+                   exact_endpoints=False, grid_dtype="float32"):
+    """The JAX preset the port's presets.deployable mirrors, built as
+    bench.py builds it (bench.py:107-128): _cfg_and_world(tiled=True, ...),
+    the grid dtype, then bench.py's engine replacements (--no-pack8,
+    --exact-endpoints, the 4-way raster without a sweep, the merge only
+    with one)."""
     from __graft_entry__ import _cfg_and_world
 
     cfg, walls, params, rooms = _cfg_and_world(
         n, frontiers=frontiers, parity=False, raster_mode="beam",
         use_pallas=True, scan_rays=scan_rays, tiled=True,
         room_kernel=room_kernel)
+    if grid_dtype != "float32":
+        cfg = cfg.replace(grid=dataclasses.replace(
+            cfg.grid, logodds_dtype=grid_dtype))
     cfg = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, beam_groups=0, kernel_endpoints=True, beam_pack8=True,
-        raster_4way=scan_rays == 0,
-        merge_every=merge_every if scan_rays > 0 else 0))
+        cfg.engine, beam_groups=0, kernel_endpoints=not exact_endpoints,
+        beam_pack8=pack8, raster_4way=scan_rays == 0))
+    if merge_every > 0 and scan_rays > 0:
+        cfg = cfg.replace(engine=dataclasses.replace(
+            cfg.engine, merge_every=merge_every))
     return cfg, walls, params, rooms
 
 
@@ -103,19 +111,30 @@ def assert_exact(a, b, what=""):
                                   err_msg=what)
 
 
+def f32(x) -> np.ndarray:
+    """A map (port tensor or JAX array, float32 or bfloat16) as a float32
+    numpy array; bf16 values are exact in float32."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().to(torch.float32).numpy()
+    return np.asarray(x).astype(np.float32)
+
+
 def decision_equal(got, ref, what, painted=None):
     """Maps differ by > 1e-6 in at most 0.01% of the painted cells (the
     reference's nonzero cells unless `painted` is given)."""
-    got, ref = np.asarray(got), np.asarray(ref)
+    got, ref = f32(got), f32(ref)
     diff = np.abs(got - ref) > 1e-6
     painted = max(int((ref != 0).sum() if painted is None else painted), 1)
     print(f"{what}: {int(diff.sum())} of {painted} painted cells differ")
     assert diff.sum() <= 1e-4 * painted, (what, int(diff.sum()), painted)
 
 
-def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4):
+def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4,
+                      grid_dtype: str = "float32",
+                      exact_endpoints: bool = False, scan_rays: int = 181):
     """One step of the deployable preset on a merge step (step 3 at
-    merge_every=4), port against JAX from the same state and noise.
+    merge_every=4), port against JAX from the same state and noise, with
+    bench.py's --grid-dtype, --exact-endpoints and --scan-rays as given.
 
     The state at step 3 is made by the port (three CPU steps from the JAX
     initial state, the JAX step's own noise) and handed to both sides; the
@@ -128,15 +147,19 @@ def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4):
     from swarm_tpu_torch import convert, presets
     from swarm_tpu_torch.engine import sim as ps
 
-    cfg_j, walls, params, rooms = jax_deployable(n, merge_every, room_kernel)
+    flags = dict(grid_dtype=grid_dtype, exact_endpoints=exact_endpoints,
+                 scan_rays=scan_rays)
+    cfg_j, walls, params, rooms = jax_deployable(n, merge_every, room_kernel,
+                                                 **flags)
     cfg, walls_p, params_p, rooms_p = presets.deployable(
-        n, device="cpu", merge_every=merge_every, room_kernel=room_kernel)
+        n, device="cpu", merge_every=merge_every, room_kernel=room_kernel,
+        **flags)
     assert convert.config_from(cfg_j) == cfg
     st0 = js.sim_init(cfg_j, params)
     st_p, key = convert.to_torch(st0, ps.SimState), st0.key
     kw = dict(walls_grouped=rooms_p[0], room_of_agent=rooms_p[1])
     for _ in range(merge_every - 1):
-        st_p, _ = ps.sim_step(st_p, jax_step_noise(key, n, 181), cfg,
+        st_p, _ = ps.sim_step(st_p, jax_step_noise(key, n, scan_rays), cfg,
                               walls_p, params_p, **kw)
         key = step_keys(key, n)[0]
     st_j = jax.tree.map(jnp.asarray,
@@ -146,7 +169,7 @@ def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4):
     with pltpu.force_tpu_interpret_mode():
         nxt_j, m_j = step(st_j)
     nxt_p, m_p = ps.sim_step(convert.to_torch(st_j, ps.SimState),
-                             jax_step_noise(key, n, 181), cfg, walls_p,
+                             jax_step_noise(key, n, scan_rays), cfg, walls_p,
                              params_p, **kw)
     assert int(st_p.step) == merge_every - 1 and int(m_j.merges) > 0
     for f in ps.StepMetrics._fields:
