@@ -3,9 +3,9 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Phases (any failure exits non-zero; nothing is caught and then passed):
-  1. build both raster kernels (swarm_tpu_torch/csrc/free_raster.cu and
-     room_raster.cu) from the checkout, one nvcc each, started together;
-     print each build time;
+  1. build the three raster kernels (swarm_tpu_torch/csrc/free_raster.cu,
+     room_raster.cu and exact_raster.cu) from the checkout, one nvcc each,
+     started together; print each build time;
   2. each kernel, in each of its per-beam forms, vs its plain torch version
      at the shapes of the path that runs it: 1024 agents in the tiled
      4096^2 world, preset start poses with random headings, noisy readings
@@ -73,11 +73,33 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      explored cells; merge counts of both sides printed, and equal on bf16;
      any merge decision that differs reported with the match fitness on
      both sides), and the exploration path over 17 steps (three frontier
-     events; writes within 1%, maps on >= 99%, frontier counts equal).
+     events; writes within 1%, maps on >= 99%, frontier counts equal);
+ 12. the grouped tier (bench.py --beam-groups N): each of the window
+     kernel's 8 grouped instances (ring x scan / wrapped fan x float32 /
+     bfloat16 grid) and the room kernel's 4 grouped forms (ring x fan) vs
+     its plain version at 1024 agents in the world of the flags that launch
+     it, main and overlap case, as in phase 2 (maps BIT-EQUAL; the counts,
+     sums of fractions that both sides sum exactly in double, equal), 181
+     beams in 16 groups too (ROADMAP C1); the r1 exact raster (csrc/exact_raster.cu, no engine
+     path calls it) on the scan and the wrapped 4-way fan, maps BIT-EQUAL
+     to its plain version (torch.sin on the card), the kernel's sinf
+     against torch.sin on the main case's residuals, and its entry point
+     driven over 17 sensed frames per fan; the grouped paths
+     (presets.deployable(1024, beam_groups=8), with and without
+     room_kernel=True), 201 steps each with the counters set to 0 just
+     before: grouped-ring launched once per step on the path's own kernel
+     and the other never, every step writes, merges > 0, all agents
+     online, poses finite; then 17 steps split on the device timeline on
+     each of the four 1024-agent paths, and the grouped paths' steps/s,
+     applied cells/s, raster share of the device step and peak memory
+     beside the per-beam paths'; every grouped bench.py flag row
+     (GROUPED_WINDOW_ROWS, GROUPED_ROOM_ROWS, C1_ROW) through sim_rollout
+     for 17 steps, each launching exactly its form; and card vs CPU at 8 agents
+     on both grouped paths over 34 steps, as in phase 11.
 The line before the last two is the per-kernel JSON record (one entry per
-kernel form, `free_raster[<form>]` / `room_raster[<form>]`), then the
-card's name and power limit; the last line is {"ok": true, "device":
-{...}}.
+kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
+`exact_raster[<fan>]`), then the card's name and power limit; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -115,6 +137,13 @@ FP32_OPS_PER_S = 67e12
 # the bin, the crossing count) plus the table lookup, the carve, the ring,
 # the painted count and the clipped apply (~30)
 OPS_PER_CELL = 80
+# the exact raster (csrc/exact_raster.cu): the radius and the atan2
+# polynomial (~30), the floor-mod wrap and the beam bin (~10), the sine
+# (~20), the on-beam, near, free and hit tests, the select and the clipped
+# apply (~30)
+OPS_PER_CELL_EXACT = 90
+GROUPED_STEPS = TIMED_STEPS                  # the grouped paths' timed steps
+EXACT_FRAMES = 17            # sensed frames through the exact raster's entry
 
 
 def _card() -> str:
@@ -166,7 +195,8 @@ def phase_build():
     from swarm_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    built = cuda_build.build_all(["free_raster", "room_raster"])
+    built = cuda_build.build_all(["free_raster", "room_raster",
+                                  "exact_raster"])
     for name, (lib, secs) in built.items():
         print(f"kernel build [{name}]: {secs:.2f} s ({os.path.relpath(lib)})")
     print(f"kernel builds, together: {time.perf_counter() - t0:.2f} s")
@@ -221,6 +251,26 @@ ROOM_ROWS = [
     dict(room_kernel=True, scan_rays=0),
     dict(room_kernel=True, scan_rays=0, exact_endpoints=True)]
 SLICE = dict(grid_dtype="bfloat16")
+# the grouped tier (bench.py --beam-groups N): GROUPED is the grouped path
+# (bench.py --beam-groups 8, grouped-ring); the rows below launch the other
+# grouped forms. The 4-way fan is grouped only in fewer than 4 groups: in 2
+# groups of 2 beams. C1_ROW is 181 beams in 16 groups (ROADMAP C1), the
+# path's form again: held and run, not recorded.
+GROUPED = dict(beam_groups=8)
+GROUPED_WINDOW_ROWS = [
+    dict(beam_groups=8, exact_endpoints=True),
+    dict(beam_groups=8, grid_dtype="bfloat16"),
+    dict(beam_groups=8, grid_dtype="bfloat16", exact_endpoints=True),
+    dict(beam_groups=2, scan_rays=0),
+    dict(beam_groups=2, scan_rays=0, exact_endpoints=True),
+    dict(beam_groups=2, scan_rays=0, grid_dtype="bfloat16"),
+    dict(beam_groups=2, scan_rays=0, grid_dtype="bfloat16",
+         exact_endpoints=True)]
+C1_ROW = dict(beam_groups=16)
+GROUPED_ROOM_ROWS = [
+    dict(room_kernel=True, beam_groups=8, exact_endpoints=True),
+    dict(room_kernel=True, beam_groups=2, scan_rays=0),
+    dict(room_kernel=True, beam_groups=2, scan_rays=0, exact_endpoints=True)]
 
 
 def _flags(flags) -> str:
@@ -233,14 +283,17 @@ def _flags(flags) -> str:
         out.append(f"--scan-rays {flags['scan_rays']}")
     if "grid_dtype" in flags:
         out.append(f"--grid-dtype {flags['grid_dtype']}")
+    if "beam_groups" in flags:
+        out.append(f"--beam-groups {flags['beam_groups']}")
     return " ".join(out)
 
 
 def _form_of(flags):
-    """(four_way, pack8, ring, dtype, form key) of the raster form a
-    bench.py flag row launches: the room kernel's key from
+    """(four_way, pack8, ring, dtype, n_groups, form key) of the raster form
+    a bench.py flag row launches: the room kernel's key from
     room_raster_cuda.form_name, the window kernel's from
-    beam_raster_cuda.form_name."""
+    beam_raster_cuda.form_name. n_groups is None per beam, as the engine
+    picks the tier (groups below the fan's beams: grouped)."""
     from swarm_tpu_torch.ops import beam_raster_cuda as bc
     from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec
@@ -251,14 +304,19 @@ def _form_of(flags):
     dtype = (torch.bfloat16 if flags.get("grid_dtype") == "bfloat16"
              else torch.float32)
     spec = BeamSpec.four_way() if four_way else BeamSpec.scan()
-    key = (rc.form_name(spec, ring) if flags.get("room_kernel")
-           else bc.form_name(spec, pack8, ring, dtype))
-    return four_way, pack8, ring, dtype, key
+    groups = flags.get("beam_groups", 0)
+    grouped = 0 < groups < spec.n_beams
+    n_groups = groups if grouped else None
+    key = (rc.form_name(spec, ring, grouped) if flags.get("room_kernel")
+           else bc.form_name(spec, pack8, ring, dtype, grouped))
+    return four_way, pack8, ring, dtype, n_groups, key
 
 
 def _hold_equal(name, kernel, plain, cases, size):
     """Run kernel and plain version on each case's copy of the grid; maps
-    bit-equal, counts equal. Returns the largest |difference| (0.0)."""
+    bit-equal, counts equal (both sum them exactly, in double: the grouped
+    tier's fractional counts too). Returns the largest |difference|
+    (0.0)."""
     worst = 0.0
     for case, (grid0, args) in cases.items():
         g_k, g_p = grid0.clone(), grid0.clone()
@@ -283,6 +341,20 @@ def _hold_equal(name, kernel, plain, cases, size):
     return worst
 
 
+def _covered_cells(w, size, dev) -> int:
+    """The cells of the union of the agents' windows (`w.row0`, `w.col0`,
+    `w.rows`, `w.cols`): windows are 8-row (16 on bf16) and 128-column
+    aligned, so an [S/8, S/128] mask counts them exactly."""
+    blocks = torch.zeros((size // 8, size // 128), dtype=torch.bool,
+                         device=dev)
+    rb = (w.row0 // 8).long()[:, None] + torch.arange(w.rows // 8,
+                                                      device=dev)
+    cb = (w.col0 // 128).long()[:, None] + torch.arange(w.cols // 128,
+                                                        device=dev)
+    blocks[rb[:, :, None], cb[:, None, :]] = True
+    return int(blocks.sum()) * 8 * 128
+
+
 def _plain_in_chunks(plain):
     """The plain raster over agent chunks of PLAIN_CHUNK, in index order:
     each agent's window is applied after the previous agent's whatever
@@ -300,14 +372,15 @@ def _plain_in_chunks(plain):
 
 
 def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
-                 pack8, ring):
+                 pack8, ring, n_groups=None):
     """One form of the window kernel at a path's shapes (the grid's dtype
-    from `cfg`): held bit-equal to its plain version at the path's swarm
-    size and in an overlap case (64 agents around one point on a grid
-    pre-filled near +-clamp), then timed: the launch on prepared operands,
-    the wrapper with its preparation, the plain version (in agent chunks
-    above PLAIN_CHUNK agents); the bound from this run's inputs. Returns
-    (the form's launch-count key, its record)."""
+    from `cfg`; `n_groups` below the fan's beams: the grouped tier with the
+    engine's tail weight): held bit-equal to its plain version at the
+    path's swarm size and in an overlap case (64 agents around one point on
+    a grid pre-filled near +-clamp), then timed: the launch on prepared
+    operands, the wrapper with its preparation, the plain version (in agent
+    chunks above PLAIN_CHUNK agents); the bound from this run's inputs.
+    Returns (the form's launch-count key, its record)."""
     from swarm_tpu_torch.ops import beam_raster_cuda as bc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
 
@@ -321,12 +394,15 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     xy, yaw, db, tb = _raster_inputs(cfg, params, rooms, gen, dev, four_way)
     tr = tb if ring else None
+    grouped = bc.table_kind(spec, pack8, n_groups) == "grouped"
+    tier = (dict(n_groups=n_groups, tail_weight=cfg.engine.beam_tail_weight)
+            if grouped else {})
 
     def kernel(g, *a):
-        return bc.free_raster(g, *a, pack8=pack8)
+        return bc.free_raster(g, *a, pack8=pack8, **tier)
 
     def plain_one(g, *a):
-        return bc.free_raster_plain(g, *a, pack8=pack8)
+        return bc.free_raster_plain(g, *a, pack8=pack8, **tier)
 
     plain = _plain_in_chunks(plain_one) if n > PLAIN_CHUNK else plain_one
     # overlap case: 64 agents within +-4 cells of one point
@@ -346,7 +422,7 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
 
     g_t = torch.zeros((size, size), device=dev, dtype=dtype)
     w = bc._windows(g_t, xy, yaw, db, alive, spec, cfg.grid, tr, reach,
-                    pack8)
+                    pack8, **tier)
     ln = bc._prepare(g_t, w, spec)
     dense = bc._dense_fan(spec, reach)
     t_kernel, t_plain, runs = _ab_ms(
@@ -356,24 +432,17 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
     t_wrapper = _median_ms(lambda: kernel(
         g_t, xy, yaw, db, alive, tr, spec, cfg.grid, reach), 20)
 
-    # bound: the union of the windows read and written once (windows are
-    # 8-row (16 on bf16) and 128-column aligned, so an [S/8, S/128] mask
-    # counts it exactly), the operands read once, the counts written once;
-    # every cell of the fan-bbox strips the kernel evaluates
-    blocks = torch.zeros((size // 8, size // 128), dtype=torch.bool,
-                         device=dev)
-    rb = (w.row0 // 8).long()[:, None] + torch.arange(w.rows // 8,
-                                                      device=dev)
-    cb = (w.col0 // 128).long()[:, None] + torch.arange(w.cols // 128,
-                                                        device=dev)
-    blocks[rb[:, :, None], cb[:, None, :]] = True
-    cells = int(blocks.sum()) * 8 * 128
+    # bound: the union of the windows read and written once, the operands
+    # read once, the counts written once; every cell of the fan-bbox strips
+    # the kernel evaluates
+    cells = _covered_cells(w, size, dev)
     n_bytes = 2 * g_t.element_size() * cells + \
         _nbytes(ln.origins, ln.meta, ln.table) + 4 * n
     evaluated = int(((w.t_ch - w.t_cl).clamp_min(0) * w.rows * 128).sum())
     bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
-    form = bc.form_name(spec, pack8, ring, dtype)
-    print(f"{name} raster at {n} agents x {spec.n_beams} beams "
+    form = bc.form_name(spec, pack8, ring, dtype, grouped)
+    groups = f" in {w.n_bins} groups" if grouped else ""
+    print(f"{name} raster at {n} agents x {spec.n_beams} beams{groups} "
           f"({form}, [{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: "
           f"kernel "
           f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), wrapper "
@@ -418,7 +487,7 @@ def phase_form_kernels(card, dev):
     for i, flags in enumerate(WINDOW_ROWS + [SLICE]):
         cfg, _, params, rooms = presets.deployable(N_AGENTS, device=dev,
                                                    **flags)
-        four_way, pack8, ring, _, key = _form_of(flags)
+        four_way, pack8, ring, _, _, key = _form_of(flags)
         out.update([_window_form(card, dev, f"window {key}", cfg, params,
                                  rooms, SEED + 7 + i, four_way, pack8,
                                  ring)])
@@ -427,15 +496,15 @@ def phase_form_kernels(card, dev):
 
 def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
     """One form of the room kernel (the ring on the scan, or the form a
-    ROOM_ROWS row launches) at 1024 agents: held bit-equal to its plain
-    version on the main case and an overlap case, then timed as the
-    window forms are."""
+    ROOM_ROWS or GROUPED_ROOM_ROWS row launches) at 1024 agents: held
+    bit-equal to its plain version on the main case and an overlap case,
+    then timed as the window forms are."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
 
     flags = flags or dict(room_kernel=True)
-    four_way, _, ring, _, key = _form_of(flags)
+    four_way, _, ring, _, n_groups, key = _form_of(flags)
     cfg, _, params, rooms = presets.deployable(N_AGENTS, device=dev,
                                                **flags)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -454,8 +523,11 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
     xy_o = xy.clone()
     xy_o[1::2] = xy[0::2] + (torch.rand((N_AGENTS // 2, 2), generator=gen,
                                         device=dev) - 0.5) * 0.3
-    kw = dict(spec=spec, cfg=cfg.grid, n_groups=spec.n_beams,
+    tail = cfg.engine.beam_tail_weight
+    kw = dict(spec=spec, cfg=cfg.grid, n_groups=n_groups or spec.n_beams,
               per_row=per_row, trusted=tb, reach=reach)
+    if n_groups:
+        kw["tail_weight"] = tail
 
     def kernel(g, *a):
         return rc.room_raster(g, *a, **kw)
@@ -471,7 +543,8 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
     worst = _hold_equal(f"room {key}", kernel, plain, cases, size)
 
     g_t = torch.zeros((size, size), device=dev)
-    rm = rc._rooms(g_t, xy, yaw, db, alive, cfg.grid, per_row, tb, reach)
+    rm = rc._rooms(g_t, xy, yaw, db, alive, spec, cfg.grid, per_row, tb,
+                   reach, kw["n_groups"], tail)
     dense = rc._dense_fan(spec, reach)
     t_kernel, t_plain, runs = _ab_ms(
         lambda: rc._launch(g_t, rm, spec, cfg.grid, dense),
@@ -491,8 +564,10 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
     n_bytes = 2 * 4 * cells + _nbytes(rm.meta, rm.table) + 4 * n_tiles
     evaluated = n_tiles * rc.AGENTS_PER_ROOM * rm.win_rows * 256
     bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
+    groups = f" in {rm.n_bins} groups" if n_groups else ""
     print(f"room raster at {N_AGENTS} agents ({n_tiles} tiles, {per_row} "
-          f"rooms per row) x {spec.n_beams} beams ({key}) on {size}^2 "
+          f"rooms per row) x {spec.n_beams} beams{groups} ({key}) on "
+          f"{size}^2 "
           f"[{card}]: "
           f"kernel {t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
           f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
@@ -503,15 +578,21 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
                 bound_ms=bound, bound_by=bound_by)
 
 
-def phase_path(card, dev, room_kernel: bool):
+def phase_path(card, dev, room_kernel: bool, beam_groups: int = 0):
     """One main path at full width: reset the launch counters, one warm-up
-    step and TIMED_STEPS timed steps, read the counters."""
+    step and TIMED_STEPS timed steps, read the counters. beam_groups > 0:
+    the grouped path (bench.py --beam-groups N), grouped-ring on its
+    kernel. Returns (the launches of its form, (cfg, rooms, state, the last
+    step's metrics), a summary: the step, steps/s, applied cells/s, peak
+    memory)."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.engine.sim import make_sim_step, sim_init
 
-    name = "room" if room_kernel else "window"
+    name = ("room" if room_kernel else "window") + (
+        f" --beam-groups {beam_groups}" if beam_groups else "")
     cfg, walls, params, rooms = presets.deployable(
-        N_AGENTS, device=dev, room_kernel=room_kernel)
+        N_AGENTS, device=dev, room_kernel=room_kernel,
+        beam_groups=beam_groups)
     every = cfg.engine.merge_every
     state = sim_init(cfg, params)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -544,7 +625,8 @@ def phase_path(card, dev, room_kernel: bool):
     online = torch.stack([m.online for m in ms]).cpu()
     merges = torch.stack([m0.merges] + [m.merges for m in ms]).cpu()
     forms = _room_by_form() if room_kernel else by_form
-    want = "pack16-ring" if room_kernel else "pack8-ring"
+    want = ("grouped-ring" if beam_groups else
+            "pack16-ring" if room_kernel else "pack8-ring")
     if launches[own] != steps_run or launches[other] != 0 or \
             forms != {want: steps_run}:
         raise AssertionError(f"{name} path: launches {launches} in "
@@ -577,7 +659,39 @@ def phase_path(card, dev, room_kernel: bool):
           f"bytes; step median {off[len(off) // 2]:.4f} ms without a merge,"
           f" {sorted(on)[len(on) // 2]:.4f} ms with one ({len(on)} merge "
           f"steps, the first {on[0]:.4f} ms)")
-    return launches[own], (cfg, rooms, state, ms[-1])
+    summary = dict(step=step, steps_s=TIMED_STEPS / wall,
+                   cells_s=applied / wall, applied=applied, peak=peak)
+    return launches[own], (cfg, rooms, state, ms[-1]), summary
+
+
+def phase_path_split(card, name, state, summary):
+    """SPLIT_STEPS more steps of a 1024-agent path split on the device
+    timeline (`_step_split`); adds the raster's share of the device step
+    (medians over the steps with neither a merge nor a zone snapshot) to
+    the path's summary."""
+    # the step goes: it holds its path's world, which later peaks would
+    # count
+    state, split = _step_split(summary.pop("step"), state, SPLIT_STEPS)
+    summary["raster_share"] = split["raster"][0] / split["step"][0]
+    print(f"{name} path step split [{card}], device-timeline medians over "
+          f"{SPLIT_STEPS} more steps (ms): " + ", ".join(
+              f"{p} {t:.4f} (n={k})" for p, (t, k, _) in split.items()) +
+          f"; raster share of the device step "
+          f"{summary['raster_share']:.4f}")
+    return summary
+
+
+def _compare_paths(card, paths):
+    """The grouped paths beside the per-beam ones, from this run."""
+    for kernel in ("window", "room"):
+        rows = [(tier, paths[(kernel, tier)]) for tier in ("per-beam",
+                                                             "grouped")]
+        print(f"{kernel} path at {N_AGENTS} agents, per beam vs "
+              f"--beam-groups 8 [{card}]: " + "; ".join(
+                  f"{tier}: {s['steps_s']:.2f} steps/s, "
+                  f"{s['cells_s']:.6e} applied cells/s ({s['applied']} "
+                  f"cells), raster share {s['raster_share']:.4f}, peak "
+                  f"memory {s['peak']} bytes" for tier, s in rows))
 
 
 def phase_merge(card, dev, cfg, rooms, state, m):
@@ -742,12 +856,12 @@ def _coverage(logodds, reach) -> float:
 
 def _reset_counts():
     from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
+    from swarm_tpu_torch.ops.exact_raster_cuda import beam_raster
     from swarm_tpu_torch.ops.room_raster_cuda import room_raster
 
-    free_raster.launches = 0
-    free_raster.launches_by_form.clear()
-    room_raster.launches = 0
-    room_raster.launches_by_form.clear()
+    for wrapper in (free_raster, room_raster, beam_raster):
+        wrapper.launches = 0
+        wrapper.launches_by_form.clear()
 
 
 def _read_counts():
@@ -1251,55 +1365,62 @@ def phase_slice(card, dev):
     return SLICE_STEPS
 
 
-def phase_flag_paths(card, dev):
-    """Every remaining row of bench.py's single-chip raster flags (WINDOW_ROWS,
-    ROOM_ROWS) through sim_rollout at N_AGENTS agents for FLAG_STEPS steps:
-    exactly the row's form launched once per step, the other kernel never,
-    every step writes, poses finite. Then bench.py --room-kernel
-    --grid-dtype bfloat16 must raise ValueError, at sim_init and in the
-    room wrapper on a card grid."""
+def _flag_row(card, dev, flags):
+    """One bench.py flag row through sim_rollout at N_AGENTS agents for
+    FLAG_STEPS steps: exactly the row's form launched once per step, the
+    other kernel never, every step writes, poses finite. Returns ((kernel,
+    form key), launches)."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.engine.sim import (rollout_writes, sim_init,
                                             sim_rollout)
+
+    room = bool(flags.get("room_kernel"))
+    key = _form_of(flags)[-1]
+    cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev,
+                                                   **flags)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state = sim_init(cfg, params)
+    torch.cuda.synchronize()
+    _reset_counts()                          # this path starts here
+    t0 = time.perf_counter()
+    state, m = sim_rollout(state, FLAG_STEPS, cfg, walls, params, gen,
+                           walls_grouped=rooms[0], room_of_agent=rooms[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_free, by_form, n_room = _read_counts()
+    forms, other = ((_room_by_form(), n_free) if room
+                    else (by_form, n_room))
+    writes = m.writes.cpu()
+    print(f"flags [{_flags(flags)}] at {N_AGENTS} agents [{card}]: "
+          f"{FLAG_STEPS} steps through sim_rollout in {wall:.4f} s, "
+          f"{'room' if room else 'window'} launches {forms}, other "
+          f"kernel {other}, min writes {int(writes.min())}, applied "
+          f"{rollout_writes(m)}, merges {int(m.merges.sum())}, online "
+          f"{int(m.online[-1])}")
+    if forms != {key: FLAG_STEPS} or other:
+        raise AssertionError(f"flags [{_flags(flags)}]: launches "
+                             f"{forms}, other kernel {other}")
+    if not bool((writes > 0).all()):
+        raise AssertionError(f"flags [{_flags(flags)}]: a step wrote no "
+                             f"cells")
+    if not bool(torch.isfinite(state.pose_true).all()):
+        raise AssertionError(f"flags [{_flags(flags)}]: non-finite "
+                             f"poses")
+    return ("room" if room else "window", key), forms[key]
+
+
+def phase_flag_paths(card, dev):
+    """Every remaining row of bench.py's single-chip raster flags (WINDOW_ROWS,
+    ROOM_ROWS) through sim_rollout (`_flag_row`). Then bench.py
+    --room-kernel --grid-dtype bfloat16 must raise ValueError, at sim_init
+    and in the room wrapper on a card grid."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import sim_init
     from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec
 
-    out = {}
-    for flags in WINDOW_ROWS + ROOM_ROWS:
-        room = bool(flags.get("room_kernel"))
-        key = _form_of(flags)[-1]
-        cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev,
-                                                       **flags)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        state = sim_init(cfg, params)
-        torch.cuda.synchronize()
-        _reset_counts()                      # this path starts here
-        t0 = time.perf_counter()
-        state, m = sim_rollout(state, FLAG_STEPS, cfg, walls, params, gen,
-                               walls_grouped=rooms[0],
-                               room_of_agent=rooms[1])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_free, by_form, n_room = _read_counts()
-        forms, other = ((_room_by_form(), n_free) if room
-                        else (by_form, n_room))
-        writes = m.writes.cpu()
-        print(f"flags [{_flags(flags)}] at {N_AGENTS} agents [{card}]: "
-              f"{FLAG_STEPS} steps through sim_rollout in {wall:.4f} s, "
-              f"{'room' if room else 'window'} launches {forms}, other "
-              f"kernel {other}, min writes {int(writes.min())}, applied "
-              f"{rollout_writes(m)}, merges {int(m.merges.sum())}, online "
-              f"{int(m.online[-1])}")
-        if forms != {key: FLAG_STEPS} or other:
-            raise AssertionError(f"flags [{_flags(flags)}]: launches "
-                                 f"{forms}, other kernel {other}")
-        if not bool((writes > 0).all()):
-            raise AssertionError(f"flags [{_flags(flags)}]: a step wrote no "
-                                 f"cells")
-        if not bool(torch.isfinite(state.pose_true).all()):
-            raise AssertionError(f"flags [{_flags(flags)}]: non-finite "
-                                 f"poses")
-        out[("room" if room else "window", key)] = forms[key]
+    out = dict(_flag_row(card, dev, flags)
+               for flags in WINDOW_ROWS + ROOM_ROWS)
 
     cfg, walls, params, rooms = presets.deployable(
         N_AGENTS, device=dev, room_kernel=True, grid_dtype="bfloat16")
@@ -1356,6 +1477,196 @@ def phase_bf16_vs_f32(card, dev):
         raise AssertionError("bf16 and f32 grids disagree")
 
 
+def phase_grouped_kernels(card, dev):
+    """Each grouped form of both kernels at 1024 agents, in the world of the
+    bench.py flags that launch it (`_window_form`, `phase_room_kernel`):
+    the window kernel's 8 instances (GROUPED and the rows of
+    GROUPED_WINDOW_ROWS; C1_ROW is the path's instance again, held and
+    folded into its record) and the room kernel's 4 forms. Returns
+    ({window form: record}, {room form: record})."""
+    from swarm_tpu_torch import presets
+
+    window = {}
+    for i, flags in enumerate([GROUPED] + GROUPED_WINDOW_ROWS + [C1_ROW]):
+        cfg, _, params, rooms = presets.deployable(N_AGENTS, device=dev,
+                                                   **flags)
+        four_way, pack8, ring, _, n_groups, key = _form_of(flags)
+        form, rec = _window_form(card, dev, f"window {key} "
+                                 f"[{_flags(flags)}]", cfg, params, rooms,
+                                 SEED + 40 + i, four_way, pack8, ring,
+                                 n_groups)
+        if form in window:
+            window[form]["max_abs_err"] = max(window[form]["max_abs_err"],
+                                              rec["max_abs_err"])
+        else:
+            window[form] = rec
+    room = {}
+    for i, flags in enumerate([dict(room_kernel=True, **GROUPED)] +
+                              GROUPED_ROOM_ROWS):
+        room[_form_of(flags)[-1]] = phase_room_kernel(card, dev, flags,
+                                                      SEED + 50 + i)
+    return window, room
+
+
+def _exact_world(dev, four_way: bool):
+    """The world and fan of the exact raster's cases: the deployable
+    preset's 181-beam sweep, or its --scan-rays 0 world's 4-way fan."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.ops.beam_raster import BeamSpec
+
+    cfg, _, params, rooms = presets.deployable(
+        N_AGENTS, device=dev, scan_rays=0 if four_way else 181)
+    spec = (BeamSpec.four_way() if four_way
+            else BeamSpec.scan(cfg.engine.scan_rays))
+    return cfg, params, rooms, spec
+
+
+def phase_exact_kernel(card, dev):
+    """The r1 exact raster (csrc/exact_raster.cu, for beam_raster_pallas's
+    _kernel) on the scan and on the wrapped 4-way fan at 1024 agents: the
+    map held BIT-EQUAL to beam_raster_plain (torch.sin on the card) on the
+    main case (one agent inactive) and an overlap case (64 agents around
+    one point on a grid pre-filled near +-clamp); the kernel's sinf against
+    torch.sin on the main case's residual bearings; then timed as the
+    window forms are. Returns {fan: record}."""
+    from swarm_tpu_torch.ops import exact_raster_cuda as er
+
+    out = {}
+    for i, four_way in enumerate((False, True)):
+        cfg, params, rooms, spec = _exact_world(dev, four_way)
+        fan = er.form_name(spec)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60 + i)
+        size, n = cfg.grid.size, cfg.n_agents
+        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+        alive[-3] = False
+        xy, yaw, db, tb = _raster_inputs(cfg, params, rooms, gen, dev,
+                                         four_way)
+        k = min(64, n)
+        xy_o = xy[:1] + 0.2 + (torch.rand((k, 2), generator=gen, device=dev)
+                               - 0.5) * 0.4
+        cases = {"main": (torch.zeros((size, size), device=dev),
+                          (xy, yaw, db, tb, alive)),
+                 "overlap": (_prefilled(size, gen, dev),
+                             (xy_o, yaw[:k], db[:k], tb[:k], alive[:k]))}
+        worst = 0.0
+        for case, (grid0, args) in cases.items():
+            g_k, g_p = grid0.clone(), grid0.clone()
+            er.beam_raster(g_k, *args, spec, cfg.grid)
+            torch.cuda.synchronize()
+            er.beam_raster_plain(g_p, *args, spec, cfg.grid)
+            torch.cuda.synchronize()
+            n_diff = int((g_k != g_p).sum())
+            err = float((g_k - g_p).abs().max())
+            worst = max(worst, err)
+            changed = int((g_k != grid0).sum())
+            print(f"exact raster [{fan}] kernel vs plain [{case}]: {n_diff} "
+                  f"of {size * size} cells differ (max |diff| {err}), "
+                  f"{changed} cells changed")
+            if n_diff:
+                raise AssertionError(f"exact raster [{fan}]: kernel and "
+                                     f"plain maps differ in {n_diff} cells "
+                                     f"[{case}]")
+            if changed <= 0:
+                raise AssertionError(f"exact raster [{fan}]: nothing "
+                                     f"painted [{case}]")
+        del cases
+
+        g_t = torch.zeros((size, size), device=dev)
+        w = er._windows(g_t, xy, yaw, db, tb, alive, cfg.grid)
+        resid = er._bins(w, spec)[3].reshape(-1).contiguous()
+        s_k, s_t = er.device_sin(resid), torch.sin(resid)
+        n_sin = int((s_k != s_t).sum())
+        print(f"exact raster [{fan}]: the kernel's sinf vs torch.sin on the "
+              f"main case's {resid.numel()} residual bearings: {n_sin} "
+              f"differ (max |diff| {float((s_k - s_t).abs().max())})")
+        del resid, s_k, s_t
+        ln = er._prepare(g_t, w)
+        t_kernel, t_plain, runs = _ab_ms(
+            lambda: er._launch(g_t, ln, spec, cfg.grid),
+            lambda: er.beam_raster_plain(g_t, xy, yaw, db, tb, alive, spec,
+                                         cfg.grid), 20, 3)
+        t_wrapper = _median_ms(lambda: er.beam_raster(
+            g_t, xy, yaw, db, tb, alive, spec, cfg.grid), 20)
+        # bound: the union of the windows read and written once, the
+        # operands read once; every window cell evaluated (no strips)
+        n_bytes = 2 * 4 * _covered_cells(w, size, dev) + \
+            _nbytes(ln.origins, ln.meta, ln.table)
+        evaluated = n * w.rows * w.cols
+        bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL_EXACT)
+        print(f"exact raster [{fan}] at {n} agents x {spec.n_beams} beams "
+              f"([{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: kernel "
+              f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
+              f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
+              f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
+              f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} "
+              f"cell evaluations)")
+        out[fan] = dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+                        bound_ms=bound, bound_by=bound_by)
+    return out
+
+
+def phase_exact_entry(card, dev):
+    """The exact raster's entry point (exact_raster_cuda.beam_raster, the
+    counterpart of beam_raster_pallas; no engine path calls it) over
+    EXACT_FRAMES frames per fan at 1024 agents, each frame sensed anew from
+    the preset's start poses with fresh headings, one grid per fan, the
+    counters set to 0 just before: one launch per frame and fan, and each
+    map after its frames bit-equal to the plain version's over the same
+    frames. Returns {fan: launches}."""
+    from swarm_tpu_torch.ops import exact_raster_cuda as er
+
+    fans = {}
+    for i, four_way in enumerate((False, True)):
+        cfg, params, rooms, spec = _exact_world(dev, four_way)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
+        alive = torch.ones((cfg.n_agents,), dtype=torch.bool, device=dev)
+        frames = [_raster_inputs(cfg, params, rooms, gen, dev, four_way)
+                  for _ in range(EXACT_FRAMES)]
+        fans[er.form_name(spec)] = (cfg, spec, alive, frames)
+    grids = {fan: torch.zeros((c.grid.size,) * 2, device=dev)
+             for fan, (c, *_) in fans.items()}
+    torch.cuda.synchronize()
+    _reset_counts()                          # the entry point starts here
+    t0 = time.perf_counter()
+    for k in range(EXACT_FRAMES):
+        for fan, (cfg, spec, alive, frames) in fans.items():
+            xy, yaw, db, tb = frames[k]
+            er.beam_raster(grids[fan], xy, yaw, db, tb, alive, spec,
+                           cfg.grid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_fan = dict(er.beam_raster.launches_by_form)
+    n_free, _, n_room = _read_counts()
+    if by_fan != {fan: EXACT_FRAMES for fan in fans} or n_free or n_room:
+        raise AssertionError(f"exact raster entry: launches {by_fan}, "
+                             f"window {n_free}, room {n_room}")
+    for fan, (cfg, spec, alive, frames) in fans.items():
+        g_p = torch.zeros_like(grids[fan])
+        for xy, yaw, db, tb in frames:
+            er.beam_raster_plain(g_p, xy, yaw, db, tb, alive, spec, cfg.grid)
+        g = grids[fan]
+        n_diff = int((g != g_p).sum())
+        print(f"exact raster entry [{fan}] at {cfg.n_agents} agents "
+              f"[{card}]: {EXACT_FRAMES} frames, launches {by_fan[fan]}, "
+              f"{int((g < 0).sum())} free and {int((g > 0).sum())} occupied "
+              f"cells; {n_diff} cells differ from the plain version over the "
+              f"same frames; both fans' frames in {wall:.4f} s")
+        if n_diff or not bool(torch.isfinite(g).all()) or \
+                int((g != 0).sum()) == 0:
+            raise AssertionError(f"exact raster entry [{fan}]: map wrong")
+    return by_fan
+
+
+def phase_grouped_flag_paths(card, dev):
+    """Every grouped bench.py flag row (GROUPED_WINDOW_ROWS,
+    GROUPED_ROOM_ROWS, then C1_ROW) through sim_rollout (`_flag_row`).
+    Returns {(kernel, form key): launches} of the rows' own forms."""
+    out = dict(_flag_row(card, dev, flags)
+               for flags in GROUPED_WINDOW_ROWS + GROUPED_ROOM_ROWS)
+    _flag_row(card, dev, C1_ROW)
+    return out
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -1367,10 +1678,17 @@ def run(card, dev) -> list:
                                                         SEED + 20 + i)
     k_slice = phase_slice_kernel(card, dev)
     n_slice = phase_slice(card, dev)
-    n_window, _ = phase_path(card, dev, room_kernel=False)
-    n_room, (cfg, rooms, state, m) = phase_path(card, dev, room_kernel=True)
+    paths = {}
+    n_window, (_, _, state, _), summary = phase_path(card, dev,
+                                                     room_kernel=False)
+    paths[("window", "per-beam")] = phase_path_split(card, "window", state,
+                                                     summary)
+    n_room, (cfg, rooms, state, m), summary = phase_path(card, dev,
+                                                         room_kernel=True)
     phase_merge(card, dev, cfg, rooms, state, m)
-    del cfg, rooms, state, m
+    paths[("room", "per-beam")] = phase_path_split(card, "room", state,
+                                                   summary)
+    del cfg, rooms, state, m, summary
     n_explore = phase_explore(card, dev)
     n_ultrasonic = phase_ultrasonic(card, dev)
     phase_coverage_tool(card, dev)
@@ -1383,9 +1701,27 @@ def run(card, dev) -> list:
                     grid_dtype="bfloat16")
     phase_reference_explore(dev)
 
+    # the grouped tier (bench.py --beam-groups N) and the exact raster
+    k_grouped, k_grouped_room = phase_grouped_kernels(card, dev)
+    k_exact = phase_exact_kernel(card, dev)
+    n_exact = phase_exact_entry(card, dev)
+    n_grouped = {}
+    for kernel_name, room_kernel in (("window", False), ("room", True)):
+        n_grouped[kernel_name], (_, _, state, _), summary = phase_path(
+            card, dev, room_kernel=room_kernel, beam_groups=8)
+        paths[(kernel_name, "grouped")] = phase_path_split(
+            card, f"{kernel_name} --beam-groups 8", state, summary)
+        del state, summary
+    _compare_paths(card, paths)
+    n_gflags = phase_grouped_flag_paths(card, dev)
+    phase_reference(dev, "window --beam-groups 8", beam_groups=8)
+    phase_reference(dev, "room --beam-groups 8", room_kernel=True,
+                    beam_groups=8)
+
     def kernel(name, form, launches, res):
-        src, line = (("room_raster.cu", 672) if name == "room_raster"
-                     else ("free_raster.cu", 305))
+        src, line = {"room_raster": ("room_raster.cu", 672),
+                     "exact_raster": ("exact_raster.cu", 235)}.get(
+                         name, ("free_raster.cu", 305))
         return {"name": f"{name}[{form}]", "route": "cuda",
                 "source": f"swarm_tpu_torch/csrc/{src}",
                 "replaces": f"swarm_tpu/ops/beam_raster_pallas.py:{line}",
@@ -1411,8 +1747,18 @@ def run(card, dev) -> list:
                           k_room["pack16-ring"]))
     kernels += [kernel("room_raster", key, n, k_room[key])
                 for (which, key), n in n_flags.items() if which == "room"]
+    kernels.append(kernel("free_raster", "grouped-ring", n_grouped["window"],
+                          k_grouped["grouped-ring"]))
+    kernels += [kernel("free_raster", key, n, k_grouped[key])
+                for (which, key), n in n_gflags.items() if which == "window"]
+    kernels.append(kernel("room_raster", "grouped-ring", n_grouped["room"],
+                          k_grouped_room["grouped-ring"]))
+    kernels += [kernel("room_raster", key, n, k_grouped_room[key])
+                for (which, key), n in n_gflags.items() if which == "room"]
+    kernels += [kernel("exact_raster", fan, n_exact[fan], k_exact[fan])
+                for fan in ("scan", "wrapped")]
     names = {k["name"] for k in kernels}
-    if len(names) != len(kernels) or len(kernels) != 16 + 4:
+    if len(names) != len(kernels) or len(kernels) != 16 + 4 + 8 + 4 + 2:
         raise AssertionError(f"kernel records: {sorted(names)}")
     return kernels
 

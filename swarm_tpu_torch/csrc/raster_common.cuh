@@ -1,8 +1,8 @@
 // Semantics shared by the port's raster kernels (free_raster.cu,
 // room_raster.cu): the reference's float literals, its atan2 polynomial,
 // and the per-cell polar binning of swarm_tpu/ops/beam_raster_pallas.py
-// (_atan2_poly, _wrap_pi_cheap, the beam bin and fan test, the crossing
-// count). Each kernel is built with --fmad=false, IEEE 1/sqrtf and IEEE
+// (_atan2_poly, _wrap_pi_cheap, the beam or group bin and fan test, the
+// crossing count). Each kernel is built with --fmad=false, IEEE 1/sqrtf and IEEE
 // division, so every operation here rounds as the plain torch version in
 // ops/beam_raster_cuda.py issues it.
 
@@ -33,7 +33,7 @@ constexpr float ON_BEAM = 0x1.333334p-1f;      // 0.6
 // Per-call constants of the fan (Python floats rounded to float32 by the
 // wrapper): beam_raster_cuda._constants.
 struct Fan {
-  int n_beams;
+  int n_bins;        // beams, or groups in the grouped tier
   int dense;         // every reachable cell is crossed by >= 1 beam
   float theta0, half_gdt, half_dt, gdt, dt;
   float fan_lo, fan_hi, cover;
@@ -82,7 +82,8 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
 struct Polar {
   float r;           // distance in cells
   float cnt;         // crossing count, rounded half to even, >= 1
-  int g;             // beam index: clipped to [0, n_beams), or wrapped
+  int g;             // beam (group) index: clipped to [0, n_bins), or
+                     // wrapped
   bool base_ok;      // in the fan, on a beam, not the agent's own cell
 };
 
@@ -106,11 +107,11 @@ __device__ __forceinline__ Polar polar(float dx, float dy, float yaw,
     // jnp.mod is a floor-mod (g lies in [-2, 2] for the 4-way fan); C's %
     // truncates. Every direction is in the fan. The residual below uses
     // the WRAPPED bin, as the reference does (ROADMAP Queue C).
-    o.g = ((g % f.n_beams) + f.n_beams) % f.n_beams;
+    o.g = ((g % f.n_bins) + f.n_bins) % f.n_bins;
     in_fan = true;
   } else {
     in_fan = (rel >= f.fan_lo) && (rel < f.fan_hi);
-    o.g = min(max(g, 0), f.n_beams - 1);
+    o.g = min(max(g, 0), f.n_bins - 1);
   }
   // 6. crossing count, rounded half to even
   o.cnt = fmaxf(1.0f, rintf(rinv * f.inv_dt));

@@ -13,10 +13,12 @@ passed in is the grid of the state returned.
 
 Ported: the deployable preset's paths (presets.deployable, every
 single-chip `bench.py` raster flag) — the per-agent window raster
-(`free_raster`: pack8 or pack16 table, with the endpoint ring or without
-it, on a float32 or bfloat16 grid) or the room-tile raster
-(`engine.room_tile_per_row > 0`, `room_raster`: pack16, with or without
-the ring, float32), each with the anchored scan merge at
+(`free_raster`: pack8 or pack16 table per beam, or the grouped table with
+the weak tail where `engine.beam_groups` is below a fan's beams; with the
+endpoint ring or without it, on a float32 or bfloat16 grid) or the
+room-tile raster (`engine.room_tile_per_row > 0`, `room_raster`: pack16 per
+beam or grouped, with or without the ring, float32), each with the
+anchored scan merge at
 `engine.merge_every` and the anchor freeze — and the exploration path
 (presets.coverage): the wrapped 4-way ultrasonic fan and the servo scan
 each through a raster kernel, the exact endpoint scatter after each fan
@@ -302,12 +304,7 @@ def check_supported(cfg: SwarmConfig):
         (e.raster_mode != "beam", f"raster_mode={e.raster_mode!r}",
          "Queue A, reference-parity path"),
         (not e.use_pallas, "use_pallas=False (the XLA beam tier)",
-         "Queue B1 variants"),
-        (e.beam_groups > 0 and e.room_tile_per_row > 0,
-         "beam_groups > 0 with room_tile_per_row > 0 (grouped room kernel)",
-         "Queue B2"),
-        (e.beam_groups > 0, "beam_groups > 0 (grouped tier)",
-         "Queue B1 variants"),
+         "Queue A8, the XLA beam tier"),
         (s.merge_bias_alpha > 0.0, "merge_bias_alpha > 0",
          "Queue A, anchored merge"),
         (s.closure_scanmatch, "closure_scanmatch", "Queue A, offline SLAM"),
@@ -467,16 +464,24 @@ def _raster_fans(logodds, axy, ryaw, dist4, scan_dist, alive,
     writes = torch.zeros((), dtype=torch.int32, device=axy.device)
     for spec, (db, tb) in fans:
         trusted = tb if eng.kernel_endpoints else None
+        # the tier per fan, as the reference picks it (swarm_tpu/engine/
+        # sim.py:587-589): grouped where beam_groups is below the fan's
+        # beams, else per beam (the 4-way fan in 8 groups is per beam)
+        n_groups = (spec.n_beams if eng.beam_groups <= 0
+                    else min(eng.beam_groups, spec.n_beams))
         if eng.room_tile_per_row > 0:
             # the reference passes the room kernel no pack8: pack16 table
             logodds, w_cnt = room_raster(
                 logodds, axy, ryaw, db, alive, spec, cfg.grid,
-                n_groups=spec.n_beams, per_row=eng.room_tile_per_row,
-                trusted=trusted, reach=reach)
+                n_groups=n_groups, per_row=eng.room_tile_per_row,
+                trusted=trusted, reach=reach,
+                tail_weight=eng.beam_tail_weight)
         else:
             logodds, w_cnt = free_raster(logodds, axy, ryaw, db, alive,
                                          trusted, spec, cfg.grid,
-                                         reach=reach, pack8=eng.beam_pack8)
+                                         reach=reach, pack8=eng.beam_pack8,
+                                         n_groups=n_groups,
+                                         tail_weight=eng.beam_tail_weight)
         writes = writes + torch.round(w_cnt).to(torch.int32).sum()
         if not eng.kernel_endpoints and eng.endpoint_hits:
             logodds, w_ep = endpoint_scatter(

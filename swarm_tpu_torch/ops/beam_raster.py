@@ -1,10 +1,12 @@
 """Polar beam-model raster helpers (swarm_tpu/ops/beam_raster.py): the
 beam fan, the evidence reach, the per-agent window and its placement, the
 fan's bounding box, the 8- and 16-bit range quantisations (the 16-bit pair
-packing of swarm_tpu/ops/beam_raster_pallas.py:186-209), the beam tables
+packing of swarm_tpu/ops/beam_raster_pallas.py:186-209), the grouped
+tier's per-group range statistics and trusted fraction, the beam tables
 built from sensor readings and the endpoint rays of a fan. The rasters
-themselves are ops/beam_raster_cuda.py (per-agent windows) and
-ops/room_raster_cuda.py (room tiles).
+themselves are ops/beam_raster_cuda.py (per-agent windows),
+ops/room_raster_cuda.py (room tiles) and ops/exact_raster_cuda.py (the r1
+exact per-beam raster).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.utils.angles import jmod
 
 REACH_CELLS = 26        # max beam reach: 1.2 m trust / 5 cm + ring margin
@@ -30,11 +33,45 @@ RANGE_QUANT8 = 4.0
 RANGE_MAX_CELLS8 = 31.0 + 3.0 / 4.0
 
 
+def quantize_ranges_cells(ranges_cells):
+    """Quantize beam ranges (cells) to the grouped tier's fixed point (1/256
+    cell, clipped to < 128 cells)."""
+    return torch.round(torch.clamp(ranges_cells, 0.0, RANGE_MAX_CELLS)
+                       * RANGE_QUANT) * (1.0 / RANGE_QUANT)
+
+
 def quantize_ranges_cells8(ranges_cells):
     """Quantize beam ranges (cells) to the 8-bit quad-packed fixed point
     (1/4 cell, clipped to < 32 cells)."""
     return torch.round(torch.clamp(ranges_cells, 0.0, RANGE_MAX_CELLS8)
                        * RANGE_QUANT8) * (1.0 / RANGE_QUANT8)
+
+
+def group_range_stats(ranges_cells, n_groups: int):
+    """[N, B] per-beam ranges -> (carve [N, G], tail [N, G]): each group of
+    ceil(B / G) consecutive beams (the last padded with the last beam's
+    range) sorted; carve is its second-smallest range (one short outlier
+    per group tolerated), tail its median `s[per // 2]`, the limit of the
+    weak-evidence annulus."""
+    n, b = ranges_cells.shape
+    per = -(-b // n_groups)
+    r = torch.cat([ranges_cells,
+                   ranges_cells[:, -1:].expand(n, n_groups * per - b)], 1)
+    s = torch.sort(r.reshape(n, n_groups, per), dim=-1).values
+    return s[..., min(1, per - 1)], s[..., per // 2]
+
+
+def group_trusted_frac(trusted, n_beams: int, n_groups: int):
+    """[N, B] per-beam trust -> [N, G] each group's trusted fraction, the
+    endpoint ring's weight in the grouped tier: zero-padded to G groups of
+    ceil(B / G) beams (padding dilutes the last group), then the mean. JAX's
+    `mean` multiplies the sum by the float32 reciprocal of `per`, so this
+    does too (a division differs in the last bit at per = 23 and 12)."""
+    n = trusted.shape[0]
+    per = -(-n_beams // n_groups)
+    tf = torch.nn.functional.pad(trusted.to(torch.float32),
+                                 (0, n_groups * per - n_beams))
+    return tf.reshape(n, n_groups, per).sum(-1) * recip32(per)
 
 
 def _pack_range16(dist_cells_raw, trusted):
@@ -125,9 +162,13 @@ def fan_bbox_cells(yaw, spec: BeamSpec, reach_r: float):
     """Per-agent bounding box of every cell the fan can paint, relative to
     the agent, in cells: the bbox of the fan's direction arc at radius
     `reach_r`, united with the agent point. Returns (xmin, xmax, ymin,
-    ymax), each [N] float32. The arc is `n_beams * dtheta` as in the
-    reference (ROADMAP Queue C1 records why the grouped tier, not ported,
-    needs the painted arc instead)."""
+    ymax), each [N] float32. The arc is `n_beams * dtheta`, as the
+    reference computes it, in every tier. The grouped tier paints the arc
+    `n_groups * group_dtheta` from `theta0 - dtheta / 2`, which is longer
+    when `n_groups` does not divide `n_beams`, so the strip bounds built
+    from this box can skip paintable cells there (ROADMAP Queue C1: none at
+    181 beams in 8 groups, some at 181 in 16). The port follows the kernel,
+    which computes what the TPU kernel computes."""
     if spec.wrap:
         r = torch.full_like(yaw, reach_r)
         return -r, r, -r, r

@@ -2,45 +2,54 @@
 for Hopper and its plain torch version.
 
 Replaces `swarm_tpu/ops/beam_raster_pallas.py::_free_kernel` (entry point
-`free_raster_pallas`) in every per-beam form (`n_groups == n_beams`)
-without a band:
-- the table: pack8 (`pack8=True`: 7-bit 1/4-cell ranges, four beams per
-  int32 word) or pack16 (`pack8=False`: 15-bit 1/256-cell ranges, two beams
-  per word);
+`free_raster_pallas`) in every form without a band, per-beam
+(`n_groups == n_beams`) and grouped (`n_groups < n_beams`):
+- the table: pack8 (per-beam, `pack8=True`: 7-bit 1/4-cell ranges, four
+  beams per int32 word), pack16 (per-beam, `pack8=False`: 15-bit
+  1/256-cell ranges, two beams per word) or grouped (`n_groups` groups of
+  ceil(n_beams / n_groups) consecutive beams; per group three float32s,
+  as free_raster_pallas builds them: the carve, the second-smallest
+  1/256-cell range; the trusted fraction; the tail, the median);
 - the endpoint ring: with `trusted` given the table carries each beam's
-  trusted bit (bit 7 / bit 15) and the kernel paints the ring; with
-  `trusted=None` every bit of the field is range, the kernel carves free
-  space alone and the engine scatters the endpoints exactly after it
-  (`ops/raster.endpoint_scatter`);
+  trusted bit (per-beam) or each group's trusted fraction (grouped) and
+  the kernel paints the ring weighted by it; with `trusted=None` the kernel
+  carves free space alone and the engine scatters the endpoints exactly
+  after it (`ops/raster.endpoint_scatter`);
+- the weak tail (grouped only, `tail_weight > 0`): free evidence at
+  `tail_weight` between the carve and the tail range. The per-beam carve is
+  exact, so the per-beam forms keep the tail off, as the reference does;
 - the grid's storage: float32, or bfloat16 (`GridConfig.logodds_dtype`),
   whose windows are 16-row aligned ([80, 256] at the 26-cell reach); the
   evidence adds in float32 and each agent's window is stored as bf16 before
   the next agent reads it, as the reference does;
 - the fan: the 181-beam scan, or the wrapped 4-way fan (`spec.wrap`: every
-  direction is in the fan, the beam bin is a floor-mod).
+  direction is in the fan, the beam or group bin is a floor-mod).
 `bench.py`'s defaults run pack8 + ring on the scan; `--no-pack8`,
 `--exact-endpoints`, `--grid-dtype bfloat16` and `--scan-rays 0` pick the
-others, and the coverage tool runs pack16 without the ring on both fans.
+other per-beam forms, `--beam-groups N` the grouped ones, and the coverage
+tool runs pack16 without the ring on both fans.
 Per agent, over its aligned window, every cell gets the
-inverse-sensor-model evidence of its nearest beam (free carve
-`r < rb - 0.5` weighted by the crossing count, and with the ring
-`|r - rb| <= 0.71` weighted by the trusted bit), and the window is clipped
-to [-clamp, clamp] after each agent, agents in index order. The per-agent
-painted count is the engine's applied-write counter.
+inverse-sensor-model evidence of its beam or group (free carve
+`r < rb - 0.5` weighted by the crossing count, the tail, and with the ring
+`|r - rb| <= 0.71` weighted by the trusted bit or fraction), and the window
+is clipped to [-clamp, clamp] after each agent, agents in index order. The
+per-agent painted count is the engine's applied-write counter.
 
 What bounds it on the H100: at 1024 agents x 64 x 256 cells per step the
 kernel evaluates up to ~17 M cells, each ~40 float operations (a division,
 a square root, the atan2 polynomial, the bin and the table lookup), and
 reads and writes the tiles the windows cover once (~128 MB on the 4096^2
-float32 grid, half that in bf16). The range table (at most 364 bytes per
-agent) is not the bound. The design (csrc/free_raster.cu) gives each block
-one 64 x 128 tile held in float registers, so the read-modify-write of
-overlapping windows happens in registers in agent order (with the bf16
-rounding after each agent on a bf16 grid) and the grid is read and written
-once per launch, and each agent's table sits in shared memory. It is
-simple, not yet fast: the per-cell work of inactive fan-bbox strips is
-skipped (the wrapped fan's bbox is the full disc, so it skips nothing), but
-nothing else is pruned.
+float32 grid, half that in bf16). The range table (at most 512 bytes per
+agent packed, 12 bytes a group grouped) is not the bound. The design
+(csrc/free_raster.cu) gives each block one 64 x 128 tile held in float
+registers, so the read-modify-write of overlapping windows happens in
+registers in agent order (with the bf16 rounding after each agent on a
+bf16 grid) and the grid is read and written once per launch, and each
+agent's table sits in shared memory, where the lookup is an index (the
+TPU's select trees and group loop are Mosaic workarounds). It is simple,
+not yet fast: the per-cell work of inactive fan-bbox strips is skipped
+(the wrapped fan's bbox is the full disc, so it skips nothing), but nothing
+else is pruned.
 
 `free_raster` dispatches on where the grid lies: a CPU tensor goes to
 `free_raster_plain`; a CUDA tensor launches the kernel or raises.
@@ -64,15 +73,19 @@ from swarm_tpu_torch.ops import cuda_build
 from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT8,
                                              REACH_CELLS, BeamSpec,
                                              _pack_range16, _unpack_range16,
-                                             fan_bbox_cells, patch_dims,
-                                             patch_origin)
+                                             fan_bbox_cells,
+                                             group_range_stats,
+                                             group_trusted_frac, patch_dims,
+                                             patch_origin,
+                                             quantize_ranges_cells)
 
 TILE_R = 64            # grid tile owned by one CUDA block (csrc TILE_R/C)
 TILE_C = 128
-MAX_WORDS = 128        # csrc MAX_WORDS: table words per agent
-# csrc Form: the launch's form code from (pack8, ring)
-FORMS = {(True, True): 0, (False, False): 1, (False, True): 2,
-         (True, False): 3}
+MAX_WORDS = 128        # csrc MAX_WORDS: packed table words per agent
+MAX_GROUPS = 512       # csrc MAX_GROUPS: groups per agent in the grouped table
+# csrc Form: the launch's form code from (table, ring)
+FORMS = {("pack8", True): 0, ("pack16", False): 1, ("pack16", True): 2,
+         ("pack8", False): 3, ("grouped", True): 4, ("grouped", False): 5}
 # csrc Storage: the launch's storage code from the grid's dtype
 STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -158,19 +171,32 @@ class _Windows(NamedTuple):
     ay: torch.Tensor
     yaw: torch.Tensor
     act: torch.Tensor     # [N] f32 0/1
-    table: torch.Tensor   # [N, W] int32 pack8 or pack16 words
+    table: torch.Tensor   # [N, W] int32 pack8 or pack16 words, or [N, G, 3]
+    #                       f32 grouped (carve, trusted fraction, tail)
     rows: int
     cols: int
-    pack8: bool           # the table: pack8 or pack16
-    ring: bool            # the table carries the trusted bit; the ring runs
+    kind: str             # the table: "pack8", "pack16" or "grouped"
+    ring: bool            # the table carries the trust; the ring runs
+    n_bins: int           # beams, or groups in the grouped tier
+    tail_weight: float    # the grouped tier's weak tail; 0 per beam
+
+
+def table_kind(spec: BeamSpec, pack8: bool, n_groups=None) -> str:
+    """The table a call runs: `grouped` when `n_groups` (None: per beam)
+    is below the fan's beam count, else `pack8` or `pack16`."""
+    if n_groups is not None and min(n_groups, spec.n_beams) < spec.n_beams:
+        return "grouped"
+    return "pack8" if pack8 else "pack16"
 
 
 def form_name(spec: BeamSpec, pack8: bool, ring: bool,
-              dtype=torch.float32) -> str:
-    """The launch-count key of a form: table (`pack8` / `pack16`), ring
-    (`-ring`), fan (`-wrapped` for the 4-way fan) and storage (`-bf16`),
-    e.g. `pack8-ring`, `pack16-wrapped`, `pack8-ring-wrapped-bf16`."""
-    return ("pack8" if pack8 else "pack16") + ("-ring" if ring else "") + \
+              dtype=torch.float32, grouped: bool = False) -> str:
+    """The launch-count key of a form: table (`pack8` / `pack16`, or
+    `grouped`), ring (`-ring`), fan (`-wrapped` for the 4-way fan) and
+    storage (`-bf16`), e.g. `pack8-ring`, `pack16-wrapped`,
+    `grouped-ring-wrapped-bf16`."""
+    table = "grouped" if grouped else ("pack8" if pack8 else "pack16")
+    return table + ("-ring" if ring else "") + \
         ("-wrapped" if spec.wrap else "") + \
         ("-bf16" if dtype == torch.bfloat16 else "")
 
@@ -189,9 +215,20 @@ def _check_supported(logodds, reach: int, pack8: bool):
                          f"{TILE_C}, got {tuple(logodds.shape)}")
 
 
+def grouped_table(dist_cells, trusted, spec: BeamSpec, n_groups: int):
+    """The grouped table [N, G, 3] float32 as free_raster_pallas stacks it:
+    per group the carve (second-smallest quantized range), the trusted
+    fraction (zeros without the ring) and the tail (median)."""
+    carve, tail = group_range_stats(quantize_ranges_cells(dist_cells),
+                                    n_groups)
+    tf = (torch.zeros_like(carve) if trusted is None
+          else group_trusted_frac(trusted, spec.n_beams, n_groups))
+    return torch.stack([carve, tf, tail], dim=-1)
+
+
 def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
-             cfg: GridConfig, trusted, reach: int,
-             pack8: bool = True) -> _Windows:
+             cfg: GridConfig, trusted, reach: int, pack8: bool = True,
+             n_groups=None, tail_weight: float = 0.25) -> _Windows:
     size = logodds.shape[0]
     # bf16 windows are 16-row aligned, as free_raster_pallas aligns them
     # (beam_raster_pallas.py:541-543)
@@ -210,35 +247,49 @@ def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
     t_ch = torch.clamp(torch.ceil(_div(ax + bxmax + 1.5 - c0f, 128.0)),
                        0, n_cb).to(torch.int32)
     cells = (dist_m * recip32(cfg.resolution)).to(torch.float32)
-    table = (_pack_range8 if pack8 else _pack_range16)(cells, trusted)
+    kind = table_kind(spec, pack8, n_groups)
+    if kind == "grouped":
+        n_bins = min(n_groups, spec.n_beams)
+        table = grouped_table(cells, trusted, spec, n_bins)
+    else:
+        # the per-beam carve is exact: no tail, as the reference
+        n_bins, tail_weight = spec.n_beams, 0.0
+        table = (_pack_range8 if pack8 else _pack_range16)(cells, trusted)
     return _Windows(row0=row0, col0=col0, t_cl=t_cl, t_ch=t_ch, ax=ax, ay=ay,
                     yaw=yaw.to(torch.float32),
                     act=active.to(torch.float32), table=table,
-                    rows=rows, cols=cols, pack8=pack8,
-                    ring=trusted is not None)
+                    rows=rows, cols=cols, kind=kind,
+                    ring=trusted is not None, n_bins=n_bins,
+                    tail_weight=float(tail_weight))
 
 
-def _constants(spec: BeamSpec, cfg: GridConfig):
+def _constants(spec: BeamSpec, cfg: GridConfig, n_bins: int,
+               tail_weight: float):
     """Python floats of the reference's per-call constants; each rounds to
-    float32 where it meets a float32 operand, on both paths."""
-    gdt = spec.dtheta                        # per-beam tier: one beam/group
+    float32 where it meets a float32 operand, on both paths. `n_bins`: the
+    beams, or the groups of the grouped tier, each ceil(n_beams / n_bins)
+    beams wide."""
+    gdt = spec.dtheta * (-(-spec.n_beams // n_bins))
     return dict(theta0=spec.theta0, half_gdt=gdt / 2.0,
                 half_dt=spec.dtheta / 2.0, gdt=gdt, dt=spec.dtheta,
                 inv_gdt=recip32(gdt), inv_dt=recip32(spec.dtheta),
-                fan_lo=-gdt / 2.0, fan_hi=(spec.n_beams - 0.5) * gdt,
+                fan_lo=-gdt / 2.0, fan_hi=(n_bins - 0.5) * gdt,
                 cover=spec.dtheta * 0.999, miss=cfg.logodds_miss,
                 hit=cfg.logodds_hit, clampv=cfg.logodds_clamp,
-                wrap=spec.wrap)
+                wrap=spec.wrap, n_bins=n_bins, tail_w=tail_weight,
+                # `miss * tail_weight * cnt` multiplies the Python floats
+                # first, as the reference does
+                miss_tail=cfg.logodds_miss * tail_weight)
 
 
 # --------------------------------------------------------------------------
 # plain torch version
 
 
-def _polar(dx, dy, yaw, k: dict, n_beams: int, dense: bool):
-    """One cell's polar position relative to its agent, its beam bin and
-    the evidence support, op for op as csrc/raster_common.cuh `polar`.
-    Returns (r, cnt, g, base_ok)."""
+def _polar(dx, dy, yaw, k: dict, dense: bool):
+    """One cell's polar position relative to its agent, its beam (or group)
+    bin and the evidence support, op for op as csrc/raster_common.cuh
+    `polar`. Returns (r, cnt, g, base_ok)."""
     r2 = dx * dx + dy * dy
     rinv = torch.reciprocal(torch.sqrt(torch.clamp_min(r2, 1e-6)))
     r = r2 * rinv
@@ -249,10 +300,10 @@ def _polar(dx, dy, yaw, k: dict, n_beams: int, dense: bool):
     if k["wrap"]:
         # floor-mod, as jnp.mod; the residual below uses the wrapped bin
         in_fan = torch.ones_like(rel, dtype=torch.bool)
-        g = torch.remainder(g, n_beams)
+        g = torch.remainder(g, k["n_bins"])
     else:
         in_fan = (rel >= k["fan_lo"]) & (rel < k["fan_hi"])
-        g = torch.clamp(g, 0, n_beams - 1)
+        g = torch.clamp(g, 0, k["n_bins"] - 1)
     cnt = torch.clamp_min(torch.round(rinv * k["inv_dt"]), 1.0)
     if dense:
         base_ok = in_fan & (r2 > 1e-6)
@@ -264,12 +315,64 @@ def _polar(dx, dy, yaw, k: dict, n_beams: int, dense: bool):
     return r, cnt, g, base_ok
 
 
+def _lookup(table, g, kind: str, ring: bool):
+    """The table entry of every cell's bin: (range rb, trusted weight tf,
+    tail range rt), each shaped like `g` [M, ...]. `table` [M, W] holds
+    each row's pack8 / pack16 int32 words or its grouped float32 triples
+    (carve, trusted fraction, tail) flattened. The per-beam tables have
+    no tail (rt = rb)."""
+    m = table.shape[0]
+    if kind == "grouped":
+        idx = (3 * g).reshape(m, -1).to(torch.int64)
+
+        def col(j):
+            return torch.gather(table, 1, idx + j).reshape(g.shape)
+        # without the ring the fraction column is zeros, as the reference
+        return col(0), col(1), col(2)
+    if kind == "pack8":
+        words = torch.gather(table, 1, (g >> 2).reshape(m, -1).to(
+            torch.int64))
+        v8 = (words.reshape(g.shape) >> (8 * (g & 3))) & 0xFF
+        rb, tf = _unpack_range8(v8, ring)
+    else:
+        words = torch.gather(table, 1, (g >> 1).reshape(m, -1).to(
+            torch.int64))
+        v16 = (words.reshape(g.shape) >> (16 * (g & 1))) & 0xFFFF
+        rb, tf = _unpack_range16(v16, ring)
+    return rb, tf, rb
+
+
+def _evidence(r, cnt, base_ok, rb, tf, rt, k: dict, ring: bool, act=None):
+    """One cell's evidence delta and painted count, op for op as the
+    kernels compute them: the free carve, the weak tail (`k["tail_w"] > 0`,
+    grouped only) and with the ring the endpoint ring. The window kernel
+    multiplies each term by its agent's `act`; the room kernel (act=None)
+    multiplies the sum when it applies it."""
+    zero = torch.zeros_like(r)
+
+    def a(x):
+        return x if act is None else x * act
+
+    free = base_ok & (r < rb - 0.5)
+    delta = a(torch.where(free, k["miss"] * cnt, zero))
+    painted = torch.where(free, cnt, zero)
+    if k["tail_w"] > 0:
+        tail = base_ok & ~free & (r < rt - 0.5)
+        delta = delta + a(torch.where(tail, k["miss_tail"] * cnt, zero))
+        painted = painted + torch.where(tail, k["tail_w"] * cnt, zero)
+    if ring:
+        on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
+        delta = delta + a(torch.where(on_ring, k["hit"] * cnt * tf, zero))
+        painted = painted + torch.where(on_ring, cnt * tf, zero)
+    return delta, painted
+
+
 def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
                    dense: bool):
     """Evidence delta [N, rows, cols] and painted count [N] of every agent's
     window, vectorised over agents — the kernel's per-cell math, op for
     op."""
-    k = _constants(spec, cfg)
+    k = _constants(spec, cfg, w.n_bins, w.tail_weight)
     dev = w.ax.device
     n = w.ax.shape[0]
     rr = torch.arange(w.rows, dtype=torch.int32, device=dev)[None, :, None]
@@ -278,44 +381,31 @@ def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
     cx = (w.col0[:, None, None] + cc).to(torch.float32) + 0.5
     r, cnt, g, base_ok = _polar(cx - w.ax[:, None, None],
                                 cy - w.ay[:, None, None],
-                                w.yaw[:, None, None], k, spec.n_beams, dense)
-
+                                w.yaw[:, None, None], k, dense)
+    rb, tf, rt = _lookup(w.table.reshape(n, -1), g, w.kind, w.ring)
+    delta, painted = _evidence(r, cnt, base_ok, rb, tf, rt, k, w.ring,
+                               act=w.act[:, None, None])
     zero = torch.zeros_like(r)
-    act = w.act[:, None, None]
-    if w.pack8:
-        words = torch.gather(w.table, 1,
-                             (g >> 2).reshape(n, -1).to(torch.int64))
-        v8 = (words.reshape(g.shape) >> (8 * (g & 3))) & 0xFF
-        rb, tf = _unpack_range8(v8, w.ring)
-    else:
-        words = torch.gather(w.table, 1,
-                             (g >> 1).reshape(n, -1).to(torch.int64))
-        v16 = (words.reshape(g.shape) >> (16 * (g & 1))) & 0xFFFF
-        rb, tf = _unpack_range16(v16, w.ring)
-    free = base_ok & (r < rb - 0.5)
-    delta = torch.where(free, k["miss"] * cnt, zero) * act
-    painted = torch.where(free, cnt, zero)
-    if w.ring:
-        on_ring = base_ok & (torch.abs(r - rb) <= 0.71)
-        delta = delta + torch.where(on_ring, k["hit"] * cnt * tf, zero) * act
-        painted = painted + torch.where(on_ring, cnt * tf, zero)
     strip = (cc // 128)
     on = (strip >= w.t_cl[:, None, None]) & (strip < w.t_ch[:, None, None])
     delta = torch.where(on, delta, zero)
     painted = torch.where(on, painted, zero)
-    return delta, painted.sum(dim=(1, 2)) * w.act
+    # summed in double, exactly, as the kernel sums it (csrc/free_raster.cu)
+    return delta, painted.to(torch.float64).sum(dim=(1, 2)).to(
+        torch.float32) * w.act
 
 
 def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
                       spec: BeamSpec, cfg: GridConfig = GridConfig(),
-                      reach: int = REACH_CELLS, pack8: bool = True):
+                      reach: int = REACH_CELLS, pack8: bool = True,
+                      n_groups=None, tail_weight: float = 0.25):
     """The raster in plain torch: deltas vectorised over [N, rows, cols],
     then applied window by window in agent index order, each window
     clipped (in float32) and stored in the grid's dtype after its agent.
     Updates `logodds` IN PLACE and returns (logodds, counts [N] f32)."""
     _check_supported(logodds, reach, pack8)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
-                 reach, pack8)
+                 reach, pack8, n_groups, tail_weight)
     delta, counts = _window_deltas(w, spec, cfg, _dense_fan(spec, reach))
     c = cfg.logodds_clamp
     for a, (r0, c0) in enumerate(zip(w.row0.tolist(), w.col0.tolist())):
@@ -331,7 +421,7 @@ def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
 
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.free_raster_launch.argtypes = [P] * 8 + [I] * 10 + [F] * 11 + [P]
+    lib.free_raster_launch.argtypes = [P] * 8 + [I] * 10 + [F] * 13 + [P]
     lib.free_raster_launch.restype = I
 
 
@@ -370,87 +460,107 @@ class _Launch(NamedTuple):
     """The kernel's operands, prepared from the windows (`_prepare`)."""
     origins: torch.Tensor     # [N, 4] int32 row0, col0, t_cl, t_ch
     meta: torch.Tensor        # [N, 4] f32 ax, ay, yaw, act
-    table: torch.Tensor       # [N, W] int32 table words
+    table: torch.Tensor       # [N, W] int32 table words (grouped: the
+    #                           float32 triples' bits)
     tile_start: torch.Tensor  # [T + 1] int32 CSR offsets per tile
     pair_agent: torch.Tensor  # [P] int32
     pair_slot: torch.Tensor   # [P] int32
     k: int                    # candidate tiles per agent
     rows: int
     cols: int
-    pack8: bool
+    kind: str
     ring: bool
+    n_bins: int
+    tail_weight: float
 
 
 def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
     if not logodds.is_contiguous():
         raise ValueError("the raster kernel updates a contiguous grid")
-    if w.table.shape[1] > MAX_WORDS:
-        raise ValueError(f"{spec.n_beams} beams exceed the kernel's "
-                         f"{MAX_WORDS}-word table")
+    n = w.table.shape[0]
+    if w.kind == "grouped":
+        if w.n_bins > MAX_GROUPS:
+            raise ValueError(f"{w.n_bins} beam groups exceed the kernel's "
+                             f"{MAX_GROUPS}-group table")
+        # the float32 triples go in as their bits: the kernel loads every
+        # table as 32-bit words
+        table = w.table.reshape(n, -1).contiguous().view(torch.int32)
+    else:
+        if w.table.shape[1] > MAX_WORDS:
+            raise ValueError(f"{spec.n_beams} beams exceed the kernel's "
+                             f"{MAX_WORDS}-word table")
+        table = w.table.to(torch.int32).contiguous()
     origins = torch.stack([w.row0, w.col0, w.t_cl, w.t_ch], -1).to(
         torch.int32).contiguous()
     meta = torch.stack([w.ax, w.ay, w.yaw, w.act], -1).to(
         torch.float32).contiguous()
-    table = w.table.to(torch.int32).contiguous()
     if {x.device for x in (origins, meta, table)} != {logodds.device}:
         raise ValueError("the agents' inputs and the grid must lie on one "
                          "device: the kernel reads them all")
     tile_start, pair_agent, pair_slot, k, _ = _tile_pairs(w,
                                                           logodds.shape[0])
     return _Launch(origins, meta, table, tile_start, pair_agent, pair_slot,
-                   k, w.rows, w.cols, w.pack8, w.ring)
+                   k, w.rows, w.cols, w.kind, w.ring, w.n_bins,
+                   w.tail_weight)
 
 
 def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
             dense: bool):
     """One kernel launch on prepared operands; returns counts [N]."""
     n = ln.meta.shape[0]
-    partial = torch.zeros(n * ln.k, dtype=torch.float32,
+    partial = torch.zeros(n * ln.k, dtype=torch.float64,
                           device=logodds.device)
-    c = _constants(spec, cfg)
+    c = _constants(spec, cfg, ln.n_bins, ln.tail_weight)
     err = cuda_build.load("free_raster", _bind).free_raster_launch(
         logodds.data_ptr(), ln.origins.data_ptr(), ln.meta.data_ptr(),
         ln.table.data_ptr(), ln.tile_start.data_ptr(),
         ln.pair_agent.data_ptr(), ln.pair_slot.data_ptr(),
         partial.data_ptr(), ln.tile_start.shape[0] - 1, logodds.shape[0],
-        ln.rows, ln.cols, ln.table.shape[1], FORMS[ln.pack8, ln.ring],
-        STORAGE[logodds.dtype], spec.n_beams, int(dense), int(spec.wrap), c["theta0"], c["half_gdt"],
-        c["half_dt"], c["gdt"], c["dt"], c["fan_lo"], c["fan_hi"],
-        c["cover"], c["miss"], c["hit"], c["clampv"],
+        ln.rows, ln.cols, ln.table.shape[1], FORMS[ln.kind, ln.ring],
+        STORAGE[logodds.dtype], ln.n_bins, int(dense), int(spec.wrap),
+        c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
+        c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
+        c["clampv"], c["tail_w"], c["miss_tail"],
         torch.cuda.current_stream(logodds.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"free_raster launch failed: CUDA error {err}")
     free_raster.launches += 1
-    name = form_name(spec, ln.pack8, ln.ring, logodds.dtype)
+    name = form_name(spec, ln.kind == "pack8", ln.ring, logodds.dtype,
+                     grouped=ln.kind == "grouped")
     free_raster.launches_by_form[name] = \
         free_raster.launches_by_form.get(name, 0) + 1
-    # pair slots reduced per agent in a fixed order (no float atomics)
-    return partial.reshape(n, ln.k).sum(dim=1) * ln.meta[:, 3]
+    # pair slots reduced per agent (no float atomics), exactly in double
+    return partial.reshape(n, ln.k).sum(dim=1).to(torch.float32) * \
+        ln.meta[:, 3]
 
 
 def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
                 spec: BeamSpec, cfg: GridConfig = GridConfig(),
-                reach: int = REACH_CELLS, pack8: bool = True):
+                reach: int = REACH_CELLS, pack8: bool = True,
+                n_groups=None, tail_weight: float = 0.25):
     """The engine's raster: (new_logodds, counts [N] f32) as
-    `free_raster_pallas(..., n_groups=n_beams, pack8=pack8,
-    trusted=trusted)` returns them; counts is the per-agent in-kernel
-    applied-write counter. agent_xy [N, 2] world metres, yaw [N], dist_m
-    [N, B] the range-limited readings, trusted [N, B] their trust mask (the
-    table's trusted bit and the endpoint ring) or None (no ring), active
-    [N] bool; `pack8` picks the pack8 or the pack16 table. `spec` is the
-    scan's fan or the wrapped 4-way fan. `logodds` [S, S] float32 or
-    bfloat16 is updated IN PLACE.
+    `free_raster_pallas(..., n_groups=n_groups or n_beams, pack8=pack8,
+    trusted=trusted, tail_weight=tail_weight)` returns them; counts is the
+    per-agent in-kernel applied-write counter. agent_xy [N, 2] world
+    metres, yaw [N], dist_m [N, B] the range-limited readings, trusted
+    [N, B] their trust mask (the table's trusted bit or fraction and the
+    endpoint ring) or None (no ring), active [N] bool. `n_groups` below B
+    runs the grouped tier (None: per beam), with the weak tail at
+    `tail_weight`; per beam, `pack8` picks the pack8 or the pack16 table.
+    `spec` is the scan's fan or the wrapped 4-way fan. `logodds` [S, S]
+    float32 or bfloat16 is updated IN PLACE.
 
     A CPU grid goes to `free_raster_plain`. A CUDA grid launches the
     kernel; a failed build or launch raises."""
     if logodds.device.type == "cpu":
         return free_raster_plain(logodds, agent_xy, yaw, dist_m, active,
-                                 trusted, spec, cfg, reach=reach, pack8=pack8)
+                                 trusted, spec, cfg, reach=reach, pack8=pack8,
+                                 n_groups=n_groups, tail_weight=tail_weight)
     if logodds.device.type != "cuda":
         raise ValueError(f"no raster for a grid on {logodds.device}")
     _check_supported(logodds, reach, pack8)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
-                 reach, pack8)
+                 reach, pack8, n_groups, tail_weight)
     counts = _launch(logodds, _prepare(logodds, w, spec), spec, cfg,
                      _dense_fan(spec, reach))
     return logodds, counts

@@ -4,7 +4,7 @@ Both return what `__graft_entry__._cfg_and_world(n, frontiers=...,
 parity=False, raster_mode="beam", use_pallas=True, scan_rays=...,
 tiled=True, room_kernel=...)` returns, for the tool that runs it:
 
-`deployable` adds bench.py's replacements and defaults (`beam_groups=0`,
+`deployable` adds bench.py's replacements and defaults (`beam_groups`,
 `kernel_endpoints=not exact_endpoints`, `beam_pack8=pack8`,
 `raster_4way=(scan_rays == 0)`, `merge_every=16` when there is a sweep,
 else 0, and the grid's `logodds_dtype=grid_dtype`), bench.py:114-128. Its
@@ -14,9 +14,11 @@ instead of the per-agent window kernel); `frontiers=True` is `--frontiers`
 (run it with `enable_targets=True`); `scan_rays=0` is `--scan-rays 0`, the
 4-way ultrasonic fan alone; `pack8=False` is `--no-pack8`;
 `exact_endpoints=True` is `--exact-endpoints`; `grid_dtype="bfloat16"` is
-`--grid-dtype bfloat16`. `deployable(32768, grid_dtype="bfloat16")` is the
-largest configuration the repository publishes: a 23,296^2 bf16 grid,
-16,384 rooms at 91 per tile row.
+`--grid-dtype bfloat16`; `beam_groups=N` is `--beam-groups N`, the grouped
+tier on every fan of more than N beams (0: per beam).
+`deployable(32768, grid_dtype="bfloat16")` is the largest configuration the
+repository publishes: a 23,296^2 bf16 grid, 16,384 rooms at 91 per tile
+row.
 
 `coverage` is the configuration of tools/bench_coverage.py: EngineConfig's
 own raster defaults (`raster_4way=True`, `kernel_endpoints=False`,
@@ -82,7 +84,8 @@ def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
 def deployable(n_agents: int, device=None, merge_every: int = 16,
                room_kernel: bool = False, frontiers: bool = False,
                scan_rays: int = 181, pack8: bool = True,
-               exact_endpoints: bool = False, grid_dtype: str = "float32"):
+               exact_endpoints: bool = False, grid_dtype: str = "float32",
+               beam_groups: int = 0):
     """bench.py's world + config for an n-agent swarm. Returns (cfg, walls
     [S, 4], params, (walls_grouped [G, 4, 4], room_of_agent [N] int32)),
     tensors on `device` (the card when None). At 1024 agents: a 4096^2
@@ -90,7 +93,7 @@ def deployable(n_agents: int, device=None, merge_every: int = 16,
     (`scan_rays=0`) the merge is off, as bench.py sets it."""
     return _tiled_world(
         n_agents, device, frontiers, scan_rays, room_kernel, grid_dtype,
-        beam_groups=0, kernel_endpoints=not exact_endpoints,
+        beam_groups=beam_groups, kernel_endpoints=not exact_endpoints,
         beam_pack8=pack8, raster_4way=scan_rays == 0,
         merge_every=merge_every if scan_rays > 0 else 0)
 

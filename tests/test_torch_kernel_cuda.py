@@ -1,8 +1,10 @@
 """The hand-written CUDA raster kernels (the per-agent window raster in
 each of its 16 per-beam instances: table x ring x fan x float32/bfloat16
-grid, and the room-tile raster in its four per-beam forms) against their
-plain torch versions, on the card, at small sizes; and the endpoint scatter
-on the card against the CPU, on float32 and bfloat16 grids.
+grid, and its 8 grouped ones: ring x fan x storage; the room-tile raster in
+its four per-beam and four grouped forms; the r1 exact raster on the scan
+and the wrapped 4-way fan) against their plain torch versions, on the card,
+at small sizes; and the endpoint scatter on the card against the CPU, on
+float32 and bfloat16 grids.
 
 Needs an NVIDIA GPU with the CUDA toolkit; every test skips without one.
 This file imports no jax, so on a card (whose machine need not have jax,
@@ -13,7 +15,10 @@ which tests/conftest.py imports) it runs on its own with
 Kernel and plain version issue the same float32 operation sequence (the
 kernel is built with --fmad=false, IEEE division and 1/sqrtf), and on a
 bf16 grid both round each agent's window to bf16 after that agent, so the
-map is held BIT-EQUAL and the counts (integer-valued sums) to rtol 1e-6.
+map is held BIT-EQUAL and the counts to rtol 1e-6 or equal. The grouped
+counts are sums of fractions (the trusted fraction, the tail weight), and
+often half-integers that the engine rounds: kernel and plain version both
+sum them exactly, in double, so they are held EQUAL.
 """
 
 import itertools
@@ -27,6 +32,8 @@ from swarm_tpu_torch.geom.world import make_tiled_rooms
 from swarm_tpu_torch.ops.beam_raster import BeamSpec
 from swarm_tpu_torch.ops.beam_raster_cuda import (free_raster,
                                                   free_raster_plain)
+from swarm_tpu_torch.ops.exact_raster_cuda import (beam_raster,
+                                                   beam_raster_plain)
 from swarm_tpu_torch.ops.raster import RayBatch, endpoint_scatter
 from swarm_tpu_torch.ops.room_raster_cuda import (room_raster,
                                                   room_raster_plain)
@@ -321,3 +328,121 @@ def test_endpoint_scatter_bf16_card_equals_cpu(cuda):
     assert outs[0][0].dtype == torch.bfloat16
     assert torch.equal(outs[0][0], outs[1][0])
     assert outs[0][1] == outs[1][1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fan", [(181, 8), (181, 16), (4, 2)],
+                         ids=["181/8", "181/16", "4/2"])
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_grouped_window_instances_bit_equal_plain(cuda, fan, ring, dtype,
+                                                  overlap):
+    """The 8 grouped instances of the window kernel (ring x fan x storage,
+    the tail at 0.25), and 16 groups on the scan (the last group padded)."""
+    n_beams, n_groups = fan
+    size = 512
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0,
+                     logodds_dtype="bfloat16" if dtype == torch.bfloat16
+                     else "float32")
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    grid, xy, yaw, dist, trusted, active = _case(
+        n_beams + n_groups + ring, 48, n_beams, size, overlap, overlap)
+    args = [torch.from_numpy(a).to(cuda) for a in (xy, yaw, dist)]
+    act = torch.from_numpy(active).to(cuda)
+    tr = torch.from_numpy(trusted).to(cuda) if ring else None
+    kw = dict(reach=26, n_groups=n_groups, tail_weight=0.25)
+    g_k = torch.from_numpy(grid).to(cuda).to(dtype)
+    g_p = g_k.clone()
+
+    before = dict(free_raster.launches_by_form)
+    _, cnt_k = free_raster(g_k, *args, act, tr, spec, cfg, **kw)
+    torch.cuda.synchronize()
+    name = "grouped" + ("-ring" if ring else "") + \
+        ("-wrapped" if n_beams == 4 else "") + \
+        ("-bf16" if dtype == torch.bfloat16 else "")
+    assert free_raster.launches_by_form[name] == before.get(name, 0) + 1
+    _, cnt_p = free_raster_plain(g_p, *args, act, tr, spec, cfg, **kw)
+    assert g_k.dtype == dtype
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("four_way", [False, True])
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_room_grouped_forms_bit_equal_plain(cuda, four_way, ring, overlap):
+    """The room kernel's 4 grouped forms (ring x fan; 181 beams in 8
+    groups, the 4-way fan in 2), the tail at 0.25."""
+    size, per_row, n_rooms = 512, 2, 4
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    rng = np.random.default_rng(31 + 2 * four_way + ring)
+    _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    n = 2 * n_rooms
+    n_beams, n_groups = (4, 2) if four_way else (181, 8)
+    room = np.arange(n) // 2
+    if overlap:
+        c = origins[room] + rng.uniform([1.0, 1.0], [5.0, 3.0],
+                                        (n_rooms, 2))[room]
+        xy = c + rng.uniform(-0.15, 0.15, (n, 2))
+        grid = rng.choice([-9.9, 9.7, -9.6, 9.95], (size, size))
+    else:
+        xy = origins[room] + rng.uniform([0.3, 0.3], [5.7, 3.7], (n, 2))
+        grid = np.zeros((size, size))
+    dist = rng.uniform(0.02, 1.6, (n, n_beams))
+    trusted = (dist > 0.05) & (dist <= 1.2)
+    act = np.ones(n, bool)
+    act[-1] = False
+
+    def dev(a, dtype=None):
+        x = torch.from_numpy(np.asarray(a)).to(cuda)
+        return x if dtype is None else x.to(dtype)
+
+    f32 = torch.float32
+    spec = BeamSpec.four_way() if four_way else BeamSpec.scan(181)
+    args = (dev(xy, f32), dev(rng.uniform(-np.pi, np.pi, n), f32),
+            dev(np.minimum(dist, 1.2), f32), dev(act))
+    kw = dict(n_groups=n_groups, per_row=per_row, tail_weight=0.25,
+              trusted=dev(trusted) if ring else None, reach=26)
+    g_k = dev(grid, f32)
+    g_p = g_k.clone()
+    before = room_raster.launches
+    _, cnt_k = room_raster(g_k, *args, spec, cfg, **kw)
+    torch.cuda.synchronize()
+    assert room_raster.launches == before + 1
+    _, cnt_p = room_raster_plain(g_p, *args, spec, cfg, **kw)
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams", [181, 37, 4])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_exact_raster_bit_equal_plain(cuda, n_beams, overlap):
+    """The r1 exact raster on the scan (181 and 37 beams) and the wrapped
+    4-way fan, agents spread out on a zero grid or overlapping on a grid
+    pre-filled near +-clamp. The plain version's torch.sin and the
+    kernel's sinf are both libdevice's."""
+    size = 512
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    grid, xy, yaw, dist, trusted, active = _case(
+        n_beams + 50, 48, n_beams, size, overlap, overlap)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (xy, yaw, np.minimum(dist, 1.2), trusted, active)]
+    g_k = torch.from_numpy(grid).to(cuda)
+    g_p = g_k.clone()
+    before = beam_raster.launches
+    beam_raster(g_k, *args, spec, cfg)
+    torch.cuda.synchronize()
+    assert beam_raster.launches == before + 1
+    beam_raster_plain(g_p, *args, spec, cfg)
+    assert beam_raster.launches == before + 1
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert int((g_k != torch.from_numpy(grid).to(cuda)).sum()) > 0

@@ -165,10 +165,10 @@ def test_inactive_room_is_a_noop():
 
 
 def test_refusals():
-    """The reach that does not fit a tile is refused on both sides; the
-    grouped form, a bfloat16 grid (the reference's sim_init refuses it with
-    the room kernel) and a grid on neither the CPU nor the card are refused
-    by the port."""
+    """The reach that does not fit a tile is refused on both sides; a
+    grouped table past the kernel's 512 groups, a bfloat16 grid (the
+    reference's sim_init refuses it with the room kernel) and a grid on
+    neither the CPU nor the card are refused by the port."""
     spec = pb.BeamSpec.scan(181)
     args = (torch.zeros(1, 2), torch.zeros(1), torch.ones(1, 181),
             torch.ones(1, dtype=torch.bool))
@@ -183,9 +183,11 @@ def test_refusals():
                               GRID, n_groups=181,
                               trusted=jnp.ones((1, 181), bool), reach=61,
                               interpret=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pr.room_raster(torch.zeros(512, 512), *args, spec, GRID, n_groups=16,
-                       trusted=torch.ones(1, 181, dtype=bool), reach=26)
+    wide = (torch.zeros(1, 2), torch.zeros(1), torch.ones(1, 1200),
+            torch.ones(1, dtype=torch.bool))
+    with pytest.raises(ValueError, match="512-group"):
+        pr.room_raster(torch.zeros(512, 512), *wide, pb.BeamSpec.scan(1200),
+                       GRID, n_groups=600, reach=26)
     with pytest.raises(ValueError, match="bfloat16"):
         pr.room_raster(torch.zeros(512, 512, dtype=torch.bfloat16), *args,
                        spec, GRID, n_groups=181, reach=26)

@@ -156,9 +156,7 @@ def test_unported_paths_refuse(world):
             slam=dataclasses.replace(cfg.slam, **(slam or {})),
             grid=dataclasses.replace(cfg.grid, **(grid or {})))
 
-    for bad in (with_(dict(beam_groups=8, room_tile_per_row=1)),
-                with_(dict(beam_groups=8)),
-                with_(dict(parity_mode=True)),
+    for bad in (with_(dict(parity_mode=True)),
                 with_(dict(raster_mode="line")),
                 with_(dict(use_pallas=False)),
                 with_(dict(merge_every=16), dict(merge_bias_alpha=0.1)),
@@ -183,9 +181,14 @@ def test_unported_paths_refuse(world):
     # these run: the merge, the room kernel (pack16, whatever beam_pack8
     # says) with and without its ring and on the wrapped 4-way fan, the
     # wrapped fan (with and without a sweep), frontiers, the window table
-    # in all four forms (pack8 / pack16, with / without the ring), a bf16
-    # grid on the window kernel, and the coverage tool's configuration
+    # in all four forms (pack8 / pack16, with / without the ring), the
+    # grouped tier on both kernels (bench.py --beam-groups), a bf16 grid on
+    # the window kernel, and the coverage tool's configuration
     for eng, grid in (
+            (dict(beam_groups=8), {}),
+            (dict(beam_groups=8, room_tile_per_row=1), {}),
+            (dict(beam_groups=2, raster_4way=True, scan_rays=0,
+                  merge_every=0), bf16),
             (dict(merge_every=16), {}), (dict(room_tile_per_row=1), {}),
             (dict(room_tile_per_row=1, beam_pack8=False), {}),
             (dict(room_tile_per_row=1, kernel_endpoints=False), {}),

@@ -75,12 +75,13 @@ def jax_step_noise(key, n: int, n_rays: int, cfg=None) -> StepNoise:
 
 def jax_deployable(n: int, merge_every: int = 16, room_kernel=False,
                    frontiers=False, scan_rays=181, pack8=True,
-                   exact_endpoints=False, grid_dtype="float32"):
+                   exact_endpoints=False, grid_dtype="float32",
+                   beam_groups=0):
     """The JAX preset the port's presets.deployable mirrors, built as
     bench.py builds it (bench.py:107-128): _cfg_and_world(tiled=True, ...),
-    the grid dtype, then bench.py's engine replacements (--no-pack8,
-    --exact-endpoints, the 4-way raster without a sweep, the merge only
-    with one)."""
+    the grid dtype, then bench.py's engine replacements (--beam-groups,
+    --no-pack8, --exact-endpoints, the 4-way raster without a sweep, the
+    merge only with one)."""
     from __graft_entry__ import _cfg_and_world
 
     cfg, walls, params, rooms = _cfg_and_world(
@@ -91,7 +92,8 @@ def jax_deployable(n: int, merge_every: int = 16, room_kernel=False,
         cfg = cfg.replace(grid=dataclasses.replace(
             cfg.grid, logodds_dtype=grid_dtype))
     cfg = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, beam_groups=0, kernel_endpoints=not exact_endpoints,
+        cfg.engine, beam_groups=beam_groups,
+        kernel_endpoints=not exact_endpoints,
         beam_pack8=pack8, raster_4way=scan_rays == 0))
     if merge_every > 0 and scan_rays > 0:
         cfg = cfg.replace(engine=dataclasses.replace(
