@@ -95,7 +95,35 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      beside the per-beam paths'; every grouped bench.py flag row
      (GROUPED_WINDOW_ROWS, GROUPED_ROOM_ROWS, C1_ROW) through sim_rollout
      for 17 steps, each launching exactly its form; and card vs CPU at 8 agents
-     on both grouped paths over 34 steps, as in phase 11.
+     on both grouped paths over 34 steps, as in phase 11;
+ 13. the sharded engine's band and tile forms of the window kernel (every
+     f32 form its body reaches: pack16 or grouped table x ring on / off x
+     scan / wrapped fan), each vs its plain version at 1024 agents on
+     4096^2: the main path's one-rank windows (the band (0, 4096) and the
+     [4160, 4352] tile window of a 1x1 rank grid, all 1024 agents), the
+     four 1024-row bands of a 4-rank "rows" layout (256 agents each) and
+     the four [2112, 2304] tile windows of a 2x2 "tiles" layout
+     (presets.tile_blocks(2, 2, 4096)), all with negative offsets and the
+     grid-edge guard where a tile meets the grid's edge, plus an overlap
+     case; maps BIT-EQUAL, counts equal; timed and bounded as in phase 2
+     at the one-rank windows;
+ 14. the sharded engine (parallel/sharded.py) on a one-rank NCCL group at
+     1024 agents on presets.deployable's world: "replicated", "rows" and
+     "tiles" (1x1), each a warm-up step and 65 timed steps with the
+     counters set to 0 just before: one launch per step of the
+     decomposition's form (pack16-ring, -band, -tile) and no other, every
+     step writes, merges > 0, all agents online, no band escape, finite
+     poses; steps/s, peak memory and a 17-step split on the device
+     timeline (sensing, raster, merge, zones, collectives, rest); one
+     more step's raster inputs through the kernel and its plain version at
+     the path's window and on the whole grid (bit-equal; the cells the
+     float shift moves counted, ROADMAP C22); "rows" BIT-EQUAL to
+     "replicated" (maps, writes, poses), "tiles" compared with it (poses
+     equal, decisions within 1e-4 of the explored cells, applied cells
+     within 1e-5); then every
+     other band and tile form through the sharded body's bench.py flag rows
+     (BAND_ROWS), 17 steps each;
+ 15. parallel/dryrun.py at world size 1 on the card, as its own process.
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`), then the card's name and power limit; the last
@@ -198,7 +226,8 @@ def phase_build():
     built = cuda_build.build_all(["free_raster", "room_raster",
                                   "exact_raster"])
     for name, (lib, secs) in built.items():
-        print(f"kernel build [{name}]: {secs:.2f} s ({os.path.relpath(lib)})")
+        print(f"kernel build [{name}]: {secs:.2f} s ({os.path.relpath(lib)};"
+              f" ptxas: {cuda_build.ptxas.get(name, 'built before')})")
     print(f"kernel builds, together: {time.perf_counter() - t0:.2f} s")
 
 
@@ -341,12 +370,13 @@ def _hold_equal(name, kernel, plain, cases, size):
     return worst
 
 
-def _covered_cells(w, size, dev) -> int:
+def _covered_cells(w, size, dev, n_cols=None) -> int:
     """The cells of the union of the agents' windows (`w.row0`, `w.col0`,
-    `w.rows`, `w.cols`): windows are 8-row (16 on bf16) and 128-column
-    aligned, so an [S/8, S/128] mask counts them exactly."""
-    blocks = torch.zeros((size // 8, size // 128), dtype=torch.bool,
-                         device=dev)
+    `w.rows`, `w.cols`) on a [size, n_cols or size] grid: windows are
+    8-row (16 on bf16) and 128-column aligned, so an [S/8, S/128] mask
+    counts them exactly."""
+    blocks = torch.zeros((-(-size // 8), (n_cols or size) // 128),
+                         dtype=torch.bool, device=dev)
     rb = (w.row0 // 8).long()[:, None] + torch.arange(w.rows // 8,
                                                       device=dev)
     cb = (w.col0 // 128).long()[:, None] + torch.arange(w.cols // 128,
@@ -1191,7 +1221,21 @@ def _median(xs):
     return xs[len(xs) // 2] if xs else 0.0
 
 
-def _step_split(step, state, n_steps: int):
+def _sim_parts():
+    """The fused step's parts for `_step_split`: part -> (module, name)
+    pairs of the functions engine.sim calls by name."""
+    from swarm_tpu_torch.engine import sim
+
+    names = {"sensing": ("sense_4way", "sense_scan"),
+             "raster": ("_raster_fans",), "merge": ("_merge_event",),
+             "zones": ("zones_for_agents",),
+             "closure": ("closure_add_poses_batch",),
+             "v2v": ("v2v_stats",)}
+    return {part: tuple((sim, nm) for nm in nms)
+            for part, nms in names.items()}
+
+
+def _step_split(step, state, n_steps: int, parts=None):
     """n_steps more steps with CUDA events around the step and around each
     part the engine calls by name: engine.sim's `sense_4way` and
     `sense_scan` (sensing), `_raster_fans` (the raster, its preparation
@@ -1202,17 +1246,12 @@ def _step_split(step, state, n_steps: int):
     per part (device-timeline median ms over the steps that ran it, their
     count, the most device memory allocated while it ran); for the step
     and its rest (the step less its parts), medians over the steps with
-    neither a merge nor a zone snapshot."""
-    from swarm_tpu_torch.engine import sim
-
-    parts = {"sensing": ("sense_4way", "sense_scan"),
-             "raster": ("_raster_fans",), "merge": ("_merge_event",),
-             "zones": ("zones_for_agents",),
-             "closure": ("closure_add_poses_batch",),
-             "v2v": ("v2v_stats",)}
+    neither a merge nor a zone snapshot. `parts`: part -> (module, name)
+    pairs to time (default `_sim_parts()`)."""
+    parts = _sim_parts() if parts is None else parts
     marks = []
-    originals = {nm: getattr(sim, nm) for names in parts.values()
-                 for nm in names}
+    originals = {(mod, nm): getattr(mod, nm)
+                 for pairs in parts.values() for mod, nm in pairs}
 
     def timed(part, fn):
         def run(*a, **k):
@@ -1229,9 +1268,9 @@ def _step_split(step, state, n_steps: int):
 
     steps = []
     try:
-        for part, names in parts.items():
-            for nm in names:
-                setattr(sim, nm, timed(part, originals[nm]))
+        for part, pairs in parts.items():
+            for mod, nm in pairs:
+                setattr(mod, nm, timed(part, originals[(mod, nm)]))
         for _ in range(n_steps):
             marks.append([])
             s0 = torch.cuda.Event(enable_timing=True)
@@ -1242,8 +1281,8 @@ def _step_split(step, state, n_steps: int):
             steps.append((s0, s1))
         torch.cuda.synchronize()
     finally:
-        for nm, fn in originals.items():
-            setattr(sim, nm, fn)
+        for (mod, nm), fn in originals.items():
+            setattr(mod, nm, fn)
     rows, peaks = [], dict.fromkeys(parts, 0)
     for (s0, s1), ms in zip(steps, marks):
         row = {"step": s0.elapsed_time(s1)}
@@ -1667,6 +1706,522 @@ def phase_grouped_flag_paths(card, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# the sharded engine (swarm_tpu_torch/parallel/) on one card
+
+# the band and tile forms of the window kernel the sharded body reaches:
+# (beams, groups, ring), as bench.py's flags reach them (BAND_ROWS)
+BAND_FORMS = {"pack16-ring": (181, 181, True), "pack16": (181, 181, False),
+              "pack16-ring-wrapped": (4, 4, True),
+              "pack16-wrapped": (4, 4, False),
+              "grouped-ring": (181, 8, True), "grouped": (181, 8, False),
+              "grouped-ring-wrapped": (4, 2, True),
+              "grouped-wrapped": (4, 2, False)}
+# presets.deployable's arguments that make the sharded body launch each
+# form (the body passes no pack8: pack16 per beam)
+BAND_ROWS = {"pack16-ring": {}, "pack16": dict(exact_endpoints=True),
+             "pack16-ring-wrapped": dict(scan_rays=0),
+             "pack16-wrapped": dict(scan_rays=0, exact_endpoints=True),
+             "grouped-ring": dict(beam_groups=8),
+             "grouped": dict(beam_groups=8, exact_endpoints=True),
+             "grouped-ring-wrapped": dict(beam_groups=2, scan_rays=0),
+             "grouped-wrapped": dict(beam_groups=2, scan_rays=0,
+                                     exact_endpoints=True)}
+SHARDED_STEPS = 65           # four merge events (steps 15, 31, 47, 63)
+SHARDED_FLAG_STEPS = 17
+SHARDED_TIMEOUT_S = 600      # a collective waits at most this long
+
+
+def _band_windows(dev):
+    """The band and tile windows the sharded body gives its kernel, and
+    their worlds. Returns ({kind: [(label, band, band_cols, agent slice,
+    world name)]}, {world name: world}). First of each kind the main
+    path's own window (one rank, presets.deployable(N_AGENTS): at 1024
+    agents a 4096^2 grid, all agents): the band (0, size), and the tile
+    window of a 1x1 rank grid, the whole grid plus its halo ring
+    (negative offsets, the guard on every edge). Then each rank's window
+    of a 4-rank "rows" layout (the 1024-row bands, 256 agents each) and of
+    a 2x2 "tiles" layout on presets.tile_blocks(2, 2, size) (rooms in
+    device-major order; [2112, 2304] windows, 256 agents each)."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.parallel.mesh import RankLayout
+    from swarm_tpu_torch.parallel.sharded import _tile_halo
+
+    worlds = {"deployable": presets.deployable(N_AGENTS, device=dev)}
+    size = worlds["deployable"][0].grid.size
+    worlds["tile_blocks"] = presets.tile_blocks(2, 2, size, device=dev)
+
+    def halo(world, r, c):
+        return _tile_halo(worlds[world][0], RankLayout(
+            world=r * c, rank=0, rows=r, cols=c, device=dev))
+
+    _, _, h_r, h_c = halo("deployable", 1, 1)
+    every = slice(0, N_AGENTS)
+    n_loc = N_AGENTS // 4
+    rows = [("1 rank", (0, size), None, every, "deployable")] + [
+        (f"rank {r} of 4", (r * (size // 4), size // 4), None,
+         slice(r * n_loc, (r + 1) * n_loc), "deployable") for r in range(4)]
+    tiles = [("1 rank", (-h_r, size + 2 * h_r), (-h_c, size + 2 * h_c),
+              every, "deployable")]
+    wr, wc, h_r, h_c = halo("tile_blocks", 2, 2)
+    t_loc = worlds["tile_blocks"][0].n_agents // 4
+    tiles += [(f"rank {2 * tr + tc} of 2x2", (tr * wr - h_r, wr + 2 * h_r),
+               (tc * wc - h_c, wc + 2 * h_c),
+               slice((2 * tr + tc) * t_loc, (2 * tr + tc + 1) * t_loc),
+               "tile_blocks") for tr in range(2) for tc in range(2)]
+    return {"band": rows, "tile": tiles}, worlds
+
+
+def phase_band_kernels(card, dev):
+    """Each band and tile form (BAND_FORMS) of the window kernel against
+    its plain version at the sharded body's shapes (`_band_windows`): the
+    main path's one-rank windows (all 1024 agents on the band (0, 4096)
+    and on the [4160, 4352] tile window of a 1x1 rank grid), each rank's
+    window of a 4-rank "rows" and a 2x2 "tiles" layout (256 agents), noisy
+    181-beam sweeps or 4-way readings, plus an overlap case (64 agents
+    around one point of rank 1's window, pre-filled near +-clamp). Maps
+    BIT-EQUAL, counts equal. Timed at the main path's one-rank windows:
+    the launch on prepared operands, the wrapper, the plain version; the
+    bound from this run's inputs. Returns {form key: record}."""
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+    from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
+
+    windows, worlds = _band_windows(dev)
+    out = {}
+    for kind in ("band", "tile"):
+        for i, (form, (n_beams, n_groups, ring)) in enumerate(
+                BAND_FORMS.items()):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 40 + i)
+            four_way = n_beams == 4
+            spec = BeamSpec.four_way() if four_way else BeamSpec.scan()
+            inputs = {}
+            for wn in sorted({w[-1] for w in windows[kind]}):
+                cfg, _, params, rooms = worlds[wn]
+                xy, yaw, db, tb = _raster_inputs(cfg, params, rooms, gen,
+                                                 dev, four_way)
+                inputs[wn] = (cfg, xy, yaw, db, tb if ring else None)
+            tier = dict(pack8=False, n_groups=n_groups,
+                        tail_weight=worlds["deployable"][0]
+                        .engine.beam_tail_weight)
+
+            def call(fn, g, wn, j, band, band_cols, xy=None):
+                cfg, xy_w, yaw, db, tr = inputs[wn]
+                xy = xy_w if xy is None else xy
+                alive = torch.ones((yaw[j].shape[0],), dtype=torch.bool,
+                                   device=dev)
+                return fn(g, xy[j], yaw[j], db[j], alive,
+                          None if tr is None else tr[j], spec, cfg.grid,
+                          reach=reach_cells(cfg), band=band,
+                          band_cols=band_cols, **tier)
+
+            worst = 0.0
+            for r, (label, band, band_cols, j, wn) in enumerate(
+                    windows[kind]):
+                cfg, xy = inputs[wn][:2]
+                size = cfg.grid.size
+                shape = (band[1], band_cols[1] if band_cols else size)
+                cases = [(label, torch.zeros(shape, device=dev), j, None)]
+                if r == 2:
+                    # overlap: 64 of the rank's agents moved around the
+                    # window's centre, in a window pre-filled near +-clamp
+                    n_o = min(64, j.stop - j.start)
+                    k = j.start + torch.arange(n_o, device=dev)
+                    mid = [min(max(lo + n / 2.0, 0.0), size - 1.0)
+                           for lo, n in (band_cols or (0, size), band)]
+                    xy_o = xy.clone()
+                    xy_o[k] = torch.tensor(mid, device=dev) * \
+                        cfg.grid.resolution + 0.2 + (torch.rand(
+                            (n_o, 2), generator=gen, device=dev) - 0.5) * 0.4
+                    pre = _prefilled(max(shape), gen, dev)[:shape[0],
+                                                           :shape[1]]
+                    cases.append((f"{label}, overlap", pre.contiguous(), k,
+                                  xy_o))
+                for case, g0, jj, xs in cases:
+                    g_k, g_p = g0.clone(), g0.clone()
+                    _, c_k = call(bc.free_raster, g_k, wn, jj, band,
+                                  band_cols, xs)
+                    torch.cuda.synchronize()
+                    _, c_p = call(bc.free_raster_plain, g_p, wn, jj, band,
+                                  band_cols, xs)
+                    torch.cuda.synchronize()
+                    n_diff = int((g_k != g_p).sum())
+                    worst = max(worst, float((g_k - g_p).abs().max()))
+                    n_ag = c_k.numel()
+                    print(f"{form}-{kind} kernel vs plain [{case}, window "
+                          f"{band}, {band_cols}, {n_ag} agents]: "
+                          f"{n_diff} of {g0.numel()} cells differ, "
+                          f"{int((g_k != g0).sum())} cells changed, counts "
+                          f"sum {float(c_k.sum())} vs {float(c_p.sum())}")
+                    if n_diff or not torch.equal(c_k, c_p):
+                        raise AssertionError(f"{form}-{kind}: kernel and "
+                                             f"plain differ [{case}]")
+                    if float(c_k.sum()) <= 0:
+                        raise AssertionError(f"{form}-{kind}: nothing "
+                                             f"painted [{case}]")
+
+            # timed at the main path's window (one rank, every agent)
+            _, band, band_cols, j, wn = windows[kind][0]
+            cfg, xy, yaw, db, tr = inputs[wn]
+            shape = (band[1], band_cols[1] if band_cols else cfg.grid.size)
+            g_t = torch.zeros(shape, device=dev)
+            alive = torch.ones((j.stop - j.start,), dtype=torch.bool,
+                               device=dev)
+            reach = reach_cells(cfg)
+            w = bc._windows(g_t, xy[j], yaw[j], db[j], alive, spec,
+                            cfg.grid, None if tr is None else tr[j], reach,
+                            band=band, band_cols=band_cols, **tier)
+            ln = bc._prepare(g_t, w, spec)
+            dense = bc._dense_fan(spec, reach)
+            t_kernel, t_plain, runs = _ab_ms(
+                lambda: bc._launch(g_t, ln, spec, cfg.grid, dense),
+                lambda: call(bc.free_raster_plain, g_t, wn, j, band,
+                             band_cols),
+                20, 3)
+            t_wrapper = _median_ms(
+                lambda: call(bc.free_raster, g_t, wn, j, band, band_cols),
+                20)
+            cells = _covered_cells(w, shape[0], dev, shape[1])
+            n_bytes = 2 * 4 * cells + \
+                _nbytes(ln.origins, ln.meta, ln.table) + 4 * w.row0.numel()
+            evaluated = int(((w.t_ch - w.t_cl).clamp_min(0) * w.rows *
+                             128).sum())
+            bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
+            key = bc.form_name(spec, False, ring, grouped=w.kind ==
+                               "grouped", window=kind)
+            print(f"{key} raster at {w.row0.numel()} agents x "
+                  f"{spec.n_beams} beams ([{w.rows}, {w.cols}] windows on "
+                  f"a {list(shape)} {kind} window) [{card}]: kernel "
+                  f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
+                  f"wrapper with its preparation {t_wrapper:.4f} ms, plain "
+                  f"torch {t_plain:.4f} ms (runs {runs[1]:.4f}, "
+                  f"{runs[2]:.4f}); bound {bound:.4f} ms by {bound_by} "
+                  f"({n_bytes} bytes, {evaluated} cell evaluations)")
+            out[key] = dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+                            bound_ms=bound, bound_by=bound_by)
+    return out
+
+
+def _sharded_run(dev, grid_sharding: str, flags=None):
+    """(cfg, step, this rank's state) of the sharded engine on one rank at
+    N_AGENTS agents (presets.deployable's world with `flags`)."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import sim_init
+    from swarm_tpu_torch.parallel import mesh, sharded
+
+    cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev,
+                                                   **(flags or {}))
+    lay = mesh.make_layout((1, 1), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = sharded.make_sharded_sim_step(
+        cfg, walls, params, lay, gen, grid_sharding=grid_sharding,
+        walls_grouped=rooms[0], room_of_agent=rooms[1])
+    return cfg, step, sharded.shard_state(sim_init(cfg, params), lay,
+                                          grid_sharding), lay
+
+
+def _sharded_parts():
+    """The sharded step's parts for `_step_split`."""
+    from swarm_tpu_torch.coord import zones
+    from swarm_tpu_torch.engine import sim
+    from swarm_tpu_torch.parallel import sharded
+
+    return {"sensing": ((sharded, "_sense"),),
+            "raster": ((sharded, "_raster"),),
+            "merge": ((sim, "_merge_event"),),
+            "zones": ((zones, "zones_for_agents"),),
+            "collectives": tuple((sharded, nm) for nm in (
+                "_all_reduce_sum", "_gather_rows", "_halo_exchange",
+                "_gather_grid"))}
+
+
+def _captured_step(step, state):
+    """One more sharded step with the window wrapper's calls recorded:
+    (state, [(args, kwargs)]), each input cloned as it was passed."""
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+
+    calls, real = [], bc.free_raster
+
+    def record(*a, **kw):
+        calls.append(([x.clone() if isinstance(x, torch.Tensor) else x
+                       for x in a], dict(kw)))
+        # the wrapper counts on its module's own name: put it back while
+        # it runs
+        bc.free_raster = real
+        try:
+            return real(*a, **kw)
+        finally:
+            bc.free_raster = record
+
+    bc.free_raster = record
+    try:
+        state, _ = step(state)
+    finally:
+        bc.free_raster = real
+    torch.cuda.synchronize()
+    return state, calls
+
+
+def _window_witness(name, calls, size):
+    """The fans of one captured sharded step (`_captured_step`) raster
+    again, in their band or tile window and on the whole [size, size] grid
+    from the same inputs, by the kernel and by its plain version: the
+    kernel BIT-EQUAL to the plain version in both, counts equal. Returns
+    the cells in which the window's core and the whole grid differ (the
+    same in the kernel and the plain version, or it raises): the float
+    shift of ROADMAP C22 where the window's offsets are not 0."""
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+
+    band, band_cols = calls[0][1]["band"], calls[0][1]["band_cols"]
+    r0, c0 = -band[0], -(band_cols or (0, size))[0]
+    res = {}
+    for side, fn in (("kernel", bc.free_raster),
+                     ("plain", bc.free_raster_plain)):
+        win = torch.zeros_like(calls[0][0][0])
+        whole = torch.zeros((size, size), device=win.device)
+        c_win, c_whole = [], []
+        for a, kw in calls:
+            win, c = fn(win, *a[1:], **kw)
+            c_win.append(c)
+            whole, c = fn(whole, *a[1:], **dict(kw, band=None,
+                                                band_cols=None))
+            c_whole.append(c)
+        torch.cuda.synchronize()
+        res[side] = (win, whole, torch.stack(c_win), torch.stack(c_whole))
+    (wk, ak, cwk, cak), (wp, ap, cwp, cap) = res["kernel"], res["plain"]
+    n_win, n_whole = int((wk != wp).sum()), int((ak != ap).sum())
+    core_k = wk[r0:r0 + size, c0:c0 + size]
+    core_p = wp[r0:r0 + size, c0:c0 + size]
+    shift_k, shift_p = core_k != ak, core_p != ap
+    n_shift = int(shift_k.sum())
+    print(f"{name}: one captured step's {len(calls)} fan(s) in the window "
+          f"{band}, {band_cols}: kernel vs plain {n_win} of {wk.numel()} "
+          f"cells differ (whole grid: {n_whole} of {ak.numel()}), counts "
+          f"equal {torch.equal(cwk, cwp) and torch.equal(cak, cap)}; "
+          f"window core vs whole grid: {n_shift} cells differ in the "
+          f"kernel, {int(shift_p.sum())} in the plain version (same cells "
+          f"{torch.equal(shift_k, shift_p)}), painted counts "
+          f"{float(cwk.sum())} vs {float(cak.sum())}")
+    if n_win or n_whole or not torch.equal(cwk, cwp) or \
+            not torch.equal(cak, cap) or not torch.equal(shift_k, shift_p):
+        raise AssertionError(f"{name}: the kernel and its plain version "
+                             "differ at the sharded step's window")
+    return n_shift
+
+
+def phase_sharded_path(card, dev, grid_sharding: str):
+    """The sharded engine at world size 1 on NCCL, at N_AGENTS agents on
+    presets.deployable's world and config (f32 grid, ring on, merge every
+    16; the body rasters pack16): the counters set to 0, one warm-up step
+    and SHARDED_STEPS timed steps, the counters read: exactly one launch
+    per step of the decomposition's form (`pack16-ring`, `-band` on "rows",
+    `-tile` on "tiles") and no other, every step writes, merges > 0, all
+    agents online, no band escape, poses finite; steps/s, peak memory.
+    Then SPLIT_STEPS more steps split on the device timeline into
+    sensing, raster, merge, zones, collectives and the rest, and on "rows"
+    and "tiles" one more step whose raster inputs `_window_witness` runs
+    again at the path's own window (kernel BIT-EQUAL to plain; the band
+    (0, size) equal to the whole grid). Returns (launches, the global
+    state after the timed steps, summary)."""
+    from swarm_tpu_torch.engine.sim import total_writes_value
+    from swarm_tpu_torch.parallel import sharded
+
+    cfg, step, state, lay = _sharded_run(dev, grid_sharding)
+    every = cfg.engine.merge_every
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                          # the path starts here
+    state, m0 = step(state)
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SHARDED_STEPS + 1)]
+    ms = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for k in range(SHARDED_STEPS):
+        state, m = step(state)
+        events[k + 1].record()
+        ms.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_free, by_form, n_room = _read_counts()
+    steps_run = SHARDED_STEPS + 1
+    want = "pack16-ring" + {"replicated": "", "rows": "-band",
+                            "tiles": "-tile"}[grid_sharding]
+    name = f"sharded {grid_sharding}"
+    writes = torch.stack([m0.writes] + [m.writes for m in ms]).cpu()
+    online = torch.stack([m.online for m in ms]).cpu()
+    merges = torch.stack([m0.merges] + [m.merges for m in ms]).cpu()
+    escapes = torch.stack([m0.band_escapes] +
+                          [m.band_escapes for m in ms]).cpu()
+    if by_form != {want: steps_run} or n_free != steps_run or n_room:
+        raise AssertionError(f"{name}: launches {by_form}, room {n_room} "
+                             f"in {steps_run} steps")
+    if not bool((writes > 0).all()):
+        raise AssertionError(f"{name}: a step wrote no cells")
+    if int(merges.sum()) <= 0 or not bool((online == N_AGENTS).all()):
+        raise AssertionError(f"{name}: merges {merges.tolist()}, online "
+                             f"{online.tolist()[:8]}")
+    if int(escapes.sum()) or not bool(torch.isfinite(state.pose_true).all()):
+        raise AssertionError(f"{name}: band escapes {escapes.tolist()} or "
+                             f"non-finite poses")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(events[k].elapsed_time(events[k + 1])
+                     for k in range(SHARDED_STEPS))
+    merge_steps = [k for k in range(steps_run) if k % every == every - 1]
+    applied = int(writes.to(torch.int64).sum())
+    print(f"{name} at {N_AGENTS} agents on one rank (NCCL) [{card}]: "
+          f"{steps_run} steps, launches {by_form}, online {N_AGENTS} on "
+          f"every timed step, min writes {int(writes.min())}, merges "
+          f"{[int(merges[k]) for k in merge_steps]} at steps {merge_steps},"
+          f" band escapes 0, poses finite; {SHARDED_STEPS / wall:.2f} "
+          f"steps/s, {applied} applied cells, device step median "
+          f"{step_ms[len(step_ms) // 2]:.4f} ms, peak memory {peak} bytes")
+    full = sharded.gather_state(state, lay, grid_sharding)
+    full = full._replace(srv=full.srv._replace(
+        logodds=full.srv.logodds.clone()))
+    state, split = _step_split(step, state, SPLIT_STEPS, _sharded_parts())
+    print(f"{name} step split [{card}], device-timeline medians over "
+          f"{SPLIT_STEPS} more steps (ms): " + ", ".join(
+              f"{p} {t:.4f} (n={k})" for p, (t, k, _) in split.items()))
+    summary = dict(steps_s=SHARDED_STEPS / wall, peak=peak,
+                   writes=total_writes_value(full.srv.total_writes))
+    if grid_sharding != "replicated":
+        # the kernel at this path's own window, on one step's inputs
+        state, calls = _captured_step(step, state)
+        summary["shift_cells"] = _window_witness(name, calls,
+                                                 cfg.grid.size)
+        if grid_sharding == "rows" and summary["shift_cells"]:
+            raise AssertionError("the band (0, size) differs from the "
+                                 "whole grid")
+        del calls
+    return steps_run, full, summary
+
+
+def phase_sharded(card, dev):
+    """The sharded engine on one card: a one-rank NCCL group, the three
+    decompositions (`phase_sharded_path`), "rows" held BIT-EQUAL to
+    "replicated" (maps, writes, poses) and "tiles" compared with it
+    (bit-equal, or the differing cells counted: poses equal, tri-state
+    decisions differing in at most 1e-4 of the explored cells, applied
+    cells within 1e-5; the float shift of ROADMAP C22); then every
+    other band and tile form through the sharded body's flag rows
+    (BAND_ROWS), SHARDED_FLAG_STEPS steps each, exactly its form launched
+    once per step. Returns {form key: launches}."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from swarm_tpu_torch.config import GridConfig
+    from swarm_tpu_torch.ops.raster import tri_state_view
+    from swarm_tpu_torch.parallel import mesh
+
+    port = mesh.free_port()
+    mesh.init(f"tcp://127.0.0.1:{port}", 1, 0,
+              timedelta(seconds=SHARDED_TIMEOUT_S), device=dev)
+    print(f"process group: {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}")
+    if dist.get_backend() != "nccl":
+        raise AssertionError("the card's process group is not NCCL")
+    try:
+        launches, full, summary = {}, {}, {}
+        for gs in ("replicated", "rows", "tiles"):
+            n, full[gs], summary[gs] = phase_sharded_path(card, dev, gs)
+            if gs != "replicated":
+                launches[f"pack16-ring-{'band' if gs == 'rows' else 'tile'}"
+                         ] = n
+            torch.cuda.empty_cache()
+        ref = full["replicated"]
+        for gs in ("rows", "tiles"):
+            got = full[gs]
+            n_diff = int((got.srv.logodds != ref.srv.logodds).sum())
+            same_poses = torch.equal(got.pose_true, ref.pose_true)
+            same_writes = torch.equal(got.srv.total_writes,
+                                      ref.srv.total_writes)
+            print(f"sharded {gs} vs replicated after "
+                  f"{SHARDED_STEPS + 1} steps: {n_diff} of "
+                  f"{ref.srv.logodds.numel()} cells differ, writes equal "
+                  f"{same_writes}, poses equal {same_poses}")
+            if gs == "rows" and (n_diff or not same_poses or
+                                 not same_writes):
+                raise AssertionError("sharded rows is not bit-equal to "
+                                     "replicated")
+            if gs == "tiles" and n_diff:
+                # the float shift (ROADMAP C22), which the captured step
+                # shows in the plain version as in the kernel: a few cells
+                # on carve and ring edges, far below these bars
+                cfg_g = GridConfig(size=ref.srv.logodds.shape[0])
+                t_g = tri_state_view(got.srv.logodds, cfg_g)
+                t_r = tri_state_view(ref.srv.logodds, cfg_g)
+                explored = (t_g != cfg_g.unknown) | (t_r != cfg_g.unknown)
+                n_dec = int((t_g != t_r).sum())
+                n_exp = max(int(explored.sum()), 1)
+                w_g, w_r = summary["tiles"]["writes"], \
+                    summary["replicated"]["writes"]
+                print(f"sharded tiles vs replicated: {n_dec} tri-state "
+                      f"decisions differ of {n_exp} explored cells "
+                      f"({n_dec / n_exp:.3e}), applied cells {w_g} vs "
+                      f"{w_r} ({abs(w_g - w_r) / w_r:.3e}); the captured "
+                      f"step's shift: {summary['tiles']['shift_cells']} "
+                      f"cells")
+                if n_dec > 1e-4 * n_exp or abs(w_g - w_r) > 1e-5 * w_r or \
+                        not same_poses:
+                    raise AssertionError("sharded tiles diverges from "
+                                         "replicated")
+        del full, ref
+        for form, flags in BAND_ROWS.items():
+            for gs, kind in (("rows", "band"), ("tiles", "tile")):
+                key = f"{form}-{kind}"
+                if key in launches:
+                    continue
+                launches[key] = _sharded_flag_row(card, dev, gs, key, flags)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _sharded_flag_row(card, dev, grid_sharding, key, flags):
+    """SHARDED_FLAG_STEPS sharded steps on one rank with bench.py flags
+    `flags`: exactly the form `key` launched once per step, every step
+    writes, no band escape, poses finite. Returns its launches."""
+    _, step, state, _ = _sharded_run(dev, grid_sharding, flags)
+    torch.cuda.synchronize()
+    _reset_counts()                          # this path starts here
+    ms = []
+    for _ in range(SHARDED_FLAG_STEPS):
+        state, m = step(state)
+        ms.append(m)
+    torch.cuda.synchronize()
+    n_free, by_form, n_room = _read_counts()
+    writes = torch.stack([m.writes for m in ms]).cpu()
+    esc = int(torch.stack([m.band_escapes for m in ms]).sum())
+    print(f"sharded {grid_sharding} flags [{_flags(flags)}] at {N_AGENTS} "
+          f"agents [{card}]: launches {by_form}, room {n_room}, min writes "
+          f"{int(writes.min())}, band escapes {esc}")
+    if by_form != {key: SHARDED_FLAG_STEPS} or n_room or esc or \
+            not bool((writes > 0).all()) or \
+            not bool(torch.isfinite(state.pose_true).all()):
+        raise AssertionError(f"sharded {grid_sharding} [{_flags(flags)}]: "
+                             f"launches {by_form}")
+    return by_form[key]
+
+
+def phase_dryrun(card):
+    """parallel/dryrun.py at world size 1 on the card, as its own process
+    (`python -m swarm_tpu_torch.parallel.dryrun`): two steps in each
+    decomposition, rows bit-equal to replicated."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "swarm_tpu_torch.parallel.dryrun",
+         "--timeout", "300"], cwd=here, capture_output=True, text=True,
+        timeout=600)
+    print(out.stdout.strip())
+    if out.returncode != 0 or "dryrun ok (1 ranks)" not in out.stdout:
+        raise AssertionError(f"parallel/dryrun.py failed:\n"
+                             f"{out.stderr[-3000:]}")
+    print(f"parallel/dryrun.py on the card [{card}]: "
+          f"{time.perf_counter() - t0:.2f} s")
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -1683,6 +2238,7 @@ def run(card, dev) -> list:
                                                      room_kernel=False)
     paths[("window", "per-beam")] = phase_path_split(card, "window", state,
                                                      summary)
+    del state, summary           # the room path's peak is its own (C19)
     n_room, (cfg, rooms, state, m), summary = phase_path(card, dev,
                                                          room_kernel=True)
     phase_merge(card, dev, cfg, rooms, state, m)
@@ -1717,6 +2273,12 @@ def run(card, dev) -> list:
     phase_reference(dev, "window --beam-groups 8", beam_groups=8)
     phase_reference(dev, "room --beam-groups 8", room_kernel=True,
                     beam_groups=8)
+
+    # the sharded engine: the band and tile forms, the three
+    # decompositions on a one-rank NCCL group, the dry run
+    k_band = phase_band_kernels(card, dev)
+    n_band = phase_sharded(card, dev)
+    phase_dryrun(card)
 
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),
@@ -1757,8 +2319,11 @@ def run(card, dev) -> list:
                 for (which, key), n in n_gflags.items() if which == "room"]
     kernels += [kernel("exact_raster", fan, n_exact[fan], k_exact[fan])
                 for fan in ("scan", "wrapped")]
+    kernels += [kernel("free_raster", key, n_band[key], k_band[key])
+                for key in k_band]
     names = {k["name"] for k in kernels}
-    if len(names) != len(kernels) or len(kernels) != 16 + 4 + 8 + 4 + 2:
+    if len(names) != len(kernels) or \
+            len(kernels) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS):
         raise AssertionError(f"kernel records: {sorted(names)}")
     return kernels
 

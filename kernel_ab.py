@@ -1,0 +1,138 @@
+"""Back-to-back timing of the window kernel (csrc/free_raster.cu) of two or
+more checkouts on one CUDA card.
+
+    python3 kernel_ab.py OTHER [OTHER ...] [--rounds 1]
+
+The checkouts (this one, then each OTHER: a directory holding a
+`swarm_tpu_torch/` and a `chip_smoke.py`) run in turn, each in a process of
+its own, in the order OTHER..., this, this, ...OTHER (reversed in every
+second half, `--rounds` times), so that a drift of the card's clock over
+the run falls on both sides alike. Each process builds its checkout's
+window kernel into that checkout's build directory (once: later processes
+of the same checkout find it built) and times the kernel launch alone on
+prepared operands, with CUDA events, median of REPS launches, for
+
+  * pack8-ring at 1024 agents on the 4096^2 float32 grid (bench.py's
+    deployable path, `presets.deployable(1024)`), and
+  * pack8-ring-bf16 at 32,768 agents on the 23,296^2 bfloat16 grid (the
+    slice, `presets.deployable(32768, grid_dtype="bfloat16")`),
+
+from the same seed in every checkout (`chip_smoke._raster_inputs`: preset
+start poses, random headings, noisy 181-beam readings; a checksum of the
+inputs is printed so that equal inputs can be seen). Prints one line per
+process, then the card's name and power limit, then one JSON object
+{checkout: {form: [ms per process]}}. Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# (form name, presets.deployable arguments)
+FORMS = (("pack8-ring", dict(n=1024)),
+         ("pack8-ring-bf16", dict(n=32768, grid_dtype="bfloat16")))
+SEED = 0
+REPS = 50
+
+
+def child(root: str) -> dict:
+    """In this process: build `root`'s window kernel and time its forms.
+    Returns {form: ms}."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+    from swarm_tpu_torch.ops import cuda_build
+    from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cuda_build.build_all(["free_raster"])
+    print(f"  ptxas: {getattr(cuda_build, 'ptxas', {}).get('free_raster')}",
+          flush=True)
+    out = {}
+    for form, kw in FORMS:
+        kw = dict(kw)
+        cfg, _, params, rooms = presets.deployable(kw.pop("n"), device=dev,
+                                                   **kw)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        xy, yaw, db, tb = cs._raster_inputs(cfg, params, rooms, gen, dev)
+        spec = BeamSpec.scan(cfg.engine.scan_rays)
+        reach = reach_cells(cfg)
+        n = cfg.n_agents
+        alive = torch.ones((n,), dtype=torch.bool, device=dev)
+        g = torch.zeros((cfg.grid.size,) * 2, device=dev,
+                        dtype=cfg.grid.lo_dtype)
+        w = bc._windows(g, xy, yaw, db, alive, spec, cfg.grid, tb, reach,
+                        True)
+        ln = bc._prepare(g, w, spec)
+        dense = bc._dense_fan(spec, reach)
+        check = float(xy.double().sum() + db.double().sum())
+        bc._launch(g, ln, spec, cfg.grid, dense)
+        out[form] = cs._median_ms(
+            lambda: bc._launch(g, ln, spec, cfg.grid, dense), REPS)
+        print(f"  {form}: {n} agents, inputs checksum {check!r}, kernel "
+              f"{out[form]:.4f} ms", flush=True)
+        del g, w, ln
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("others", nargs="*")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child is not None:
+        print("RESULT " + json.dumps(child(args.child)), flush=True)
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab.py: no CUDA card")
+    if not args.others:
+        raise SystemExit("kernel_ab.py: name at least one other checkout")
+    roots = [os.path.abspath(r) for r in args.others]
+    half = roots + [HERE]
+    order = []
+    for _ in range(args.rounds):
+        order += half + half[::-1]
+    times = {r: {f: [] for f, _ in FORMS} for r in [HERE] + roots}
+    failed = []
+    for root in order:
+        name = os.path.relpath(root, HERE)
+        print(f"{name}:", flush=True)
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", root],
+            cwd=root, capture_output=True, text=True, timeout=900)
+        lines = run.stdout.splitlines()
+        print("\n".join(x for x in lines if not x.startswith("RESULT ")),
+              flush=True)
+        res = [x for x in lines if x.startswith("RESULT ")]
+        if run.returncode != 0 or not res:
+            print(run.stderr[-3000:], flush=True)
+            failed.append(name)
+            continue
+        for f, ms in json.loads(res[0][len("RESULT "):]).items():
+            times[root][f].append(ms)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card)
+    print(json.dumps({os.path.relpath(r, HERE): t for r, t in
+                      times.items()}))
+    if failed:
+        raise SystemExit(f"kernel_ab.py: failed in {sorted(set(failed))}")
+
+
+if __name__ == "__main__":
+    main()

@@ -16,8 +16,10 @@ pack16, `csrc/room_raster.cu`), each a hand-written CUDA kernel wrapped in
 `ops/`; and the exploration path (`presets.coverage`, `enable_targets`):
 the window kernel's pack16 form without the ring on the wrapped 4-way fan
 and the sweep, the exact endpoint scatter, frontiers (`ops/frontier.py`)
-and target assignment (`coord/assign.py`). What is not ported yet is
-listed in ROADMAP.md.
+and target assignment (`coord/assign.py`); and the sharded engine on
+`torch.distributed`, one process per device (`parallel/`: the
+"replicated", "rows" and "tiles" decompositions, the window kernel's band
+and tile forms). What is not ported yet is listed in ROADMAP.md.
 """
 
 from swarm_tpu_torch import _device  # noqa: F401  (sets the TF32 policy)

@@ -1,9 +1,9 @@
 // Beam-model free-space raster over per-agent windows, for Hopper.
 //
-// Replaces swarm_tpu/ops/beam_raster_pallas.py::_free_kernel in every form
-// without a band: per-beam (n_groups == n_beams) and grouped (n_groups <
-// n_beams, bench.py --beam-groups). Three template parameters give its
-// twelve instances:
+// Replaces swarm_tpu/ops/beam_raster_pallas.py::_free_kernel in every form:
+// per-beam (n_groups == n_beams) and grouped (n_groups < n_beams, bench.py
+// --beam-groups), on the whole grid or on a band or tile window of it. Three
+// template parameters give its twelve instances:
 //   TABLE  the range table: pack8 (7-bit 1/4-cell ranges + trusted bit 7,
 //          four beams per int32 word; `pack8=True`), pack16 (15-bit
 //          1/256-cell ranges + trusted bit 15, two beams per word), or
@@ -21,8 +21,19 @@
 // wrap is a runtime field of raster_common.cuh `Fan`), and the grouped
 // instances the weak tail (free evidence at tail_w between the carve and
 // the tail range; a runtime weight, 0 turns it off; the per-beam forms
-// keep it off, as the reference does). The math is the reference kernel's,
-// operation for operation (see the numbered steps below);
+// keep it off, as the reference does). The sharded engine's grid windows are
+// runtime fields too (free_raster_pallas `band` / `band_cols`): the grid is
+// [n_rows, n_cols] (a row band, or a tile plus its halo ring, whose last
+// tile row may be ragged: its rows past n_rows are neither read nor
+// written), the agents' cells arrive window-local, meta slots 4-5 carry the
+// window's global offset, and a nonzero `guard` (the global grid's size)
+// drops the evidence of every cell whose global coordinates, rebuilt in
+// float32 as the reference rebuilds them, fall outside the global grid
+// (:440-447). The guard is a template flag of the kernel's body, picked
+// once per launch, so that the whole grid and the row bands (guard 0) run
+// without its per-cell test; it adds no instance to the launch table. The
+// math is the reference kernel's, operation for operation (see the numbered
+// steps below);
 // ops/beam_raster_cuda.py holds the same function in plain torch
 // (free_raster_plain) and the wrapper that prepares this launch.
 //
@@ -90,8 +101,10 @@ enum Form {
 enum Storage { F32 = 0, BF16 = 1 };
 
 struct Params {
-  int size;          // grid is [size, size], size % 128 == 0
-  int n_tile_cols;   // size / TILE_C
+  int n_rows;        // grid is [n_rows, n_cols], n_cols % 128 == 0
+  int n_cols;
+  int n_tile_cols;   // n_cols / TILE_C
+  float guard;       // global grid size of the tile windows' guard; 0: off
   int rows, cols;    // agent window
   int n_words;       // table words per agent (grouped: 3 per group)
   float tail_w;      // grouped: the tail's weight (0: no tail)
@@ -117,35 +130,46 @@ __device__ __forceinline__ float stored(float v) {
   }
 }
 
-template <int TABLE, bool RING, typename T>
-__global__ void __launch_bounds__(THREADS)
-free_raster_kernel(T* __restrict__ grid,
-                   const int* __restrict__ origins,   // [N, 4]
-                   const float* __restrict__ meta,    // [N, 4]
-                   const int* __restrict__ table,     // [N, n_words]
-                   const int* __restrict__ tile_start,
-                   const int* __restrict__ pair_agent,
-                   const int* __restrict__ pair_slot,
-                   double* __restrict__ partial,
-                   const Params p) {
+// One block's tile. GUARD: the tile windows' grid-edge guard, a template
+// flag of this body that the kernel picks once per launch (p.guard > 0), so
+// that the whole grid and the row bands carry no per-cell guard test.
+template <int TABLE, bool RING, bool GUARD, typename T>
+__device__ __forceinline__ void raster_tile(
+    T* __restrict__ grid, const int* __restrict__ origins,
+    const float* __restrict__ meta, const int* __restrict__ table,
+    const int* __restrict__ tile_start, const int* __restrict__ pair_agent,
+    const int* __restrict__ pair_slot, double* __restrict__ partial,
+    const Params& p, uint32_t* s_table, double* s_red) {
   const int tile = blockIdx.x;
   const int p0 = tile_start[tile];
   const int p1 = tile_start[tile + 1];
   if (p0 == p1) return;
-
-  __shared__ uint32_t s_table[TABLE_WORDS];
-  __shared__ double s_red[THREADS / 32];
 
   const int gr0 = (tile / p.n_tile_cols) * TILE_R;
   const int gc = (tile % p.n_tile_cols) * TILE_C + (threadIdx.x % TILE_C);
   const int r_first = threadIdx.x / TILE_C;
   const float cx = (float)gc + 0.5f;
 
+  // a ragged last tile row (a band or tile window whose height is not a
+  // multiple of TILE_R): its rows past the grid are in no window and are
+  // neither read nor written. The test is one branch for the whole block:
+  // a test per row made ptxas keep the 32 rows' predicates live through
+  // the agent loop, at twice the registers (one block per SM, not two).
+  const bool full = gr0 + TILE_R <= p.n_rows;
   float v[CELLS];
+  if (full) {
 #pragma unroll
-  for (int k = 0; k < CELLS; ++k) {
-    const int gr = gr0 + r_first + ROWS_PER_PASS * k;
-    v[k] = load_cell(grid + (size_t)gr * p.size + gc);
+    for (int k = 0; k < CELLS; ++k) {
+      const int gr = gr0 + r_first + ROWS_PER_PASS * k;
+      v[k] = load_cell(grid + (size_t)gr * p.n_cols + gc);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CELLS; ++k) {
+      const int gr = gr0 + r_first + ROWS_PER_PASS * k;
+      v[k] = gr < p.n_rows ? load_cell(grid + (size_t)gr * p.n_cols + gc)
+                           : 0.f;
+    }
   }
 
   for (int q = p0; q < p1; ++q) {
@@ -159,10 +183,10 @@ free_raster_kernel(T* __restrict__ grid,
     const int col0 = origins[4 * a + 1];
     const int t_cl = origins[4 * a + 2];
     const int t_ch = origins[4 * a + 3];
-    const float ax = meta[4 * a + 0];
-    const float ay = meta[4 * a + 1];
-    const float yaw = meta[4 * a + 2];
-    const float act = meta[4 * a + 3];
+    const float ax = meta[6 * a + 0];
+    const float ay = meta[6 * a + 1];
+    const float yaw = meta[6 * a + 2];
+    const float act = meta[6 * a + 3];
 
     const int wc = gc - col0;
     const bool col_in = (wc >= 0) && (wc < p.cols);
@@ -179,8 +203,18 @@ free_raster_kernel(T* __restrict__ grid,
       if (!col_in || wr < 0 || wr >= p.rows) continue;
       float delta = 0.f;
       if (strip_on) {
-        const float dy = ((float)gr + 0.5f) - ay;
-        const Polar c = raster::polar(dx, dy, yaw, p.f);
+        const float cy = (float)gr + 0.5f;
+        const float dy = cy - ay;
+        Polar c = raster::polar(dx, dy, yaw, p.f);
+        if (GUARD) {
+          // tile windows reach past the global grid at its edges: the
+          // cell's global coordinates in float32, as the reference
+          // rebuilds them
+          const float gy = cy + meta[6 * a + 4];
+          const float gx = cx + meta[6 * a + 5];
+          c.base_ok = c.base_ok && gy >= 0.f && gy < p.guard && gx >= 0.f &&
+                      gx < p.guard;
+        }
         // 5. table lookup: the beam's range and, with the ring, its
         // trusted bit; or the group's carve, trusted fraction and tail
         float rb, tf = 0.f, rt = 0.f;
@@ -238,11 +272,42 @@ free_raster_kernel(T* __restrict__ grid,
     }
   }
 
+  if (full) {
 #pragma unroll
-  for (int k = 0; k < CELLS; ++k) {
-    const int gr = gr0 + r_first + ROWS_PER_PASS * k;
-    store_cell(grid + (size_t)gr * p.size + gc, v[k]);
+    for (int k = 0; k < CELLS; ++k) {
+      const int gr = gr0 + r_first + ROWS_PER_PASS * k;
+      store_cell(grid + (size_t)gr * p.n_cols + gc, v[k]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CELLS; ++k) {
+      const int gr = gr0 + r_first + ROWS_PER_PASS * k;
+      if (gr < p.n_rows) store_cell(grid + (size_t)gr * p.n_cols + gc, v[k]);
+    }
   }
+}
+
+template <int TABLE, bool RING, typename T>
+__global__ void __launch_bounds__(THREADS)
+free_raster_kernel(T* __restrict__ grid,
+                   const int* __restrict__ origins,   // [N, 4]
+                   const float* __restrict__ meta,    // [N, 6]
+                   const int* __restrict__ table,     // [N, n_words]
+                   const int* __restrict__ tile_start,
+                   const int* __restrict__ pair_agent,
+                   const int* __restrict__ pair_slot,
+                   double* __restrict__ partial,
+                   const Params p) {
+  __shared__ uint32_t s_table[TABLE_WORDS];
+  __shared__ double s_red[THREADS / 32];
+  if (p.guard > 0.f)
+    raster_tile<TABLE, RING, true>(grid, origins, meta, table, tile_start,
+                                   pair_agent, pair_slot, partial, p,
+                                   s_table, s_red);
+  else
+    raster_tile<TABLE, RING, false>(grid, origins, meta, table, tile_start,
+                                    pair_agent, pair_slot, partial, p,
+                                    s_table, s_red);
 }
 
 template <int TABLE, bool RING, typename T>
@@ -278,24 +343,30 @@ void launch_form(int form, void* grid, const int* origins, const float* meta,
 
 // form: a Form code; storage: F32 or BF16. Any other code, or a table or
 // grid the kernel does not take, returns cudaErrorInvalidValue without a
-// launch. n_bins: beams, or groups in the grouped forms.
+// launch. n_bins: beams, or groups in the grouped forms. The grid is
+// [n_rows, n_cols]; guard: the global grid's size for a tile window's
+// grid-edge guard, 0 for none.
 extern "C" int free_raster_launch(
     void* grid, const int* origins, const float* meta, const int* table,
     const int* tile_start, const int* pair_agent, const int* pair_slot,
-    double* partial, int n_tiles, int size, int rows, int cols, int n_words,
+    double* partial, int n_tiles, int n_rows, int n_cols, int guard,
+    int rows, int cols, int n_words,
     int form, int storage, int n_bins, int dense, int wrap, float theta0,
     float half_gdt, float half_dt, float gdt, float dt, float fan_lo,
     float fan_hi, float cover, float miss, float hit, float clampv,
     float tail_w, float miss_tail, void* stream) {
   const bool grouped = form == GroupedRing || form == Grouped;
-  if (size % TILE_C != 0 || n_words < 1 || form < Pack8Ring ||
+  if (n_cols % TILE_C != 0 || n_rows < rows || n_cols < cols || guard < 0 ||
+      n_words < 1 || form < Pack8Ring ||
       form > Grouped || (storage != F32 && storage != BF16) || n_bins < 1 ||
       (grouped ? (n_bins > MAX_GROUPS || n_words != 3 * n_bins)
                : n_words > MAX_WORDS))
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.size = size;
-  p.n_tile_cols = size / TILE_C;
+  p.n_rows = n_rows;
+  p.n_cols = n_cols;
+  p.n_tile_cols = n_cols / TILE_C;
+  p.guard = (float)guard;
   p.rows = rows;
   p.cols = cols;
   p.n_words = n_words;

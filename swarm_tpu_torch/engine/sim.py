@@ -285,12 +285,23 @@ def draw_step_noise(generator: torch.Generator, n: int, n_rays: int,
         drift=draw_drift_noise(generator, n, device))
 
 
-def check_supported(cfg: SwarmConfig):
+def check_supported(cfg: SwarmConfig, sharded: bool = False):
     """Raise NotImplementedError for every config path the port does not run
     yet, naming its ROADMAP item — never a silently different path — and
-    ValueError for the combinations the reference itself refuses."""
+    ValueError for the combinations the reference itself refuses. With
+    `sharded` the rows are the sharded engine's
+    (parallel/sharded.make_sharded_sim_step)."""
     e, s = cfg.engine, cfg.slam
-    if cfg.grid.logodds_dtype != "float32" and (
+    if sharded:
+        # the reference's make_sharded_sim_step refuses these, in these
+        # words (swarm_tpu/parallel/sharded.py:841-846)
+        if cfg.grid.logodds_dtype != "float32":
+            raise ValueError("sharded decompositions keep a float32 grid; "
+                             "logodds_dtype=bfloat16 is a fused-engine knob")
+        if e.parity_mode:
+            raise ValueError("sharded step requires throughput mode "
+                             "(cfg.engine.parity_mode=False)")
+    elif cfg.grid.logodds_dtype != "float32" and (
             e.parity_mode or e.raster_mode != "beam"
             or e.room_tile_per_row > 0):
         # the reference's sim_init refuses these (swarm_tpu/engine/
@@ -300,14 +311,22 @@ def check_supported(cfg: SwarmConfig):
             "tiers (window kernel + XLA reference) only")
     todo = [
         (e.parity_mode, "parity_mode (tri-state line raster)",
-         "Queue A, reference-parity path"),
-        (e.raster_mode != "beam", f"raster_mode={e.raster_mode!r}",
-         "Queue A, reference-parity path"),
-        (not e.use_pallas, "use_pallas=False (the XLA beam tier)",
+         "Queue A3, the reference-parity path"),
+        (e.raster_mode == "off", 'raster_mode="off" (the profiling mode)',
+         "Queue A8, the profiling mode"),
+        (e.raster_mode not in ("beam", "off"),
+         f"raster_mode={e.raster_mode!r} (the line raster)",
+         "Queue A8, the line raster"),
+        (not e.use_pallas and sharded,
+         "use_pallas=False on the sharded path (the XLA fast tier "
+         "free_raster_reference)", "Queue A9, the sharded XLA fast tier"),
+        (not e.use_pallas and not sharded,
+         "use_pallas=False (the XLA beam tier)",
          "Queue A8, the XLA beam tier"),
         (s.merge_bias_alpha > 0.0, "merge_bias_alpha > 0",
-         "Queue A, anchored merge"),
-        (s.closure_scanmatch, "closure_scanmatch", "Queue A, offline SLAM"),
+         "Queue A1, anchored merge"),
+        (s.closure_scanmatch, "closure_scanmatch",
+         "Queue A5, offline SLAM"),
     ]
     for off_path, what, item in todo:
         if off_path:
@@ -362,27 +381,30 @@ def sim_init(cfg: SwarmConfig, params: AgentParams) -> SimState:
         total_dist=zf(n), v2v_total=zf(n, dtype=torch.int32), srv=srv)
 
 
-def _merge_event(srv: MapState, frame: FrameState, rx, ry, ryaw, gate_yaw,
-                 scan_dist, alive, step_no: int, cfg: SwarmConfig,
-                 merge_win_box):
+def _merge_event(logodds, anchor, merge_fail, frame: FrameState, rx, ry,
+                 ryaw, gate_yaw, scan_dist, alive, step_no: int,
+                 cfg: SwarmConfig, merge_win_box, id0=None, band_row0=None,
+                 band_col0=None):
     """The anchored scan merge of one merge step (the merge block of the
-    reference's _ingest_batched): match every attempted agent's scan
-    against the map as of the previous step (the frozen anchor where
-    anchored), apply the full correction to this step's raster pose and
-    the damped, clamped increments to the persistent state. Returns
-    (rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, frame,
+    reference's _ingest_batched, and of its sharded body): match every
+    attempted agent's scan against the map as of the previous step (the
+    frozen anchor where anchored), apply the full correction to this step's
+    raster pose and the damped, clamped increments to the persistent state.
+    The sharded engine passes its rank's rows (agents from global id `id0`)
+    and its band or tile of the map (`band_row0` / `band_col0`). Returns
+    (rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, the frame
+    tracker's innovation (a FrameState delta, None without the tracker),
     (n_merges, merge_fit, merge_ok [N], merge_fit [N]))."""
     slam = cfg.slam
-    n = cfg.n_agents
     if slam.merge_anchor:
-        match_map = torch.where(torch.abs(srv.anchor) >= 0.5, srv.anchor,
-                                srv.logodds)
+        match_map = torch.where(torch.abs(anchor) >= 0.5, anchor, logodds)
     else:
-        match_map = srv.logodds
+        match_map = logodds
     m, att, rec = scan_merge_recover(
         match_map, rx, ry, ryaw, scan_dist, alive, cfg,
-        event=step_no // cfg.engine.merge_every, n_global=n,
-        fail_count=srv.merge_fail, win_bounds=merge_win_box)
+        event=step_no // cfg.engine.merge_every, n_global=cfg.n_agents,
+        fail_count=merge_fail, id0=id0, band_row0=band_row0,
+        band_col0=band_col0, win_bounds=merge_win_box)
     upd = m.ok & alive
     # FULL correction to this step's raster pose; only the persistent
     # increment is damped and clamped (reference rationale,
@@ -400,10 +422,11 @@ def _merge_event(srv: MapState, frame: FrameState, rx, ry, ryaw, gate_yaw,
         inc_dx = inc_dx * sdamp
         inc_dy = inc_dy * sdamp
         inc_dth = inc_dth * sdamp
-    merge_fail = merge_fail_update(srv.merge_fail, m, att, rec, alive, cfg)
+    merge_fail = merge_fail_update(merge_fail, m, att, rec, alive, cfg)
+    innovation = None
     if slam.merge_frame_gain > 0.0:
-        frame = frame_add(frame, frame_innovate(
-            frame, gate_yaw, m, upd, inc_dx, inc_dy, cfg, recovered=rec))
+        innovation = frame_innovate(frame, gate_yaw, m, upd, inc_dx, inc_dy,
+                                    cfg, recovered=rec)
     n_merges = upd.sum().to(torch.int32)
     fit_agent = torch.where(upd, m.fitness, torch.zeros_like(m.fitness))
     merge_fit = fit_agent.sum() / torch.clamp_min(n_merges, 1).to(
@@ -411,13 +434,14 @@ def _merge_event(srv: MapState, frame: FrameState, rx, ry, ryaw, gate_yaw,
     # the LOGGED fix stream thresholds the raw peak gap with its own margin
     # (merge_distinct_log_margin; 0 logs every verified event) — the fused
     # engine's rule (swarm_tpu/engine/sim.py:508-512), which the port
-    # follows (ROADMAP C3)
+    # follows on both engines (ROADMAP C3)
     if slam.merge_distinct_log_margin > 0.0:
         ok_agent = upd & (m.distinct_gap >= slam.merge_distinct_log_margin)
     else:
         ok_agent = upd
     return (rx + fdx, ry + fdy, ryaw + fdth, (inc_dx, inc_dy, inc_dth),
-            merge_fail, frame, (n_merges, merge_fit, ok_agent, fit_agent))
+            merge_fail, innovation, (n_merges, merge_fit, ok_agent,
+                                     fit_agent))
 
 
 class TargetRooms(NamedTuple):
@@ -558,10 +582,12 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
                torch.zeros((n,), dtype=torch.bool, device=dev),
                torch.zeros((n,), dtype=f32, device=dev))
     if merge_step:
-        rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, frame, \
-            merge_m = _merge_event(srv, frame, rx, ry, ryaw, est_yaw,
-                                   scan_dist, alive, step_no, cfg,
-                                   merge_win_box)
+        rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, innovation, \
+            merge_m = _merge_event(srv.logodds, srv.anchor, srv.merge_fail,
+                                   frame, rx, ry, ryaw, est_yaw, scan_dist,
+                                   alive, step_no, cfg, merge_win_box)
+        if innovation is not None:
+            frame = frame_add(frame, innovation)
         merge_dx = merge_dx + inc_dx
         merge_dy = merge_dy + inc_dy
         merge_dyaw = merge_dyaw + inc_dth

@@ -55,6 +55,47 @@ def make_tiled_rooms(n_rooms: int, per_row: int, res: float = 0.05,
             np.asarray(origins, np.float32))
 
 
+def make_tiled_rooms_blocks(dev_rows: int, dev_cols: int, size: int,
+                            res: float = 0.05, room_w: float = 6.0,
+                            room_h: float = 4.0):
+    """Tiled rooms in DEVICE-MAJOR order for a (dev_rows x dev_cols) rank
+    grid over a [size, size] grid: rank (dr, dc) owns the contiguous block
+    of room tiles inside its grid tile, and rooms are listed rank by rank,
+    so the natural agent order (agents 2k, 2k+1 in room k) puts each
+    rank's agents inside its own tile, as the "tiles" decomposition's
+    static containment proof needs. Returns (walls [n_rooms*4, 4],
+    origins [n_rooms, 2]); n_rooms = (size/128) * (size/256)."""
+    tiles_r, tiles_c = size // TILE_ROWS, size // TILE_COLS
+    if tiles_r % dev_rows or tiles_c % dev_cols:
+        raise ValueError(f"{tiles_r}x{tiles_c} room tiles do not split "
+                         f"over a ({dev_rows}, {dev_cols}) device grid")
+    k_r, k_c = tiles_r // dev_rows, tiles_c // dev_cols
+    pitch_x, pitch_y = TILE_COLS * res, TILE_ROWS * res
+    mx, my = (pitch_x - room_w) / 2.0, (pitch_y - room_h) / 2.0
+    rooms, origins = [], []
+    for dr in range(dev_rows):
+        for dc in range(dev_cols):
+            for jr in range(k_r):
+                for jc in range(k_c):
+                    tr, tc = dr * k_r + jr, dc * k_c + jc
+                    ox, oy = tc * pitch_x, tr * pitch_y
+                    rooms.append(make_rect_room(ox + mx, oy + my,
+                                                ox + mx + room_w,
+                                                oy + my + room_h))
+                    origins.append((ox + mx, oy + my))
+    return np.concatenate(rooms, axis=0), np.asarray(origins, np.float32)
+
+
+def make_vertical_rooms(n_rooms: int):
+    """One tiled room per grid-tile ROW (per_row=1): room r occupies tile
+    row r, so n_rooms ranks can own one 128-row band each, the layout of
+    the "rows" decomposition. Returns (walls [n_rooms*4, 4], origins
+    [n_rooms, 2], grid_size)."""
+    walls, origins = make_tiled_rooms(n_rooms, per_row=1)
+    size = -(-max(256, n_rooms * TILE_ROWS) // 256) * 256
+    return walls, origins, size
+
+
 def walls_by_group(walls: np.ndarray, segs_per_group: int = 4) -> np.ndarray:
     """[S, 4] flat segments -> [G, segs_per_group, 4] grouped view."""
     s = walls.shape[0]

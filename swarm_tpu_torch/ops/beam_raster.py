@@ -1,5 +1,6 @@
 """Polar beam-model raster helpers (swarm_tpu/ops/beam_raster.py): the
-beam fan, the evidence reach, the per-agent window and its placement, the
+beam fan, the evidence reach, the per-agent window and its placement (on
+the whole grid, or on a band or tile window of the sharded engine), the
 fan's bounding box, the 8- and 16-bit range quantisations (the 16-bit pair
 packing of swarm_tpu/ops/beam_raster_pallas.py:186-209), the grouped
 tier's per-group range statistics and trusted fraction, the beam tables
@@ -142,19 +143,25 @@ def patch_dims(size: int, reach: int = REACH_CELLS,
 
 def patch_origin(ax_cell, ay_cell, size: int, rows: int = 64,
                  cols: int = 256, reach: int = REACH_CELLS,
+                 n_rows: int | None = None, n_cols: int | None = None,
                  row_align: int = 8):
     """Aligned window origin (row0, col0) [N] int32: align_down(agent -
-    reach), clamped to the grid. (The band / tile offsets of the reference
-    belong to the sharded engine, not ported yet.)"""
+    reach), clamped to the grid. On a row band or tile window of the
+    sharded engine (`n_rows` / `n_cols` its height / width) the agent
+    cells arrive window-local, shifted by the window's offsets as
+    free_raster_pallas shifts them, and the origin is clamped into
+    [0, n_rows - rows] x [0, n_cols - cols]."""
+    h = size if n_rows is None else n_rows
+    w = size if n_cols is None else n_cols
     row0 = torch.div(torch.floor(ay_cell).to(torch.int32) - reach,
                      row_align, rounding_mode="floor") * row_align
-    row0 = torch.clamp(row0, 0, size - rows)
-    if cols >= size:
+    row0 = torch.clamp(row0, 0, h - rows)
+    if cols >= w:
         col0 = torch.zeros_like(row0)
     else:
         col0 = torch.div(torch.floor(ax_cell).to(torch.int32) - reach,
                          128, rounding_mode="floor") * 128
-        col0 = torch.clamp(col0, 0, size - cols)
+        col0 = torch.clamp(col0, 0, w - cols)
     return row0.to(torch.int32), col0.to(torch.int32)
 
 

@@ -2,8 +2,8 @@
 for Hopper and its plain torch version.
 
 Replaces `swarm_tpu/ops/beam_raster_pallas.py::_free_kernel` (entry point
-`free_raster_pallas`) in every form without a band, per-beam
-(`n_groups == n_beams`) and grouped (`n_groups < n_beams`):
+`free_raster_pallas`) in every form, per-beam (`n_groups == n_beams`) and
+grouped (`n_groups < n_beams`):
 - the table: pack8 (per-beam, `pack8=True`: 7-bit 1/4-cell ranges, four
   beams per int32 word), pack16 (per-beam, `pack8=False`: 15-bit
   1/256-cell ranges, two beams per word) or grouped (`n_groups` groups of
@@ -23,7 +23,18 @@ Replaces `swarm_tpu/ops/beam_raster_pallas.py::_free_kernel` (entry point
   evidence adds in float32 and each agent's window is stored as bf16 before
   the next agent reads it, as the reference does;
 - the fan: the 181-beam scan, or the wrapped 4-way fan (`spec.wrap`: every
-  direction is in the fan, the beam or group bin is a floor-mod).
+  direction is in the fan, the beam or group bin is a floor-mod);
+- the grid window (the sharded engine's decompositions): the whole grid,
+  a row band (`band=(row_off, n_rows)`: the grid is rows [row_off,
+  row_off + n_rows) of the global grid) or a tile window (`band_cols=
+  (col_off, n_cols)` as well: a tile plus its halo ring, whose offsets are
+  negative at the global grid's low edges). The agents' cells are shifted
+  by the offsets in float32, as free_raster_pallas shifts them, the window
+  origins are clamped into the band, and with `band_cols` a guard drops the
+  evidence of every cell outside the global grid (the cell's global
+  coordinates rebuilt in float32 from the window-local centre and the
+  offsets, beam_raster_pallas.py:440-447). Float32 grids only, as the
+  sharded engine keeps them.
 `bench.py`'s defaults run pack8 + ring on the scan; `--no-pack8`,
 `--exact-endpoints`, `--grid-dtype bfloat16` and `--scan-rays 0` pick the
 other per-beam forms, `--beam-groups N` the grouped ones, and the coverage
@@ -54,8 +65,8 @@ else is pruned.
 `free_raster` dispatches on where the grid lies: a CPU tensor goes to
 `free_raster_plain`; a CUDA tensor launches the kernel or raises.
 `free_raster.launches` counts kernel launches and nothing else;
-`free_raster.launches_by_form` splits that count by table, ring, fan and
-storage (`form_name`).
+`free_raster.launches_by_form` splits that count by table, ring, fan,
+storage and grid window (`form_name`).
 """
 
 from __future__ import annotations
@@ -167,10 +178,12 @@ class _Windows(NamedTuple):
     col0: torch.Tensor
     t_cl: torch.Tensor    # [N] int32 fan-bbox strip bounds [t_cl, t_ch)
     t_ch: torch.Tensor
-    ax: torch.Tensor      # [N] f32 agent position in cells
+    ax: torch.Tensor      # [N] f32 agent position in window-local cells
     ay: torch.Tensor
     yaw: torch.Tensor
     act: torch.Tensor     # [N] f32 0/1
+    goff_r: torch.Tensor  # [N] f32 the grid window's global offset (0, 0
+    goff_c: torch.Tensor  #   on the whole grid): meta slots 4-5
     table: torch.Tensor   # [N, W] int32 pack8 or pack16 words, or [N, G, 3]
     #                       f32 grouped (carve, trusted fraction, tail)
     rows: int
@@ -179,6 +192,8 @@ class _Windows(NamedTuple):
     ring: bool            # the table carries the trust; the ring runs
     n_bins: int           # beams, or groups in the grouped tier
     tail_weight: float    # the grouped tier's weak tail; 0 per beam
+    guard: int            # global grid size of the tile windows' guard; 0
+    window: str           # "", "band" or "tile" (window_kind)
 
 
 def table_kind(spec: BeamSpec, pack8: bool, n_groups=None) -> str:
@@ -190,18 +205,28 @@ def table_kind(spec: BeamSpec, pack8: bool, n_groups=None) -> str:
 
 
 def form_name(spec: BeamSpec, pack8: bool, ring: bool,
-              dtype=torch.float32, grouped: bool = False) -> str:
+              dtype=torch.float32, grouped: bool = False,
+              window: str = "") -> str:
     """The launch-count key of a form: table (`pack8` / `pack16`, or
-    `grouped`), ring (`-ring`), fan (`-wrapped` for the 4-way fan) and
-    storage (`-bf16`), e.g. `pack8-ring`, `pack16-wrapped`,
-    `grouped-ring-wrapped-bf16`."""
+    `grouped`), ring (`-ring`), fan (`-wrapped` for the 4-way fan),
+    storage (`-bf16`) and grid window (`window`: "" for the whole grid,
+    `band` for a row band, `tile` for a tile window), e.g. `pack8-ring`,
+    `pack16-wrapped`, `grouped-ring-wrapped-bf16`, `pack16-ring-tile`."""
     table = "grouped" if grouped else ("pack8" if pack8 else "pack16")
     return table + ("-ring" if ring else "") + \
         ("-wrapped" if spec.wrap else "") + \
-        ("-bf16" if dtype == torch.bfloat16 else "")
+        ("-bf16" if dtype == torch.bfloat16 else "") + \
+        (f"-{window}" if window else "")
 
 
-def _check_supported(logodds, reach: int, pack8: bool):
+def window_kind(band, band_cols) -> str:
+    """The grid window of a call: "" (the whole grid), "band" or "tile"."""
+    return "tile" if band_cols is not None else (
+        "band" if band is not None else "")
+
+
+def _check_supported(logodds, reach: int, pack8: bool, cfg: GridConfig,
+                     band=None, band_cols=None):
     if logodds.dtype not in STORAGE:
         raise ValueError(f"the window raster takes a float32 or bfloat16 "
                          f"grid, got {logodds.dtype}")
@@ -209,10 +234,25 @@ def _check_supported(logodds, reach: int, pack8: bool):
         raise ValueError(
             f"pack8 range field (31.75 cells) cannot cover the beam reach "
             f"({reach} cells)")
-    size = logodds.shape[0]
-    if logodds.shape != (size, size) or size % TILE_C:
-        raise ValueError(f"grid must be square with a side divisible by "
-                         f"{TILE_C}, got {tuple(logodds.shape)}")
+    if band is None and band_cols is None:
+        size = logodds.shape[0]
+        if logodds.shape != (size, size) or size % TILE_C:
+            raise ValueError(f"grid must be square with a side divisible "
+                             f"by {TILE_C}, got {tuple(logodds.shape)}")
+        return
+    if logodds.dtype != torch.float32:
+        # the sharded engine keeps a float32 grid (parallel/sharded.py)
+        raise ValueError("band and tile windows take a float32 grid, got "
+                         f"{logodds.dtype}")
+    want = (cfg.size if band is None else band[1],
+            cfg.size if band_cols is None else band_cols[1])
+    rows, cols = patch_dims(cfg.size, reach)
+    if tuple(logodds.shape) != want or want[1] % TILE_C or \
+            want[0] < rows or want[1] < cols:
+        raise ValueError(f"a band / tile window of {want} (columns "
+                         f"divisible by {TILE_C}, at least the [{rows}, "
+                         f"{cols}] agent window) cannot take a grid of "
+                         f"{tuple(logodds.shape)}")
 
 
 def grouped_table(dist_cells, trusted, spec: BeamSpec, n_groups: int):
@@ -228,15 +268,27 @@ def grouped_table(dist_cells, trusted, spec: BeamSpec, n_groups: int):
 
 def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
              cfg: GridConfig, trusted, reach: int, pack8: bool = True,
-             n_groups=None, tail_weight: float = 0.25) -> _Windows:
-    size = logodds.shape[0]
+             n_groups=None, tail_weight: float = 0.25, band=None,
+             band_cols=None) -> _Windows:
+    window = window_kind(band, band_cols)
+    size = cfg.size if window else logodds.shape[0]
     # bf16 windows are 16-row aligned, as free_raster_pallas aligns them
     # (beam_raster_pallas.py:541-543)
     align = 16 if logodds.dtype == torch.bfloat16 else 8
     rows, cols = patch_dims(size, reach, row_align=align)
     ax, ay = cells_of(agent_xy, cfg)
-    row0, col0 = patch_origin(ax, ay, size, rows, cols, reach,
-                              row_align=align)
+    # band / tile windows: window-local cells, the offsets subtracted in
+    # float32 (beam_raster_pallas.py:552-558)
+    row_off = 0 if band is None else int(band[0])
+    col_off = 0 if band_cols is None else int(band_cols[0])
+    if band is not None:
+        ay = ay - float(row_off)
+    if band_cols is not None:
+        ax = ax - float(col_off)
+    row0, col0 = patch_origin(
+        ax, ay, size, rows, cols, reach,
+        n_rows=None if band is None else band[1],
+        n_cols=None if band_cols is None else band_cols[1], row_align=align)
     # fan-bbox column-strip bounds: reach + 1.5 covers the endpoint ring
     # and the half-cell centre offset; +-1.5 cells absorb fan-edge rounding
     bxmin, bxmax, _, _ = fan_bbox_cells(yaw, spec, reach + 1.5)
@@ -257,10 +309,14 @@ def _windows(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
         table = (_pack_range8 if pack8 else _pack_range16)(cells, trusted)
     return _Windows(row0=row0, col0=col0, t_cl=t_cl, t_ch=t_ch, ax=ax, ay=ay,
                     yaw=yaw.to(torch.float32),
-                    act=active.to(torch.float32), table=table,
-                    rows=rows, cols=cols, kind=kind,
+                    act=active.to(torch.float32),
+                    goff_r=torch.full_like(ax, float(row_off)),
+                    goff_c=torch.full_like(ax, float(col_off)),
+                    table=table, rows=rows, cols=cols, kind=kind,
                     ring=trusted is not None, n_bins=n_bins,
-                    tail_weight=float(tail_weight))
+                    tail_weight=float(tail_weight),
+                    guard=cfg.size if band_cols is not None else 0,
+                    window=window)
 
 
 def _constants(spec: BeamSpec, cfg: GridConfig, n_bins: int,
@@ -382,6 +438,13 @@ def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
     r, cnt, g, base_ok = _polar(cx - w.ax[:, None, None],
                                 cy - w.ay[:, None, None],
                                 w.yaw[:, None, None], k, dense)
+    if w.guard:
+        # tile windows reach past the global grid at its edges: cells
+        # outside it take no evidence (beam_raster_pallas.py:440-447)
+        gy = cy + w.goff_r[:, None, None]
+        gx = cx + w.goff_c[:, None, None]
+        sz = float(w.guard)
+        base_ok = base_ok & (gy >= 0.0) & (gy < sz) & (gx >= 0.0) & (gx < sz)
     rb, tf, rt = _lookup(w.table.reshape(n, -1), g, w.kind, w.ring)
     delta, painted = _evidence(r, cnt, base_ok, rb, tf, rt, k, w.ring,
                                act=w.act[:, None, None])
@@ -398,14 +461,15 @@ def _window_deltas(w: _Windows, spec: BeamSpec, cfg: GridConfig,
 def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
                       spec: BeamSpec, cfg: GridConfig = GridConfig(),
                       reach: int = REACH_CELLS, pack8: bool = True,
-                      n_groups=None, tail_weight: float = 0.25):
+                      n_groups=None, tail_weight: float = 0.25, band=None,
+                      band_cols=None):
     """The raster in plain torch: deltas vectorised over [N, rows, cols],
     then applied window by window in agent index order, each window
     clipped (in float32) and stored in the grid's dtype after its agent.
     Updates `logodds` IN PLACE and returns (logodds, counts [N] f32)."""
-    _check_supported(logodds, reach, pack8)
+    _check_supported(logodds, reach, pack8, cfg, band, band_cols)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
-                 reach, pack8, n_groups, tail_weight)
+                 reach, pack8, n_groups, tail_weight, band, band_cols)
     delta, counts = _window_deltas(w, spec, cfg, _dense_fan(spec, reach))
     c = cfg.logodds_clamp
     for a, (r0, c0) in enumerate(zip(w.row0.tolist(), w.col0.tolist())):
@@ -421,18 +485,20 @@ def free_raster_plain(logodds, agent_xy, yaw, dist_m, active, trusted,
 
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.free_raster_launch.argtypes = [P] * 8 + [I] * 10 + [F] * 13 + [P]
+    lib.free_raster_launch.argtypes = [P] * 8 + [I] * 12 + [F] * 13 + [P]
     lib.free_raster_launch.restype = I
 
 
-def _tile_pairs(w: _Windows, size: int):
+def _tile_pairs(w, n_rows: int, n_cols: int):
     """Every (agent, grid tile) pair whose tile meets the agent's window,
-    sorted stably by (tile, agent), as CSR offsets per tile. Returns
+    sorted stably by (tile, agent), as CSR offsets per tile, on an
+    [n_rows, n_cols] grid (n_cols divisible by TILE_C; a band or tile
+    window's last tile row may be ragged, and its tiles count). Returns
     (tile_start [T+1], pair_agent [P], pair_slot [P], K, N) where slot
     a*K + k is agent a's k-th candidate tile."""
     n = w.row0.shape[0]
     dev = w.row0.device
-    n_tr, n_tc = size // TILE_R, size // TILE_C
+    n_tr, n_tc = -(-n_rows // TILE_R), n_cols // TILE_C
     n_tiles = n_tr * n_tc
     kr = -(-w.rows // TILE_R) + 1
     kc = -(-w.cols // TILE_C)
@@ -459,7 +525,7 @@ def _tile_pairs(w: _Windows, size: int):
 class _Launch(NamedTuple):
     """The kernel's operands, prepared from the windows (`_prepare`)."""
     origins: torch.Tensor     # [N, 4] int32 row0, col0, t_cl, t_ch
-    meta: torch.Tensor        # [N, 4] f32 ax, ay, yaw, act
+    meta: torch.Tensor        # [N, 6] f32 ax, ay, yaw, act, goff_r, goff_c
     table: torch.Tensor       # [N, W] int32 table words (grouped: the
     #                           float32 triples' bits)
     tile_start: torch.Tensor  # [T + 1] int32 CSR offsets per tile
@@ -472,6 +538,8 @@ class _Launch(NamedTuple):
     ring: bool
     n_bins: int
     tail_weight: float
+    guard: int
+    window: str
 
 
 def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
@@ -492,16 +560,16 @@ def _prepare(logodds, w: _Windows, spec: BeamSpec) -> _Launch:
         table = w.table.to(torch.int32).contiguous()
     origins = torch.stack([w.row0, w.col0, w.t_cl, w.t_ch], -1).to(
         torch.int32).contiguous()
-    meta = torch.stack([w.ax, w.ay, w.yaw, w.act], -1).to(
-        torch.float32).contiguous()
+    meta = torch.stack([w.ax, w.ay, w.yaw, w.act, w.goff_r, w.goff_c],
+                       -1).to(torch.float32).contiguous()
     if {x.device for x in (origins, meta, table)} != {logodds.device}:
         raise ValueError("the agents' inputs and the grid must lie on one "
                          "device: the kernel reads them all")
     tile_start, pair_agent, pair_slot, k, _ = _tile_pairs(w,
-                                                          logodds.shape[0])
+                                                          *logodds.shape)
     return _Launch(origins, meta, table, tile_start, pair_agent, pair_slot,
                    k, w.rows, w.cols, w.kind, w.ring, w.n_bins,
-                   w.tail_weight)
+                   w.tail_weight, w.guard, w.window)
 
 
 def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
@@ -516,7 +584,8 @@ def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
         ln.table.data_ptr(), ln.tile_start.data_ptr(),
         ln.pair_agent.data_ptr(), ln.pair_slot.data_ptr(),
         partial.data_ptr(), ln.tile_start.shape[0] - 1, logodds.shape[0],
-        ln.rows, ln.cols, ln.table.shape[1], FORMS[ln.kind, ln.ring],
+        logodds.shape[1], ln.guard, ln.rows, ln.cols, ln.table.shape[1],
+        FORMS[ln.kind, ln.ring],
         STORAGE[logodds.dtype], ln.n_bins, int(dense), int(spec.wrap),
         c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
         c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
@@ -526,7 +595,7 @@ def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
         raise RuntimeError(f"free_raster launch failed: CUDA error {err}")
     free_raster.launches += 1
     name = form_name(spec, ln.kind == "pack8", ln.ring, logodds.dtype,
-                     grouped=ln.kind == "grouped")
+                     grouped=ln.kind == "grouped", window=ln.window)
     free_raster.launches_by_form[name] = \
         free_raster.launches_by_form.get(name, 0) + 1
     # pair slots reduced per agent (no float atomics), exactly in double
@@ -537,7 +606,8 @@ def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
 def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
                 spec: BeamSpec, cfg: GridConfig = GridConfig(),
                 reach: int = REACH_CELLS, pack8: bool = True,
-                n_groups=None, tail_weight: float = 0.25):
+                n_groups=None, tail_weight: float = 0.25, band=None,
+                band_cols=None):
     """The engine's raster: (new_logodds, counts [N] f32) as
     `free_raster_pallas(..., n_groups=n_groups or n_beams, pack8=pack8,
     trusted=trusted, tail_weight=tail_weight)` returns them; counts is the
@@ -548,19 +618,24 @@ def free_raster(logodds, agent_xy, yaw, dist_m, active, trusted,
     runs the grouped tier (None: per beam), with the weak tail at
     `tail_weight`; per beam, `pack8` picks the pack8 or the pack16 table.
     `spec` is the scan's fan or the wrapped 4-way fan. `logodds` [S, S]
-    float32 or bfloat16 is updated IN PLACE.
+    float32 or bfloat16 is updated IN PLACE. With `band=(row_off, n_rows)`
+    `logodds` is a float32 row band [n_rows, S] of the global grid, and
+    with `band_cols=(col_off, n_cols)` as well a tile window [n_rows,
+    n_cols] (offsets host ints, negative at the grid's low edges), as
+    free_raster_pallas takes them.
 
     A CPU grid goes to `free_raster_plain`. A CUDA grid launches the
     kernel; a failed build or launch raises."""
     if logodds.device.type == "cpu":
         return free_raster_plain(logodds, agent_xy, yaw, dist_m, active,
                                  trusted, spec, cfg, reach=reach, pack8=pack8,
-                                 n_groups=n_groups, tail_weight=tail_weight)
+                                 n_groups=n_groups, tail_weight=tail_weight,
+                                 band=band, band_cols=band_cols)
     if logodds.device.type != "cuda":
         raise ValueError(f"no raster for a grid on {logodds.device}")
-    _check_supported(logodds, reach, pack8)
+    _check_supported(logodds, reach, pack8, cfg, band, band_cols)
     w = _windows(logodds, agent_xy, yaw, dist_m, active, spec, cfg, trusted,
-                 reach, pack8, n_groups, tail_weight)
+                 reach, pack8, n_groups, tail_weight, band, band_cols)
     counts = _launch(logodds, _prepare(logodds, w, spec), spec, cfg,
                      _dense_fan(spec, reach))
     return logodds, counts

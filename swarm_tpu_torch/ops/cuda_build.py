@@ -10,7 +10,8 @@ and the current stream as Python ints.
 
 Flags: `sm_90a` (Hopper), `--fmad=false` so that every add and multiply
 rounds on its own, as the plain torch versions issue them; IEEE division
-and square root are nvcc's defaults without `--use_fast_math`.
+and square root are nvcc's defaults without `--use_fast_math`. ptxas's
+report of registers and spills per kernel instance is kept in `ptxas`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -32,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _libs = {}
 _lock = threading.Lock()
+# name -> ptxas's register and spill summary of the build made by this
+# process (none when the library was already built)
+ptxas = {}
 
 
 def source(name: str) -> str:
@@ -55,10 +60,26 @@ def build(name: str) -> str:
         raise RuntimeError(f"no CUDA toolkit found to build {name}.cu")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-                    "-o", tmp, source(name)], check=True)
+    run = subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"),
+                          *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+                          source(name)], capture_output=True, text=True)
+    if run.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{run.stderr}")
+    ptxas[name] = _ptxas_summary(run.stderr)
     os.replace(tmp, out)
     return out
+
+
+def _ptxas_summary(log: str) -> str:
+    """The range of registers per thread and of spilled bytes over the
+    kernel instances of one `-Xptxas -v` log."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} instances, {min(regs)}-{max(regs)} registers, "
+            f"{min(spills, default=0)}-{max(spills, default=0)} bytes "
+            f"spilled")
 
 
 def build_all(names) -> dict:

@@ -203,7 +203,7 @@ def _prepare(logodds, w: _Exact) -> _Launch:
     if {x.device for x in (origins, meta, table)} != {logodds.device}:
         raise ValueError("the agents' inputs and the grid must lie on one "
                          "device: the kernel reads them all")
-    tile_start, pair_agent, _, _, _ = _tile_pairs(w, logodds.shape[0])
+    tile_start, pair_agent, _, _, _ = _tile_pairs(w, *logodds.shape)
     return _Launch(origins, meta, table, tile_start, pair_agent, w.rows,
                    w.cols)
 

@@ -3,7 +3,9 @@
 
 `logodds_delta` is the reference's unclamped scatter of one ray batch
 (Bresenham cells, -miss along each path, +hit at a trusted endpoint) into
-a fresh grid; the band forms of the sharded engine are not ported.
+a fresh grid, or into a fresh row band or tile window of it (the sharded
+engine's `band` / `band_cols`: evidence outside the window is dropped and
+not counted).
 `endpoint_scatter` is what the engine runs after each window raster that
 has no endpoint ring (`EngineConfig.kernel_endpoints=False`): the exact
 endpoint hits of one fan, `clip(logodds + logodds_delta(endpoint_rays,
@@ -74,21 +76,39 @@ def _traced_cells(rays: RayBatch, cfg: GridConfig, k_max: int):
 
 
 def logodds_delta(rays: RayBatch, cfg: GridConfig = GridConfig(),
-                  k_max: int = 32, dtype=torch.float32):
+                  k_max: int = 32, dtype=torch.float32, band=None,
+                  band_cols=None):
     """Unclamped log-odds evidence of one ray batch, scatter-added into a
-    fresh [size, size] grid in ray order. Returns (delta, writes)."""
+    fresh [size, size] grid in ray order. Returns (delta, writes).
+
+    band=(row_off, n_rows) returns the [n_rows, size] delta of that row
+    band of the grid, band_cols=(col_off, n_cols) restricts the columns as
+    well (a tile window, [n_rows, n_cols]); cells outside the window are
+    dropped and left out of `writes`."""
     flat, free, occ = _traced_cells(rays, cfg, k_max)
+    n_rows = n_cols = cfg.size
+    if band is not None or band_cols is not None:
+        row_off, n_rows = band if band is not None else (0, cfg.size)
+        col_off, n_cols = band_cols if band_cols is not None \
+            else (0, cfg.size)
+        row = torch.div(flat, cfg.size, rounding_mode="floor")
+        col = flat - row * cfg.size
+        inb = (row >= row_off) & (row < row_off + n_rows) & \
+            (col >= col_off) & (col < col_off + n_cols)
+        free = free & inb
+        occ = occ & inb
+        flat = (row - row_off) * n_cols + (col - col_off)
     zero = torch.zeros(flat.shape, dtype=dtype, device=flat.device)
     delta = torch.where(occ, zero + cfg.logodds_hit,
                         torch.where(free, zero + cfg.logodds_miss, zero))
     flat_r = torch.where(free | occ, flat, torch.zeros_like(flat))
     # index_add_ on the CPU adds in index order, as the reference's scatter
     # does (index_put_ with accumulate may not)
-    out = torch.zeros((cfg.size * cfg.size,), dtype=dtype,
+    out = torch.zeros((n_rows * n_cols,), dtype=dtype,
                       device=flat.device).index_add_(
         0, flat_r.reshape(-1).to(torch.int64), delta.reshape(-1))
     writes = free.sum() + occ.sum()
-    return out.reshape(cfg.size, cfg.size), writes
+    return out.reshape(n_rows, n_cols), writes
 
 
 _HIT_SUMS = {}

@@ -20,6 +20,11 @@ tier on every fan of more than N beams (0: per beam).
 repository publishes: a 23,296^2 bf16 grid, 16,384 rooms at 91 per tile
 row.
 
+`vertical_rooms` and `tile_blocks` are the sharded engine's worlds (the
+reference's dryrun, __graft_entry__.py:245-343): one room per row band, or
+every room tile of the grid in device-major order, with the deployable
+engine.
+
 `coverage` is the configuration of tools/bench_coverage.py: EngineConfig's
 own raster defaults (`raster_4way=True`, `kernel_endpoints=False`,
 `endpoint_hits=True`, `beam_pack8=False`, `beam_groups=0`), the merge off.
@@ -38,20 +43,34 @@ from swarm_tpu_torch._device import default_device
 from swarm_tpu_torch.config import (EngineConfig, GridConfig, SlamConfig,
                                     SwarmConfig)
 from swarm_tpu_torch.engine.sim import make_agent_params
-from swarm_tpu_torch.geom.world import make_tiled_rooms, walls_by_group
+from swarm_tpu_torch.geom.world import (make_tiled_rooms,
+                                        make_tiled_rooms_blocks,
+                                        make_vertical_rooms, walls_by_group)
 
 
 def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
                  room_kernel: bool, grid_dtype: str = "float32", **engine):
     """Tiled-rooms world (two agents per room, each room on its own
     [128, 256]-cell grid tile) + config with the given engine fields."""
-    device = default_device(device)
     n_rooms = max(1, n_agents // 2)
     per_row = max(1, round(math.sqrt(n_rooms / 2.0)))
     n_rows = math.ceil(n_rooms / per_row)
     size = max(per_row * 256, n_rows * 128)
     size = -(-size // 256) * 256
     walls, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    return _rooms_world(
+        walls, origins, size, n_agents, device, frontiers, scan_rays,
+        grid_dtype, room_tile_per_row=per_row if room_kernel else 0,
+        **engine)
+
+
+def _rooms_world(walls, origins, size: int, n_agents: int, device,
+                 frontiers: bool, scan_rays: int, grid_dtype: str = "float32",
+                 **engine):
+    """Config, walls, params and rooms of a world of rooms `walls` [4R, 4]
+    with origins [R, 2] on a [size, size] grid at origin (0, 0): agents 2k
+    and 2k+1 in room k, at the reference's home offsets."""
+    device = default_device(device)
     cfg = SwarmConfig(
         n_agents=n_agents,
         grid=GridConfig(size=size, origin_x=0.0, origin_y=0.0,
@@ -59,7 +78,7 @@ def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
         engine=EngineConfig(
             parity_mode=False, compute_frontiers=frontiers,
             raster_mode="beam", use_pallas=True, scan_rays=scan_rays,
-            room_tile_per_row=per_row if room_kernel else 0, **engine),
+            **engine),
         # same-agent closures, anchor map, no closure snap, frame tracker on
         # (the reference preset's settings and reasons,
         # __graft_entry__.py:65-91)
@@ -106,3 +125,31 @@ def coverage(n_agents: int, frontiers: bool = True, device=None):
     off, frontiers at the 3 s cadence when `frontiers`. Returns what
     `deployable` returns. At 64 agents: a 1024^2 grid; at 1024: 4096^2."""
     return _tiled_world(n_agents, device, frontiers, 181, False)
+
+
+def _sharded_engine(merge_every: int):
+    """The deployable engine fields (bench.py's defaults) for a sharded
+    world: pack8 table (the sharded body runs pack16 whatever it says), the
+    endpoint ring, the 181-beam sweep, the merge every `merge_every`."""
+    return dict(beam_groups=0, kernel_endpoints=True, beam_pack8=True,
+                raster_4way=False, merge_every=merge_every)
+
+
+def vertical_rooms(n_rooms: int, device=None, merge_every: int = 16):
+    """The "rows" decomposition's world (geom/world.make_vertical_rooms):
+    one room per 128-row band, two agents per room, the deployable engine.
+    Returns what `deployable` returns; n_rooms ranks own a band each."""
+    walls, origins, size = make_vertical_rooms(n_rooms)
+    return _rooms_world(walls, origins, size, 2 * n_rooms, device, False,
+                        181, **_sharded_engine(merge_every))
+
+
+def tile_blocks(dev_rows: int, dev_cols: int, size: int, device=None,
+                merge_every: int = 16):
+    """The "tiles" decomposition's world (geom/world.
+    make_tiled_rooms_blocks): every room tile of a [size, size] grid, rooms
+    in device-major order over a dev_rows x dev_cols rank grid, two agents
+    per room, the deployable engine. Returns what `deployable` returns."""
+    walls, origins = make_tiled_rooms_blocks(dev_rows, dev_cols, size)
+    return _rooms_world(walls, origins, size, 2 * origins.shape[0], device,
+                        False, 181, **_sharded_engine(merge_every))

@@ -1,6 +1,7 @@
 """The hand-written CUDA raster kernels (the per-agent window raster in
 each of its 16 per-beam instances: table x ring x fan x float32/bfloat16
-grid, and its 8 grouped ones: ring x fan x storage; the room-tile raster in
+grid, and its 8 grouped ones: ring x fan x storage, and the sharded
+engine's band and tile windows of its float32 forms; the room-tile raster in
 its four per-beam and four grouped forms; the r1 exact raster on the scan
 and the wrapped 4-way fan) against their plain torch versions, on the card,
 at small sizes; and the endpoint scatter on the card against the CPU, on
@@ -446,3 +447,74 @@ def test_exact_raster_bit_equal_plain(cuda, n_beams, overlap):
     diff = int((g_k != g_p).sum())
     assert diff == 0, f"{diff} cells differ"
     assert int((g_k != torch.from_numpy(grid).to(cuda)).sum()) > 0
+
+
+# the sharded engine's grid windows on a 512^2 grid: (band, band_cols) of
+# rank 1 of a 4-rank rows layout, rank 0 and rank 3 of a 2x2 tiles layout
+# (the halo 32 rows x 128 columns at the 26-cell reach), and a tile window
+# with a 40-row halo, whose last 64-row CUDA tile row is ragged
+BAND_WINDOWS = {"band": ((128, 128), None),
+                "tile-corner": ((-32, 320), (-128, 512)),
+                "tile-far": ((224, 320), (128, 512)),
+                "tile-ragged": ((-40, 336), (-128, 512))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", list(BAND_WINDOWS))
+@pytest.mark.parametrize("n_beams,n_groups", [(181, 181), (4, 4), (181, 8),
+                                              (4, 2), (61, 61)])
+@pytest.mark.parametrize("ring", [True, False])
+@pytest.mark.parametrize("prefill", [False, True])
+def test_band_tile_forms_bit_equal_plain(cuda, window, n_beams, n_groups,
+                                         ring, prefill):
+    """The band and tile forms (the sharded body's pack16 and grouped
+    tables, ring on and off, scan and wrapped fans; a 61-beam fan for the
+    on-beam test of a sparse fan) on windows with negative offsets, the
+    grid-edge guard and a ragged last tile row; a window pre-filled near
+    +-clamp and overlapping agents, where the per-agent clip decides."""
+    size = 512
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    band, band_cols = BAND_WINDOWS[window]
+    shape = (band[1], size if band_cols is None else band_cols[1])
+    rng = np.random.default_rng(n_beams * 7 + n_groups)
+    n = 40
+    lo_r, lo_c = max(band[0], 0), 0 if band_cols is None else max(
+        band_cols[0], 0)
+    hi_r = min(band[0] + band[1], size)
+    hi_c = size if band_cols is None else min(band_cols[0] + band_cols[1],
+                                              size)
+    cells = np.stack([rng.uniform(lo_r, hi_r, n), rng.uniform(lo_c, hi_c, n)],
+                     -1)
+    cells[:10] = cells[0] + rng.uniform(-3, 3, (10, 2))    # overlapping
+    cells[10:14] = [[lo_r + 0.7, lo_c + 0.4], [hi_r - 1.2, hi_c - 0.6],
+                    [lo_r + 2.0, hi_c - 3.0], [hi_r - 5.0, lo_c + 1.0]]
+    xy = torch.tensor(cells[:, ::-1] * cfg.resolution, dtype=torch.float32,
+                      device=cuda)
+    yaw = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32,
+                       device=cuda)
+    dist = torch.tensor(rng.uniform(0.02, 1.6, (n, n_beams)),
+                        dtype=torch.float32, device=cuda)
+    trusted = torch.tensor(rng.random((n, n_beams)) < 0.7, device=cuda)
+    act = torch.tensor(rng.random(n) < 0.9, device=cuda)
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    grid = (rng.choice([-9.9, 9.7, 0.0, -3.2], shape) if prefill
+            else np.zeros(shape))
+    g_k = torch.tensor(grid, dtype=torch.float32, device=cuda)
+    g_p = g_k.clone()
+    kw = dict(reach=26, pack8=False, n_groups=n_groups, tail_weight=0.25,
+              band=band, band_cols=band_cols)
+    tr = trusted if ring else None
+    before = dict(free_raster.launches_by_form)
+    _, cnt_k = free_raster(g_k, xy, yaw, dist, act, tr, spec, cfg, **kw)
+    torch.cuda.synchronize()
+    _, cnt_p = free_raster_plain(g_p, xy, yaw, dist, act, tr, spec, cfg,
+                                 **kw)
+    new = {k: v - before.get(k, 0)
+           for k, v in free_raster.launches_by_form.items()
+           if v != before.get(k, 0)}
+    suffix = "-tile" if band_cols is not None else "-band"
+    assert list(new.values()) == [1] and next(iter(new)).endswith(suffix)
+    diff = int((g_k != g_p).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
