@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught and then passed):
   1. build the three raster kernels (swarm_tpu_torch/csrc/free_raster.cu,
      room_raster.cu and exact_raster.cu) from the checkout, one nvcc each,
-     started together; print each build time;
+     started together; print each build time, and per instance of the
+     window and room kernels its registers and spilled bytes (ptxas) and
+     its resident blocks per SM (CUDA's occupancy calculator);
   2. each kernel, in each of its per-beam forms, vs its plain torch version
      at the shapes of the path that runs it: 1024 agents in the tiled
      4096^2 world, preset start poses with random headings, noisy readings
@@ -17,9 +19,13 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      instances: pack8 / pack16 table x with / without the endpoint ring x
      the 181-beam scan / the wrapped 4-way fan x a float32 / bfloat16 grid;
      the room kernel's four forms: with / without the ring x scan / wrapped
-     fan. Maps BIT-EQUAL, counts equal. Timed with CUDA events: the kernel
-     launch alone on prepared operands, the wrapper with its preparation,
-     the plain version; the bound is computed from this run's inputs. The
+     fan. Maps BIT-EQUAL (bit for bit: a -0.0 against a +0.0 counts),
+     counts equal. Timed: the kernel on the device (the mean of 20
+     launches' CUDA kernel times from torch.profiler: the record's `ms`),
+     the launch call on prepared operands and the wrapper with its
+     preparation (CUDA events), the plain version; the bound is computed
+     from this run's inputs, and beside it the cells the kernel evaluates
+     (its evaluation boxes, beam_raster_cuda.evaluation_box). The
      slice's form (pack8 + ring on bf16) also at the slice's shapes (32,768
      agents on 23,296^2, the plain version in agent chunks);
   3. the slice: bench.py --agents 32768 --grid-dtype bfloat16
@@ -196,6 +202,36 @@ def _median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def _device_ms(fn, reps: int, kernel: str, launch_ms: float):
+    """The kernel's own time: the mean device time of the kernel whose
+    name holds `kernel` over `reps` calls of `fn` (torch.profiler's CUDA
+    activity; no host gap, no other kernel of the call), over the launches
+    the profiler recorded (on the card it can drop one of 20). A session
+    that recorded fewer than half is run again, twice at most; after that
+    the time is `launch_ms`, the launch call's CUDA-event time. Returns
+    (ms, its source)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        total, count = 0.0, 0
+        for row in rows:
+            if kernel in row.key:
+                total += getattr(row, "device_time_total",
+                                 getattr(row, "cuda_time_total", 0.0))
+                count += row.count
+        if 2 * count >= reps and total > 0:
+            return total / count / 1e3, f"profiler, {count} of {reps}"
+        print(f"the profiler saw {count} launches of {kernel}, not {reps} "
+              f"({len(rows)} rows)")
+    return launch_ms, "launch call"
+
+
 def _ab_ms(first, second, reps_first: int, reps_second: int):
     """Medians of two functions timed in turns first, second, second,
     first; returns (min of first's, min of second's, all four)."""
@@ -229,6 +265,40 @@ def phase_build():
         print(f"kernel build [{name}]: {secs:.2f} s ({os.path.relpath(lib)};"
               f" ptxas: {cuda_build.ptxas.get(name, 'built before')})")
     print(f"kernel builds, together: {time.perf_counter() - t0:.2f} s")
+    _print_instances()
+
+
+def _print_instances():
+    """Per instance of the window and room kernels: ptxas's registers and
+    spilled bytes, and the resident blocks per SM that CUDA's occupancy
+    calculator gives (128-thread window blocks, 512-thread room blocks)."""
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+    from swarm_tpu_torch.ops import cuda_build
+    from swarm_tpu_torch.ops import room_raster_cuda as rc
+    from swarm_tpu_torch.ops.beam_raster import BeamSpec
+
+    reports = {label: (regs, spill) for name in ("free_raster", "room_raster")
+               for label, regs, spill in
+               cuda_build.ptxas_instances.get(name, [])}
+    rows = []
+    for t, kind in enumerate(("pack8", "pack16", "grouped")):
+        for ring in (True, False):
+            for dtype, tag in ((torch.float32, "f32"),
+                               (torch.bfloat16, "bf16")):
+                rows.append((f"free_raster_kernel<{t},{int(ring)},{tag}>",
+                             bc.form_name(BeamSpec.scan(), kind == "pack8",
+                                          ring, dtype, kind == "grouped"),
+                             bc.blocks_per_sm(kind, ring, dtype)))
+    for grouped in (False, True):
+        for ring in (True, False):
+            rows.append((f"room_raster_kernel<{int(grouped)},{int(ring)}>",
+                         "room " + rc.form_name(BeamSpec.scan(), ring,
+                                                grouped),
+                         rc.blocks_per_sm(grouped, ring)))
+    for label, form, blocks in rows:
+        regs, spill = reports.get(label, ("built before", "-"))
+        print(f"kernel instance {label} ({form}): {regs} registers, "
+              f"{spill} bytes spilled, {blocks} blocks per SM")
 
 
 def _raster_inputs(cfg, params, rooms, gen, dev, four_way=False):
@@ -341,6 +411,55 @@ def _form_of(flags):
     return four_way, pack8, ring, dtype, n_groups, key
 
 
+def _n_differ(a, b) -> int:
+    """Cells whose bits differ (a -0.0 against a +0.0 counts)."""
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(bits) != b.view(bits)).sum())
+
+
+def _box_cells(w, spec) -> int:
+    """The cells the window kernel evaluates on a clean grid: per agent its
+    evaluation box (`beam_raster_cuda.evaluation_box`) within its window
+    and its fan-bbox strips."""
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+
+    r_lo, r_hi, c_lo, c_hi = bc.evaluation_box(w.table, w.kind, w.ring,
+                                               w.ax, w.ay, w.yaw, spec,
+                                               w.n_bins)
+    row0, col0 = w.row0.to(torch.float32), w.col0.to(torch.float32)
+    rows = torch.minimum(r_hi, row0 + w.rows) - torch.maximum(r_lo, row0)
+    lo = torch.maximum(torch.maximum(c_lo, col0),
+                       col0 + 128 * w.t_cl.to(torch.float32))
+    hi = torch.minimum(torch.minimum(c_hi, col0 + w.cols),
+                       col0 + 128 * w.t_ch.to(torch.float32))
+    return int((rows.clamp_min(0).double() *
+                (hi - lo).clamp_min(0).double()).sum())
+
+
+def _room_box_cells(rm, spec) -> int:
+    """The cells the room kernel evaluates: per slot (an empty one too) its
+    evaluation box within its window."""
+    from swarm_tpu_torch.ops import beam_raster_cuda as bc
+    from swarm_tpu_torch.ops import room_raster_cuda as rc
+
+    br_n, bc_n = rm.meta.shape[:2]
+    m = rm.meta.reshape(-1, rc.META)
+    r_lo, r_hi, c_lo, c_hi = bc.evaluation_box(
+        rm.table.reshape(m.shape[0], -1), rm.kind, rm.ring, m[:, 0], m[:, 1],
+        m[:, 2], spec, rm.n_bins)
+    dev = m.device
+    tr = torch.arange(br_n, device=dev).repeat_interleave(
+        bc_n * rc.AGENTS_PER_ROOM).to(torch.float32)
+    tc = torch.arange(bc_n, device=dev).repeat_interleave(
+        rc.AGENTS_PER_ROOM).repeat(br_n).to(torch.float32)
+    row0 = tr * rc.TILE_ROWS + m[:, 4]
+    rows = torch.minimum(r_hi, row0 + rm.win_rows) - torch.maximum(r_lo, row0)
+    cols = torch.minimum(c_hi, tc * rc.TILE_COLS + rc.TILE_COLS) - \
+        torch.maximum(c_lo, tc * rc.TILE_COLS)
+    return int((rows.clamp_min(0).double() *
+                cols.clamp_min(0).double()).sum())
+
+
 def _hold_equal(name, kernel, plain, cases, size):
     """Run kernel and plain version on each case's copy of the grid; maps
     bit-equal, counts equal (both sum them exactly, in double: the grouped
@@ -353,7 +472,7 @@ def _hold_equal(name, kernel, plain, cases, size):
         torch.cuda.synchronize()
         _, c_p = plain(g_p, *args)
         torch.cuda.synchronize()
-        n_diff = int((g_k != g_p).sum())
+        n_diff = _n_differ(g_k, g_p)
         err = float((g_k - g_p).abs().max())
         worst = max(worst, err)
         print(f"{name} kernel vs plain [{case}]: {n_diff} of {size * size} "
@@ -461,6 +580,9 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
         20, 3 if n <= PLAIN_CHUNK else 1)
     t_wrapper = _median_ms(lambda: kernel(
         g_t, xy, yaw, db, alive, tr, spec, cfg.grid, reach), 20)
+    t_device, src = _device_ms(
+        lambda: bc._launch(g_t, ln, spec, cfg.grid, dense), 20,
+        "free_raster_kernel", t_kernel)
 
     # bound: the union of the windows read and written once, the operands
     # read once, the counts written once; every cell of the fan-bbox strips
@@ -474,13 +596,14 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
     groups = f" in {w.n_bins} groups" if grouped else ""
     print(f"{name} raster at {n} agents x {spec.n_beams} beams{groups} "
           f"({form}, [{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: "
-          f"kernel "
+          f"kernel {t_device:.4f} ms ({src}), launch call "
           f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), wrapper "
           f"with its preparation {t_wrapper:.4f} ms, plain torch "
           f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
           f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} cell "
-          f"evaluations)")
-    return form, dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+          f"evaluations); the kernel evaluates {_box_cells(w, spec)} cells "
+          f"(its boxes)")
+    return form, dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
                       bound_ms=bound, bound_by=bound_by)
 
 
@@ -580,6 +703,9 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
         lambda: rc._launch(g_t, rm, spec, cfg.grid, dense),
         lambda: plain(g_t, xy, yaw, db, alive), 20, 3)
     t_wrapper = _median_ms(lambda: kernel(g_t, xy, yaw, db, alive), 20)
+    t_device, src = _device_ms(
+        lambda: rc._launch(g_t, rm, spec, cfg.grid, dense), 20,
+        "room_raster_kernel", t_kernel)
 
     # bound: in every tile the union of its two slots' window rows (an
     # empty slot's too: the reference clips it) read and written once, the
@@ -598,13 +724,14 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
     print(f"room raster at {N_AGENTS} agents ({n_tiles} tiles, {per_row} "
           f"rooms per row) x {spec.n_beams} beams{groups} ({key}) on "
           f"{size}^2 "
-          f"[{card}]: "
-          f"kernel {t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
+          f"[{card}]: kernel {t_device:.4f} ms ({src}), launch "
+          f"call {t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
           f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
           f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
           f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} "
-          f"cell evaluations)")
-    return dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+          f"cell evaluations); the kernel evaluates "
+          f"{_room_box_cells(rm, spec)} cells (its boxes)")
+    return dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
                 bound_ms=bound, bound_by=bound_by)
 
 
@@ -1626,6 +1753,9 @@ def phase_exact_kernel(card, dev):
                                          cfg.grid), 20, 3)
         t_wrapper = _median_ms(lambda: er.beam_raster(
             g_t, xy, yaw, db, tb, alive, spec, cfg.grid), 20)
+        t_device, src = _device_ms(
+            lambda: er._launch(g_t, ln, spec, cfg.grid), 20,
+            "exact_raster_kernel", t_kernel)
         # bound: the union of the windows read and written once, the
         # operands read once; every window cell evaluated (no strips)
         n_bytes = 2 * 4 * _covered_cells(w, size, dev) + \
@@ -1634,12 +1764,13 @@ def phase_exact_kernel(card, dev):
         bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL_EXACT)
         print(f"exact raster [{fan}] at {n} agents x {spec.n_beams} beams "
               f"([{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: kernel "
+              f"{t_device:.4f} ms ({src}), launch call "
               f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
               f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
               f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
               f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} "
               f"cell evaluations)")
-        out[fan] = dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+        out[fan] = dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
                         bound_ms=bound, bound_by=bound_by)
     return out
 
@@ -1844,7 +1975,7 @@ def phase_band_kernels(card, dev):
                     _, c_p = call(bc.free_raster_plain, g_p, wn, jj, band,
                                   band_cols, xs)
                     torch.cuda.synchronize()
-                    n_diff = int((g_k != g_p).sum())
+                    n_diff = _n_differ(g_k, g_p)
                     worst = max(worst, float((g_k - g_p).abs().max()))
                     n_ag = c_k.numel()
                     print(f"{form}-{kind} kernel vs plain [{case}, window "
@@ -1880,6 +2011,9 @@ def phase_band_kernels(card, dev):
             t_wrapper = _median_ms(
                 lambda: call(bc.free_raster, g_t, wn, j, band, band_cols),
                 20)
+            t_device, src = _device_ms(
+                lambda: bc._launch(g_t, ln, spec, cfg.grid, dense), 20,
+                "free_raster_kernel", t_kernel)
             cells = _covered_cells(w, shape[0], dev, shape[1])
             n_bytes = 2 * 4 * cells + \
                 _nbytes(ln.origins, ln.meta, ln.table) + 4 * w.row0.numel()
@@ -1891,12 +2025,14 @@ def phase_band_kernels(card, dev):
             print(f"{key} raster at {w.row0.numel()} agents x "
                   f"{spec.n_beams} beams ([{w.rows}, {w.cols}] windows on "
                   f"a {list(shape)} {kind} window) [{card}]: kernel "
+                  f"{t_device:.4f} ms ({src}), launch call "
                   f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
                   f"wrapper with its preparation {t_wrapper:.4f} ms, plain "
                   f"torch {t_plain:.4f} ms (runs {runs[1]:.4f}, "
                   f"{runs[2]:.4f}); bound {bound:.4f} ms by {bound_by} "
-                  f"({n_bytes} bytes, {evaluated} cell evaluations)")
-            out[key] = dict(max_abs_err=worst, ms=t_kernel, plain_ms=t_plain,
+                  f"({n_bytes} bytes, {evaluated} cell evaluations); the "
+                  f"kernel evaluates {_box_cells(w, spec)} cells (its boxes)")
+            out[key] = dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
                             bound_ms=bound, bound_by=bound_by)
     return out
 

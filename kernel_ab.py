@@ -1,5 +1,5 @@
-"""Back-to-back timing of the window kernel (csrc/free_raster.cu) of two or
-more checkouts on one CUDA card.
+"""Back-to-back timing of the window and room kernels (csrc/free_raster.cu,
+csrc/room_raster.cu) of two or more checkouts on one CUDA card.
 
     python3 kernel_ab.py OTHER [OTHER ...] [--rounds 1]
 
@@ -8,20 +8,27 @@ The checkouts (this one, then each OTHER: a directory holding a
 its own, in the order OTHER..., this, this, ...OTHER (reversed in every
 second half, `--rounds` times), so that a drift of the card's clock over
 the run falls on both sides alike. Each process builds its checkout's
-window kernel into that checkout's build directory (once: later processes
-of the same checkout find it built) and times the kernel launch alone on
-prepared operands, with CUDA events, median of REPS launches, for
+window and room kernels into that checkout's build directory (once: later
+processes of the same checkout find them built) and times the kernel
+launch alone on prepared operands, with CUDA events, median of REPS
+launches, for
 
   * pack8-ring at 1024 agents on the 4096^2 float32 grid (bench.py's
-    deployable path, `presets.deployable(1024)`), and
+    deployable path, `presets.deployable(1024)`),
   * pack8-ring-bf16 at 32,768 agents on the 23,296^2 bfloat16 grid (the
-    slice, `presets.deployable(32768, grid_dtype="bfloat16")`),
+    slice, `presets.deployable(32768, grid_dtype="bfloat16")`), and
+  * the room kernel's pack16-ring at 1024 agents on the 4096^2 grid
+    (bench.py --room-kernel, `presets.deployable(1024, room_kernel=True)`),
 
 from the same seed in every checkout (`chip_smoke._raster_inputs`: preset
 start poses, random headings, noisy 181-beam readings; a checksum of the
-inputs is printed so that equal inputs can be seen). Prints one line per
-process, then the card's name and power limit, then one JSON object
-{checkout: {form: [ms per process]}}. Needs one card.
+inputs is printed so that equal inputs can be seen). Each form is timed
+twice: the launch call on prepared operands between two CUDA events (the
+wrapper's `_launch`: host work, the window wrapper's zero-fill and sum,
+the kernel), and the kernel alone on the device, the mean of torch.profiler
+'s CUDA kernel times ("<form> (device)"). Prints one line per process, then
+the card's name and power limit, then one JSON object {checkout: {form:
+[ms per process]}}. Needs one card.
 """
 
 from __future__ import annotations
@@ -35,14 +42,42 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (form name, presets.deployable arguments)
 FORMS = (("pack8-ring", dict(n=1024)),
-         ("pack8-ring-bf16", dict(n=32768, grid_dtype="bfloat16")))
+         ("pack8-ring-bf16", dict(n=32768, grid_dtype="bfloat16")),
+         ("room pack16-ring", dict(n=1024, room_kernel=True)))
 SEED = 0
 REPS = 50
+# the kernels' names in a profiler trace (window, room)
+KERNELS = ("free_raster_kernel", "room_raster_kernel")
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """The mean device time of the kernel whose name holds `kernel` over
+    `reps` calls of `fn`, from torch.profiler's CUDA activity (the kernel
+    alone: no host gap, no other kernel of the call), over the launches it
+    recorded (it can drop one); fewer than half raise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for row in prof.key_averages():
+        if kernel in row.key:
+            total += getattr(row, "device_time_total",
+                             getattr(row, "cuda_time_total", 0.0))
+            count += row.count
+    if 2 * count < reps or total <= 0:
+        raise RuntimeError(f"profiler saw {count} launches of {kernel}, "
+                           f"not {reps}")
+    return total / count / 1e3
 
 
 def child(root: str) -> dict:
-    """In this process: build `root`'s window kernel and time its forms.
-    Returns {form: ms}."""
+    """In this process: build `root`'s window and room kernels and time
+    their forms. Returns {form: ms}."""
     sys.path.insert(0, root)
     import torch
 
@@ -50,13 +85,15 @@ def child(root: str) -> dict:
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.ops import beam_raster_cuda as bc
     from swarm_tpu_torch.ops import cuda_build
+    from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    cuda_build.build_all(["free_raster"])
-    print(f"  ptxas: {getattr(cuda_build, 'ptxas', {}).get('free_raster')}",
-          flush=True)
+    cuda_build.build_all(["free_raster", "room_raster"])
+    for name in ("free_raster", "room_raster"):
+        print(f"  ptxas [{name}]: "
+              f"{getattr(cuda_build, 'ptxas', {}).get(name)}", flush=True)
     out = {}
     for form, kw in FORMS:
         kw = dict(kw)
@@ -70,17 +107,30 @@ def child(root: str) -> dict:
         alive = torch.ones((n,), dtype=torch.bool, device=dev)
         g = torch.zeros((cfg.grid.size,) * 2, device=dev,
                         dtype=cfg.grid.lo_dtype)
-        w = bc._windows(g, xy, yaw, db, alive, spec, cfg.grid, tb, reach,
-                        True)
-        ln = bc._prepare(g, w, spec)
         dense = bc._dense_fan(spec, reach)
+        if cfg.engine.room_tile_per_row > 0:
+            ln = rc._rooms(g, xy, yaw, db, alive, spec, cfg.grid,
+                           cfg.engine.room_tile_per_row, tb, reach,
+                           spec.n_beams)
+
+            def launch():
+                rc._launch(g, ln, spec, cfg.grid, dense)
+        else:
+            w = bc._windows(g, xy, yaw, db, alive, spec, cfg.grid, tb, reach,
+                            True)
+            ln = bc._prepare(g, w, spec)
+
+            def launch():
+                bc._launch(g, ln, spec, cfg.grid, dense)
         check = float(xy.double().sum() + db.double().sum())
-        bc._launch(g, ln, spec, cfg.grid, dense)
-        out[form] = cs._median_ms(
-            lambda: bc._launch(g, ln, spec, cfg.grid, dense), REPS)
-        print(f"  {form}: {n} agents, inputs checksum {check!r}, kernel "
-              f"{out[form]:.4f} ms", flush=True)
-        del g, w, ln
+        launch()
+        out[form] = cs._median_ms(launch, REPS)
+        out[f"{form} (device)"] = device_ms(launch, REPS, KERNELS[
+            cfg.engine.room_tile_per_row > 0])
+        print(f"  {form}: {n} agents, inputs checksum {check!r}, launch "
+              f"{out[form]:.4f} ms, kernel on the device "
+              f"{out[f'{form} (device)']:.4f} ms", flush=True)
+        del g, ln, launch
         torch.cuda.empty_cache()
     return out
 
@@ -105,7 +155,7 @@ def main(argv=None):
     order = []
     for _ in range(args.rounds):
         order += half + half[::-1]
-    times = {r: {f: [] for f, _ in FORMS} for r in [HERE] + roots}
+    times = {r: {} for r in [HERE] + roots}
     failed = []
     for root in order:
         name = os.path.relpath(root, HERE)
@@ -122,7 +172,7 @@ def main(argv=None):
             failed.append(name)
             continue
         for f, ms in json.loads(res[0][len("RESULT "):]).items():
-            times[root][f].append(ms)
+            times[root].setdefault(f, []).append(ms)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,

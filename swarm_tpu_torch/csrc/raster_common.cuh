@@ -127,4 +127,91 @@ __device__ __forceinline__ Polar polar(float dx, float dy, float yaw,
   return o;
 }
 
+// Range table kinds: pack8 (7-bit 1/4-cell ranges + trusted bit 7 with
+// the ring, four beams a word), pack16 (15-bit 1/256-cell ranges + trusted
+// bit 15, two a word), grouped (per group the carve, the trusted fraction
+// and the tail as three floats).
+enum TableKind { PACK8 = 0, PACK16 = 1, GROUPED = 2 };
+
+// The largest range one table word (index w) holds, decoded as the lookup
+// decodes it: every 8-bit (pack8) or 16-bit (pack16) field, 7 or 15 bits
+// of range with the ring; grouped words 3g (carve) and 3g + 2 (tail), not
+// 3g + 1 (the trusted fraction). fmaxf drops a NaN: a NaN range takes no
+// evidence.
+template <int TABLE, bool RING>
+__device__ __forceinline__ float word_reach(uint32_t x, int w) {
+  if (TABLE == PACK8) {
+    const uint32_t m = RING ? 0x7Fu : 0xFFu;
+    const uint32_t a = max(max(x & m, (x >> 8) & m),
+                           max((x >> 16) & m, (x >> 24) & m));
+    return (float)a * 0.25f;
+  } else if (TABLE == PACK16) {
+    const uint32_t m = RING ? 0x7FFFu : 0xFFFFu;
+    return (float)max(x & m, (x >> 16) & m) * 0x1p-8f;
+  } else {
+    return (w % 3 == 1) ? 0.f : fmaxf(__uint_as_float(x), 0.f);
+  }
+}
+
+// The evaluation box: a superset of the cells that can take an agent's
+// evidence, from `reach` (R, the largest range the agent's own table
+// holds) and the fan (csrc/free_raster.cu's note has the argument). Float
+// bounds with integer values, [lo, hi) in the agent's cells (columns x,
+// rows y).
+constexpr float BOX_RADIUS = 1.0f;     // beyond R: the ring's 0.71, rounding
+constexpr float BOX_MARGIN = 1.0f;     // cells beyond the sector's bbox
+constexpr float ARC_SLACK = 0.01f;     // radians on each side of the arc
+constexpr float SECTOR_YAW_MAX = 64.f; // above: the whole disc
+
+struct Box {
+  float x_lo, x_hi, y_lo, y_hi;
+};
+
+// Whether direction `a` lies in the arc [lo, lo + arc] (mod 2 pi).
+__device__ __forceinline__ bool in_arc(float a, float lo, float arc) {
+  float d = a - lo;
+  d = d - TWO_PI * floorf(d * INV_TWO_PI);
+  return d <= arc;
+}
+
+__device__ __forceinline__ Box evaluation_box(float ax, float ay, float yaw,
+                                              float reach, const Fan& f) {
+  const float rho = reach + BOX_RADIUS;
+  // the fan's directions (the reference's in-fan test) as the bbox of the
+  // unit sector; the wrapped fan, an arc of 2 pi or a yaw whose float32
+  // sums lose more than the slack: the whole disc
+  float xmin = -1.f, xmax = 1.f, ymin = -1.f, ymax = 1.f;
+  const float arc = (float)f.n_bins * f.gdt + 2.f * ARC_SLACK;
+  if (!f.wrap && arc < TWO_PI && fabsf(yaw) <= SECTOR_YAW_MAX) {
+    const float lo = yaw + f.theta0 - f.half_dt - ARC_SLACK;
+    const float hi = lo + arc;
+    float sl, cl, sh, ch;
+    sincosf(lo, &sl, &cl);
+    sincosf(hi, &sh, &ch);
+    xmax = in_arc(0.f, lo, arc) ? 1.f : fmaxf(cl, ch);
+    xmin = in_arc(PI_F, lo, arc) ? -1.f : fminf(cl, ch);
+    ymax = in_arc(HALF_PI, lo, arc) ? 1.f : fmaxf(sl, sh);
+    ymin = in_arc(-HALF_PI, lo, arc) ? -1.f : fminf(sl, sh);
+  }
+  // with its apex (the agent), radius rho, widened by BOX_MARGIN cells
+  Box b;
+  b.x_lo = floorf(ax + rho * fminf(xmin, 0.f) - BOX_MARGIN);
+  b.x_hi = ceilf(ax + rho * fmaxf(xmax, 0.f) + BOX_MARGIN);
+  b.y_lo = floorf(ay + rho * fminf(ymin, 0.f) - BOX_MARGIN);
+  b.y_hi = ceilf(ay + rho * fmaxf(ymax, 0.f) + BOX_MARGIN);
+  return b;
+}
+
+// One axis of a box as a block-local integer range [lo, hi): the bounds
+// less `origin`, clamped into [a, max(a, b)] in float before the
+// conversion, so that no bound overflows and a NaN bound gives way to the
+// clamp's.
+__device__ __forceinline__ int2 clamp_range(float lo, float hi, int origin,
+                                            int a, int b) {
+  const float fa = (float)a;
+  const float fb = (float)max(a, b);
+  return make_int2((int)fminf(fmaxf(lo - (float)origin, fa), fb),
+                   (int)fmaxf(fminf(hi - (float)origin, fb), fa));
+}
+
 }  // namespace raster

@@ -27,11 +27,24 @@
 // is applied, an empty one too (meta all zero: act 0, r_loc 0), so the
 // clips match the TPU kernel's everywhere.
 //
-// Scheduling: one block per tile, each cell owned by one thread, so the two
-// slots' updates and clips happen in registers in slot order with no
-// atomics. A thread owns one column and every ROW_GROUPS-th row of the
-// union of the two windows; rows in neither window are not touched, and the
-// grid is updated in place (read once, written once per touched cell). The
+// Scheduling: one block per tile, 512 threads, so the two slots' updates
+// and clips happen in slot order with no atomics: slot 0's pass over the
+// grid, a barrier, slot 1's pass (a barrier makes the block's global writes
+// visible to the whole block). Each slot evaluates only the cells of its
+// evaluation box (raster_common.cuh `evaluation_box`; csrc/free_raster.cu
+// has the argument): R, the largest range the slot's own table holds
+// (pack16: 15 bits with the ring, 16 without; grouped: the carve and the
+// tail of every group, padding included), is a block reduction taken while
+// the tables are copied into shared memory, and no cell outside the
+// bounding box of the fan's sector of radius R + 1, widened by a cell, can
+// take evidence. The box is intersected with the slot's window; the block's
+// threads share it through a compact index, so the work follows the box and
+// not the 64 x 256 window. Every other cell of the window still takes the
+// slot's clip with a +0.0 delta (`v + 0 * act`, clipped): a cheap pass, one
+// 16-byte load per four cells, that writes a cell only where the clip
+// changes its bits (a value beyond +-clamp, a -0.0), so on a clean grid it
+// reads the window and writes nothing. Rows in neither window are not
+// touched. The
 // slots' range tables sit in shared memory and the lookup is an index (the
 // TPU's select tree, _hexadecet_gather_packed, and its loop over groups are
 // Mosaic workarounds). The tile's painted count is a block reduction in
@@ -40,9 +53,10 @@
 // any order, rounded to float once.
 //
 // What bounds it: at 1024 agents (512 tiles) the windows cover 1024 x 64 x
-// 256 cells, read and written once: 134 MB, about 40 us at 3.35 TB/s; the
-// ~50 float operations per cell evaluation are about 13 us at 67 TFLOP/s.
-// Bytes bound it.
+// 256 cells, read and written once: 134 MB, about 40 us at 3.35 TB/s. The
+// evaluated cells (~28-45 x 52 a slot at the 26-cell reach on the scan, a
+// long dependent chain each) are issue- and latency-bound; at 64 registers a
+// thread (__launch_bounds__) two 512-thread blocks, 32 warps, fit an SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -std=c++17 -shared -Xcompiler -fPIC (see ops/cuda_build.py)
@@ -56,9 +70,9 @@ using raster::Polar;
 
 constexpr int TILE_ROWS = 128;
 constexpr int TILE_COLS = 256;
-constexpr int ROW_GROUPS = 2;
-constexpr int THREADS = TILE_COLS * ROW_GROUPS;            // 512
+constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
+constexpr int MIN_BLOCKS = 2;                              // per SM
 constexpr int SLOTS = 2;                                   // agents per room
 constexpr int META = 8;                                    // floats per slot
 constexpr int MAX_WORDS = 128;                             // <= 256 beams
@@ -78,7 +92,7 @@ struct Params {
 };
 
 template <bool GROUPED, bool RING>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 room_raster_kernel(float* __restrict__ grid,
                    const float* __restrict__ meta,    // [tiles, 2, 8]
                    const int* __restrict__ table,     // [tiles, 2, tab_words]
@@ -87,48 +101,94 @@ room_raster_kernel(float* __restrict__ grid,
   const int tile = blockIdx.x;
   const int br = tile / p.n_tile_cols;
   const int bc = tile % p.n_tile_cols;
+  const int gr0 = br * TILE_ROWS;
+  const int gc0 = bc * TILE_COLS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
   __shared__ uint32_t s_tab[SLOTS][TABLE_WORDS];
+  __shared__ float s_reach[SLOTS][WARPS];
   __shared__ double s_red[SLOTS][WARPS];
 
+  // the slots' tables, and each slot's R
+  constexpr int KIND = GROUPED ? raster::GROUPED : raster::PACK16;
   const int* tab = table + (size_t)tile * SLOTS * p.tab_words;
-  for (int i = threadIdx.x; i < SLOTS * p.tab_words; i += THREADS)
-    s_tab[i / p.tab_words][i % p.tab_words] = (uint32_t)tab[i];
-
-  float ax[SLOTS], ay[SLOTS], yaw[SLOTS], act[SLOTS];
-  int r0[SLOTS];
+  float reach[SLOTS];
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) {
-    const float* m = meta + ((size_t)tile * SLOTS + s) * META;
-    ax[s] = m[0];
-    ay[s] = m[1];
-    yaw[s] = m[2];
-    act[s] = m[3];
-    r0[s] = (int)m[4];
+    reach[s] = 0.f;
+    for (int w = threadIdx.x; w < p.tab_words; w += THREADS) {
+      const uint32_t x = (uint32_t)tab[s * p.tab_words + w];
+      s_tab[s][w] = x;
+      reach[s] = fmaxf(reach[s], raster::word_reach<KIND, RING>(x, w));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      reach[s] = fmaxf(reach[s],
+                       __shfl_xor_sync(0xffffffffu, reach[s], off));
+    if (lane == 0) s_reach[s][warp] = reach[s];
   }
   __syncthreads();
 
-  const int col = threadIdx.x % TILE_COLS;
-  const int gc = bc * TILE_COLS + col;
-  const float cx = (float)gc + 0.5f;
-  const int lo = min(r0[0], r0[1]);
-  const int hi = max(r0[0], r0[1]) + p.win_rows;
-
+  const float clampv = p.f.clampv;
   double painted[SLOTS] = {0.0, 0.0};
-  for (int r = lo + threadIdx.x / TILE_COLS; r < hi; r += ROW_GROUPS) {
-    bool in[SLOTS];
+  float act[SLOTS];
 #pragma unroll
-    for (int s = 0; s < SLOTS; ++s)
-      in[s] = (r >= r0[s]) && (r < r0[s] + p.win_rows);
-    if (!in[0] && !in[1]) continue;
-    const int gr = br * TILE_ROWS + r;
-    float* cell = grid + (size_t)gr * p.size + gc;
-    float v = *cell;
-    const float cy = (float)gr + 0.5f;
+  for (int s = 0; s < SLOTS; ++s) {
+    const float* m = meta + ((size_t)tile * SLOTS + s) * META;
+    const float ax = m[0];
+    const float ay = m[1];
+    const float yaw = m[2];
+    act[s] = m[3];
+    const int r0 = (int)m[4];
+    float rs = reach[s];
 #pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      if (!in[s]) continue;
-      const Polar c = raster::polar(cx - ax[s], cy - ay[s], yaw[s], p.f);
+    for (int w = 0; w < WARPS; ++w) rs = fmaxf(rs, s_reach[s][w]);
+    // slot s - 1's cells are written: the next slot reads them
+    if (s > 0) __syncthreads();
+
+    // tile-local box ∩ window [lo, hi)
+    const raster::Box box = raster::evaluation_box(ax, ay, yaw, rs, p.f);
+    const int2 er = raster::clamp_range(box.y_lo, box.y_hi, gr0, r0,
+                                        r0 + p.win_rows);
+    const int2 ec = raster::clamp_range(box.x_lo, box.x_hi, gc0, 0,
+                                        TILE_COLS);
+    const int e_h = er.y - er.x;
+    const int e_w = ec.y - ec.x;
+
+    // the window's other cells: the clip with a +0.0 delta, written only
+    // where it changes the bits (one 16-byte load per four cells)
+    for (int i = threadIdx.x; i < p.win_rows * (TILE_COLS / 4);
+         i += THREADS) {
+      const int lr = r0 + i / (TILE_COLS / 4);
+      const int lc = 4 * (i % (TILE_COLS / 4));
+      float* cell = grid + (size_t)(gr0 + lr) * p.size + gc0 + lc;
+      const float4 q = *reinterpret_cast<const float4*>(cell);
+      const float v4[4] = {q.x, q.y, q.z, q.w};
+      const bool row_in = lr >= er.x && lr < er.y;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (row_in && lc + j >= ec.x && lc + j < ec.y) continue;
+        const float v = fminf(fmaxf(v4[j] + 0.f * act[s], -clampv), clampv);
+        if (__float_as_uint(v) != __float_as_uint(v4[j])) cell[j] = v;
+      }
+    }
+    // the box's cells are read only after the cheap pass has read them
+    __syncthreads();
+
+    // this thread's box cells: the compact index walked as (row, column)
+    // steps with one carry, no division
+    int lr = er.x, lc = ec.x, step_r = 0, step_c = 0;
+    if (e_w > 0) {
+      lr += threadIdx.x / e_w;
+      lc += threadIdx.x % e_w;
+      step_r = THREADS / e_w;
+      step_c = THREADS % e_w;
+    }
+    for (int i = threadIdx.x; i < e_h * e_w; i += THREADS) {
+      const float cx = (float)(gc0 + lc) + 0.5f;
+      const float cy = (float)(gr0 + lr) + 0.5f;
+      const Polar c = raster::polar(cx - ax, cy - ay, yaw, p.f);
       float rb, tf = 0.f, rt = 0.f;
       if (GROUPED) {
         // words 3g, 3g + 1, 3g + 2 (the fraction is 0 without the ring)
@@ -159,9 +219,15 @@ room_raster_kernel(float* __restrict__ grid,
       }
       painted[s] += pc;
       // apply, clipped after this slot
-      v = fminf(fmaxf(v + delta * act[s], -p.f.clampv), p.f.clampv);
+      float* cell = grid + (size_t)(gr0 + lr) * p.size + gc0 + lc;
+      *cell = fminf(fmaxf(*cell + delta * act[s], -clampv), clampv);
+      lr += step_r;
+      lc += step_c;
+      if (lc >= ec.y) {
+        lc -= e_w;
+        ++lr;
+      }
     }
-    *cell = v;
   }
 
   // the tile's painted count, exact in double
@@ -170,7 +236,7 @@ room_raster_kernel(float* __restrict__ grid,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       painted[s] += __shfl_down_sync(0xffffffffu, painted[s], off);
-    if ((threadIdx.x & 31) == 0) s_red[s][threadIdx.x >> 5] = painted[s];
+    if (lane == 0) s_red[s][warp] = painted[s];
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -183,6 +249,13 @@ room_raster_kernel(float* __restrict__ grid,
     }
     counts[tile] = (float)total;
   }
+}
+
+const void* instance(int grouped, int ring) {
+  return grouped ? (ring ? (const void*)room_raster_kernel<true, true>
+                         : (const void*)room_raster_kernel<true, false>)
+                 : (ring ? (const void*)room_raster_kernel<false, true>
+                         : (const void*)room_raster_kernel<false, false>);
 }
 
 }  // namespace
@@ -215,12 +288,21 @@ extern "C" int room_raster_launch(
   raster::fan_reciprocals(p.f);
   const int n_tiles = (size / TILE_ROWS) * p.n_tile_cols;
   if (n_tiles > 0) {
-    auto kernel = grouped ? (ring ? room_raster_kernel<true, true>
-                                  : room_raster_kernel<true, false>)
-                          : (ring ? room_raster_kernel<false, true>
-                                  : room_raster_kernel<false, false>);
-    kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(grid, meta, table,
-                                                          counts, p);
+    void* args[] = {&grid, (void*)&meta, (void*)&table, &counts, &p};
+    const cudaError_t err =
+        cudaLaunchKernel(instance(grouped, ring), dim3(n_tiles),
+                         dim3(THREADS), args, 0, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the (grouped, ring) instance, from the
+// occupancy calculator, into *blocks; returns the CUDA error code.
+extern "C" int room_raster_blocks_per_sm(int grouped, int ring,
+                                         int* blocks) {
+  if ((grouped != 0 && grouped != 1) || (ring != 0 && ring != 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, instance(grouped, ring), THREADS, 0);
 }

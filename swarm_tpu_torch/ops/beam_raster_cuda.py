@@ -46,21 +46,21 @@ inverse-sensor-model evidence of its beam or group (free carve
 is clipped to [-clamp, clamp] after each agent, agents in index order. The
 per-agent painted count is the engine's applied-write counter.
 
-What bounds it on the H100: at 1024 agents x 64 x 256 cells per step the
-kernel evaluates up to ~17 M cells, each ~40 float operations (a division,
-a square root, the atan2 polynomial, the bin and the table lookup), and
-reads and writes the tiles the windows cover once (~128 MB on the 4096^2
-float32 grid, half that in bf16). The range table (at most 512 bytes per
-agent packed, 12 bytes a group grouped) is not the bound. The design
-(csrc/free_raster.cu) gives each block one 64 x 128 tile held in float
-registers, so the read-modify-write of overlapping windows happens in
-registers in agent order (with the bf16 rounding after each agent on a
-bf16 grid) and the grid is read and written once per launch, and each
-agent's table sits in shared memory, where the lookup is an index (the
-TPU's select trees and group loop are Mosaic workarounds). It is simple,
-not yet fast: the per-cell work of inactive fan-bbox strips is skipped
-(the wrapped fan's bbox is the full disc, so it skips nothing), but nothing
-else is pruned.
+What bounds it on the H100: at 1024 agents the windows cover the 4096^2
+float32 grid (~128 MB read and written once, half that in bf16), and each
+evaluated cell costs ~80 float operations in a long dependent chain (a
+division, a square root, the atan2 polynomial, the bin and the table
+lookup). The range table (at most 512 bytes per agent packed, 12 bytes a
+group grouped) is not the bound. The design (csrc/free_raster.cu): each
+block owns one 64 x 128 tile and applies its agents in index order, in
+place, with a clip (and on a bf16 grid the bf16 rounding) after each; it
+evaluates only each agent's evaluation box (`evaluation_box`: the
+bounding box of the fan's sector of radius R + 1 around the agent, R the
+largest range its own table holds, widened by a cell; no other cell can
+take evidence), and skips the other window cells, whose +0.0 delta and
+clip are the identity, wherever its tile holds only values in [-clamp,
+clamp] and no -0.0. The agents' tables, origins and meta are copied into
+shared memory one pair ahead.
 
 `free_raster` dispatches on where the grid lies: a CPU tensor goes to
 `free_raster_plain`; a CUDA tensor launches the kernel or raises.
@@ -81,8 +81,9 @@ from swarm_tpu_torch._device import div as _div
 from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.ops import cuda_build
-from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT8,
-                                             REACH_CELLS, BeamSpec,
+from swarm_tpu_torch.ops.beam_raster import (RANGE_MAX_CELLS8, RANGE_QUANT,
+                                             RANGE_QUANT8, REACH_CELLS,
+                                             BeamSpec,
                                              _pack_range16, _unpack_range16,
                                              fan_bbox_cells,
                                              group_range_stats,
@@ -94,6 +95,12 @@ TILE_R = 64            # grid tile owned by one CUDA block (csrc TILE_R/C)
 TILE_C = 128
 MAX_WORDS = 128        # csrc MAX_WORDS: packed table words per agent
 MAX_GROUPS = 512       # csrc MAX_GROUPS: groups per agent in the grouped table
+# csrc/raster_common.cuh: the evaluation box's radius beyond R, its margin
+# in cells, the slack of its arc and the largest |yaw| it takes a sector for
+BOX_RADIUS = 1.0
+BOX_MARGIN = 1.0
+ARC_SLACK = 0.01
+SECTOR_YAW_MAX = 64.0
 # csrc Form: the launch's form code from (table, ring)
 FORMS = {("pack8", True): 0, ("pack16", False): 1, ("pack16", True): 2,
          ("pack8", False): 3, ("grouped", True): 4, ("grouped", False): 5}
@@ -338,6 +345,71 @@ def _constants(spec: BeamSpec, cfg: GridConfig, n_bins: int,
                 miss_tail=cfg.logodds_miss * tail_weight)
 
 
+def table_reach(table, kind: str, ring: bool):
+    """R [M] float32: the largest range each row of a beam table holds,
+    decoded as the lookup decodes it, as the kernels take it (every field,
+    padding included): `table` [M, W] int32 pack8 / pack16 words, or [M,
+    G, 3] float32 grouped triples (the carve and the tail, not the trusted
+    fraction; a NaN range is dropped, as the kernels' fmaxf drops it)."""
+    m = table.shape[0]
+    if kind == "grouped":
+        t = table.reshape(m, -1, 3)[..., 0::2].reshape(m, -1)
+        t = torch.where(torch.isnan(t), torch.zeros_like(t), t)
+        return torch.clamp_min(t, 0.0).amax(dim=1)
+    bits, quant = (8, RANGE_QUANT8) if kind == "pack8" else (16, RANGE_QUANT)
+    mask = (1 << (bits - 1 if ring else bits)) - 1
+    t = table.reshape(m, -1).to(torch.int64) & 0xFFFFFFFF
+    fields = torch.stack([(t >> s) & mask for s in range(0, 32, bits)], -1)
+    return fields.reshape(m, -1).amax(dim=1).to(torch.float32) * \
+        (1.0 / quant)
+
+
+def evaluation_box(table, kind: str, ring: bool, ax, ay, yaw,
+                   spec: BeamSpec, n_bins: int):
+    """The cells the kernels evaluate for each agent (or room slot), as
+    csrc/raster_common.cuh `evaluation_box` computes them: the bounding box
+    of the sector of radius R + 1 (R = `table_reach`) around the agent's
+    position (ax, ay) [M] in the kernel's cells, over the fan's arc from
+    `yaw` [M] widened by 0.01 rad on each side (the whole disc on the
+    wrapped fan, or where |yaw| > 64), with the agent, widened by one cell.
+    No cell outside it can take evidence (csrc/free_raster.cu's note); the
+    kernels intersect it with the window, the tile and, in the window
+    kernel, the fan-bbox strips. `n_bins`: beams, or groups in the grouped
+    tier. Returns (row_lo, row_hi, col_lo, col_hi) [M] float32, upper
+    bounds exclusive. Only tests and chip_smoke.py call it: it mirrors the
+    kernels' arithmetic (sines and cosines up to their last bits)."""
+    f32 = torch.float32
+    k = _constants(spec, GridConfig(), n_bins, 0.0)
+    rho = table_reach(table, kind, ring) + BOX_RADIUS
+    one = torch.ones_like(ax)
+    xmin, xmax, ymin, ymax = -one, one, -one, one
+    arc = float(torch.tensor(float(n_bins), dtype=f32) *
+                torch.tensor(k["gdt"], dtype=f32) + 2.0 * ARC_SLACK)
+    two_pi = float(torch.tensor(2.0 * math.pi, dtype=f32))
+    if not spec.wrap and arc < two_pi:
+        lo = yaw.to(f32) + k["theta0"] - k["half_dt"] - ARC_SLACK
+        hi = lo + arc
+
+        def has(a):
+            d = a - lo
+            return d - two_pi * torch.floor(d * (1.0 / two_pi)) <= arc
+        sector = torch.abs(yaw) <= SECTOR_YAW_MAX
+        cl, ch, sl, sh = torch.cos(lo), torch.cos(hi), torch.sin(lo), \
+            torch.sin(hi)
+        xmax = torch.where(sector & ~has(0.0), torch.maximum(cl, ch), one)
+        xmin = torch.where(sector & ~has(math.pi), torch.minimum(cl, ch),
+                           -one)
+        ymax = torch.where(sector & ~has(math.pi / 2),
+                           torch.maximum(sl, sh), one)
+        ymin = torch.where(sector & ~has(-math.pi / 2),
+                           torch.minimum(sl, sh), -one)
+    z = torch.zeros_like(ax)
+    return (torch.floor(ay + rho * torch.minimum(ymin, z) - BOX_MARGIN),
+            torch.ceil(ay + rho * torch.maximum(ymax, z) + BOX_MARGIN),
+            torch.floor(ax + rho * torch.minimum(xmin, z) - BOX_MARGIN),
+            torch.ceil(ax + rho * torch.maximum(xmax, z) + BOX_MARGIN))
+
+
 # --------------------------------------------------------------------------
 # plain torch version
 
@@ -487,6 +559,21 @@ def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.free_raster_launch.argtypes = [P] * 8 + [I] * 12 + [F] * 13 + [P]
     lib.free_raster_launch.restype = I
+    lib.free_raster_blocks_per_sm.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.free_raster_blocks_per_sm.restype = I
+
+
+def blocks_per_sm(kind: str, ring: bool, dtype=torch.float32) -> int:
+    """Resident blocks per SM of the kernel instance of (table, ring,
+    storage), from CUDA's occupancy calculator (builds the kernel; needs a
+    card)."""
+    out = ctypes.c_int(0)
+    err = cuda_build.load("free_raster", _bind).free_raster_blocks_per_sm(
+        FORMS[kind, ring], STORAGE[dtype], ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"free_raster occupancy query failed: CUDA error "
+                           f"{err}")
+    return out.value
 
 
 def _tile_pairs(w, n_rows: int, n_cols: int):

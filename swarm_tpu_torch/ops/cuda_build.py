@@ -37,6 +37,8 @@ _lock = threading.Lock()
 # name -> ptxas's register and spill summary of the build made by this
 # process (none when the library was already built)
 ptxas = {}
+# name -> [(kernel instance, registers, bytes spilled)] of the same build
+ptxas_instances = {}
 
 
 def source(name: str) -> str:
@@ -66,6 +68,7 @@ def build(name: str) -> str:
     if run.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{run.stderr}")
     ptxas[name] = _ptxas_summary(run.stderr)
+    ptxas_instances[name] = _ptxas_instances(run.stderr)
     os.replace(tmp, out)
     return out
 
@@ -80,6 +83,32 @@ def _ptxas_summary(log: str) -> str:
     return (f"{len(regs)} instances, {min(regs)}-{max(regs)} registers, "
             f"{min(spills, default=0)}-{max(spills, default=0)} bytes "
             f"spilled")
+
+
+def _instance_label(mangled: str) -> str:
+    """`free_raster_kernel<0,1,bf16>` for a mangled kernel template
+    instance: integers, bools as 0 / 1, float as f32, __nv_bfloat16 as
+    bf16."""
+    m = re.search(r"([A-Za-z_]+_kernel)I(.*?)EEv", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E|(?<![\d_])(f)(?=E|L|\d|$)|"
+                      r"\d+(__nv_bfloat16)", m.group(2) + "E")
+    names = [a or ("f32" if f else "bf16") for a, f, _ in args]
+    return f"{m.group(1)}<{','.join(names)}>"
+
+
+def _ptxas_instances(log: str) -> list:
+    """[(kernel instance, registers, bytes spilled)] of one `-Xptxas -v`
+    log, one entry per compiled kernel."""
+    out = []
+    for chunk in re.split(r"Compiling entry function '", log)[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((_instance_label(chunk.split("'", 1)[0]),
+                    int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else 0))
+    return out
 
 
 def build_all(names) -> dict:

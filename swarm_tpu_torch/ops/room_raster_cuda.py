@@ -34,10 +34,12 @@ tile, [BR, BC] (the engine rounds it per tile before its int32 sum).
 
 What bounds it on the H100: at 1024 agents the windows cover 1024 x 64 x
 256 cells, each read and written once (134 MB, ~40 us at 3.35 TB/s); the
-per-cell arithmetic (~50 float operations) is ~13 us at 67 TFLOP/s. Bytes
-bound it. The design (csrc/room_raster.cu): one block per tile, one thread
-per cell column, the two slots applied in registers in order, the grid
-updated in place, the tables in shared memory.
+evaluated cells' arithmetic is a long dependent chain. The design
+(csrc/room_raster.cu): one block per tile, slot 0 then slot 1 in place
+with a barrier between, each slot evaluating only its evaluation box
+(`beam_raster_cuda.evaluation_box`) and giving the rest of its window the
++0.0 delta's clip in a cheap pass that writes only cells it changes; the
+tables in shared memory.
 
 `room_raster` dispatches on where the grid lies: a CPU tensor goes to
 `room_raster_plain`; a CUDA tensor launches the kernel or raises.
@@ -237,6 +239,20 @@ def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.room_raster_launch.argtypes = [P] * 4 + [I] * 8 + [F] * 13 + [P]
     lib.room_raster_launch.restype = I
+    lib.room_raster_blocks_per_sm.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.room_raster_blocks_per_sm.restype = I
+
+
+def blocks_per_sm(grouped: bool, ring: bool) -> int:
+    """Resident blocks per SM of the kernel instance of (table, ring), from
+    CUDA's occupancy calculator (builds the kernel; needs a card)."""
+    out = ctypes.c_int(0)
+    err = cuda_build.load("room_raster", _bind).room_raster_blocks_per_sm(
+        int(grouped), int(ring), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"room_raster occupancy query failed: CUDA error "
+                           f"{err}")
+    return out.value
 
 
 def _launch(logodds, rm: _Rooms, spec: BeamSpec, cfg: GridConfig,

@@ -518,3 +518,119 @@ def test_band_tile_forms_bit_equal_plain(cuda, window, n_beams, n_groups,
     assert diff == 0, f"{diff} cells differ"
     assert torch.equal(cnt_k, cnt_p)
     assert float(cnt_k.sum()) > 0
+
+
+def _dirty_grid(rng, shape, prefill):
+    """A grid for the evaluation box's clean-tile test: zeros, values
+    beyond +-clamp and -0.0 everywhere ("beyond"), or such values in 1% of
+    the cells of a zero grid ("sparse": clean and dirty tiles side by
+    side, dirty cells outside the agents' boxes)."""
+    dirty = rng.choice([-12.5, 11.0, -0.0, 9.7, -3.2, 0.0], shape)
+    if prefill == "zero":
+        return np.zeros(shape)
+    if prefill == "beyond":
+        return dirty
+    return np.where(rng.random(shape) < 0.01, dirty, 0.0)
+
+
+# window forms for the box cases: (beams, groups, pack8, ring, dtype)
+BOX_WINDOW_FORMS = [(181, 181, True, True, torch.float32),
+                    (181, 181, False, False, torch.bfloat16),
+                    (181, 8, False, True, torch.float32),
+                    (4, 2, False, False, torch.bfloat16),
+                    (4, 4, True, True, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", BOX_WINDOW_FORMS,
+                         ids=lambda f: "-".join(map(str, f[:4])))
+@pytest.mark.parametrize("prefill", ["zero", "beyond", "sparse"])
+def test_window_box_cases_bit_equal_plain(cuda, form, prefill):
+    """The window kernel's evaluation box: ranges far beyond the reach (up
+    to each field's clamp), agents on the 64 x 128 tile edges so that the
+    boxes cross them, inactive agents, and grids holding values beyond
+    +-clamp and -0.0 cells, which every window's clip must still change."""
+    n_beams, n_groups, pack8, ring, dtype = form
+    size = 512
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0,
+                     logodds_dtype="bfloat16" if dtype == torch.bfloat16
+                     else "float32")
+    rng = np.random.default_rng(n_beams + 3 * n_groups + pack8)
+    n = 40
+    edges = np.stack([rng.integers(1, size // 64, n) * 64.0,
+                      rng.integers(1, size // 128, n) * 128.0], -1)
+    cells = edges + rng.uniform(-4, 4, (n, 2))
+    cells[:8] = cells[0] + rng.uniform(-3, 3, (8, 2))     # overlapping
+    xy = torch.tensor(cells[:, ::-1] * cfg.resolution, dtype=torch.float32,
+                      device=cuda)
+    yaw = torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32,
+                       device=cuda)
+    scale = rng.choice([0.3, 1.2, 7.0], (n, 1))
+    dist = torch.tensor(rng.uniform(0.02, 1.0, (n, n_beams)) * scale,
+                        dtype=torch.float32, device=cuda)
+    tr = torch.tensor(rng.random((n, n_beams)) < 0.7,
+                      device=cuda) if ring else None
+    act = torch.tensor(rng.random(n) < 0.8, device=cuda)
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    g_k = torch.tensor(_dirty_grid(rng, (size, size), prefill),
+                       dtype=torch.float32, device=cuda).to(dtype)
+    g_p = g_k.clone()
+    kw = dict(reach=26, pack8=pack8, n_groups=n_groups, tail_weight=0.25)
+    before = free_raster.launches
+    _, cnt_k = free_raster(g_k, xy, yaw, dist, act, tr, spec, cfg, **kw)
+    torch.cuda.synchronize()
+    assert free_raster.launches == before + 1
+    _, cnt_p = free_raster_plain(g_p, xy, yaw, dist, act, tr, spec, cfg,
+                                 **kw)
+    # bitwise: -0.0 == 0.0 would hide a skipped clip
+    diff = int((g_k.view(torch.int16 if dtype == torch.bfloat16 else
+                         torch.int32) !=
+                g_p.view(torch.int16 if dtype == torch.bfloat16 else
+                         torch.int32)).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups,ring", [(181, True), (181, False),
+                                           (8, True)])
+@pytest.mark.parametrize("prefill", ["zero", "beyond", "sparse"])
+def test_room_box_cases_bit_equal_plain(cuda, n_groups, ring, prefill):
+    """The room kernel's evaluation box: ranges far beyond the reach,
+    agents at their tile's edges, inactive agents, empty tiles, and grids
+    holding values beyond +-clamp and -0.0 cells."""
+    size, per_row, n_rooms = 512, 2, 7
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    rng = np.random.default_rng(n_groups + 2 * ring)
+    _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    n = 2 * n_rooms
+    room = np.arange(n) // 2
+    xy = origins[room] + rng.uniform([0.3, 0.3], [5.7, 3.7], (n, 2))
+    xy[:4] = origins[[0, 0, 1, 1]] + [[0.05, 0.05], [6.35, 6.35],
+                                      [6.3, 0.1], [0.1, 6.3]]
+    dist = rng.uniform(0.02, 1.0, (n, 181)) * rng.choice([0.3, 1.2, 7.0],
+                                                         (n, 1))
+    act = rng.random(n) < 0.8
+
+    def dev(a, dtype=None):
+        x = torch.from_numpy(np.asarray(a)).to(cuda)
+        return x if dtype is None else x.to(dtype)
+
+    f32 = torch.float32
+    args = (dev(xy, f32), dev(rng.uniform(-np.pi, np.pi, n), f32),
+            dev(dist, f32), dev(act))
+    kw = dict(n_groups=n_groups, per_row=per_row, reach=26,
+              trusted=dev(rng.random((n, 181)) < 0.7) if ring else None,
+              tail_weight=0.25)
+    g_k = dev(_dirty_grid(rng, (size, size), prefill), f32)
+    g_p = g_k.clone()
+    before = room_raster.launches
+    _, cnt_k = room_raster(g_k, *args, BeamSpec.scan(181), cfg, **kw)
+    torch.cuda.synchronize()
+    assert room_raster.launches == before + 1
+    _, cnt_p = room_raster_plain(g_p, *args, BeamSpec.scan(181), cfg, **kw)
+    diff = int((g_k.view(torch.int32) != g_p.view(torch.int32)).sum())
+    assert diff == 0, f"{diff} cells differ"
+    assert torch.equal(cnt_k, cnt_p)
+    assert float(cnt_k.sum()) > 0
