@@ -20,14 +20,19 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      the 181-beam scan / the wrapped 4-way fan x a float32 / bfloat16 grid;
      the room kernel's four forms: with / without the ring x scan / wrapped
      fan. Maps BIT-EQUAL (bit for bit: a -0.0 against a +0.0 counts),
-     counts equal. Timed: the kernel on the device (the mean of 20
-     launches' CUDA kernel times from torch.profiler: the record's `ms`),
-     the launch call on prepared operands and the wrapper with its
-     preparation (CUDA events), the plain version; the bound is computed
-     from this run's inputs, and beside it the cells the kernel evaluates
-     (its evaluation boxes, beam_raster_cuda.evaluation_box). The
-     slice's form (pack8 + ring on bf16) also at the slice's shapes (32,768
-     agents on 23,296^2, the plain version in agent chunks);
+     counts equal. Timed: the launch call on prepared operands (CUDA
+     events, median of 20: the record's `ms`, its measure from the first
+     kernel on), the kernel alone on the device (the mean of 20 launches'
+     CUDA kernel times from torch.profiler: `device_ms`), the wrapper with
+     its preparation, the plain version. The bound (`bound_ms`) is the
+     work this run's inputs need: the covered cells read once and the
+     cells whose bits the call changes written once, plus the operands;
+     beside it the covered bound (`covered_bound_ms`, the records' earlier
+     bound: every covered cell read and written, every strip cell
+     evaluated) and the cells the kernel evaluates (its evaluation boxes,
+     beam_raster_cuda.evaluation_box). The slice's form (pack8 + ring on
+     bf16) also at the slice's shapes (32,768 agents on 23,296^2, the
+     plain version in agent chunks);
   3. the slice: bench.py --agents 32768 --grid-dtype bfloat16
      (presets.deployable(32768, grid_dtype="bfloat16")): one warm-up step,
      the counters set to 0, 65 steps (bench.py's 400 cut to fit the time
@@ -146,6 +151,8 @@ import time
 
 import torch
 
+from kernel_ab import device_ms
+
 N_AGENTS = 1024
 SLICE_AGENTS = 32768         # bench.py --agents 32768 --grid-dtype bfloat16
 SLICE_STEPS = 65             # bench.py's 400 steps, cut to fit the limit
@@ -202,36 +209,6 @@ def _median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def _device_ms(fn, reps: int, kernel: str, launch_ms: float):
-    """The kernel's own time: the mean device time of the kernel whose
-    name holds `kernel` over `reps` calls of `fn` (torch.profiler's CUDA
-    activity; no host gap, no other kernel of the call), over the launches
-    the profiler recorded (on the card it can drop one of 20). A session
-    that recorded fewer than half is run again, twice at most; after that
-    the time is `launch_ms`, the launch call's CUDA-event time. Returns
-    (ms, its source)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = prof.key_averages()
-        total, count = 0.0, 0
-        for row in rows:
-            if kernel in row.key:
-                total += getattr(row, "device_time_total",
-                                 getattr(row, "cuda_time_total", 0.0))
-                count += row.count
-        if 2 * count >= reps and total > 0:
-            return total / count / 1e3, f"profiler, {count} of {reps}"
-        print(f"the profiler saw {count} launches of {kernel}, not {reps} "
-              f"({len(rows)} rows)")
-    return launch_ms, "launch call"
-
-
 def _ab_ms(first, second, reps_first: int, reps_second: int):
     """Medians of two functions timed in turns first, second, second,
     first; returns (min of first's, min of second's, all four)."""
@@ -253,6 +230,54 @@ def _bound(n_bytes: float, n_ops: float):
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _changed_cells(launch, g) -> int:
+    """The cells whose bits one call of `launch` changes on the grid `g`
+    as it is now; `g` is restored after."""
+    g0 = g.clone()
+    launch()
+    torch.cuda.synchronize()
+    n = _n_differ(g, g0)
+    g.copy_(g0)
+    return n
+
+
+def _bounds(elem: int, covered: int, changed: int, operand_bytes: int,
+            ops_per_cell: int, evaluated: int):
+    """The record's bounds for a raster on this run's inputs. `bound_ms`:
+    the work the function needs, the covered cells (the union of the
+    windows) read once, the cells whose bits it changes written once and
+    evaluated, the operands read and the counts written once.
+    `covered_bound_ms`: the records' earlier bound, kept for comparison:
+    every covered cell read and written once, every cell of the fan-bbox
+    strips (`evaluated`) evaluated. Returns (the bounds, the needed
+    bytes)."""
+    n_bytes = elem * (covered + changed) + operand_bytes
+    bound, bound_by = _bound(n_bytes, changed * ops_per_cell)
+    covered_bound = _bound(2 * elem * covered + operand_bytes,
+                           evaluated * ops_per_cell)[0]
+    return dict(bound_ms=bound, bound_by=bound_by,
+                covered_bound_ms=covered_bound), n_bytes
+
+
+def _timed(worst, t_kernel, t_plain, runs, t_wrapper, t_device, bounds,
+           n_bytes, changed):
+    """A timed raster form's record and the timing part of its line. `ms`
+    is the launch call on prepared operands (CUDA events, median of 20:
+    host gap, the wrapper's fill and sum, the kernel; the records' measure
+    from the first kernel on), `device_ms` the kernel alone
+    (`kernel_ab.device_ms`)."""
+    text = (f"launch call {t_kernel:.4f} ms (runs {runs[0]:.4f}, "
+            f"{runs[3]:.4f}), kernel alone {t_device:.4f} ms (profiler), "
+            f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
+            f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
+            f"{bounds['bound_ms']:.4f} ms by {bounds['bound_by']} "
+            f"({n_bytes} bytes: the covered cells read, {changed} changed "
+            f"cells written), the covered bound "
+            f"{bounds['covered_bound_ms']:.4f} ms")
+    return text, dict(max_abs_err=worst, ms=t_kernel, device_ms=t_device,
+                      plain_ms=t_plain, **bounds)
 
 
 def phase_build():
@@ -574,37 +599,36 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
                     pack8, **tier)
     ln = bc._prepare(g_t, w, spec)
     dense = bc._dense_fan(spec, reach)
+
+    def launch():
+        bc._launch(g_t, ln, spec, cfg.grid, dense)
+
+    changed = _changed_cells(launch, g_t)
     t_kernel, t_plain, runs = _ab_ms(
-        lambda: bc._launch(g_t, ln, spec, cfg.grid, dense),
+        launch,
         lambda: plain(g_t, xy, yaw, db, alive, tr, spec, cfg.grid, reach),
         20, 3 if n <= PLAIN_CHUNK else 1)
     t_wrapper = _median_ms(lambda: kernel(
         g_t, xy, yaw, db, alive, tr, spec, cfg.grid, reach), 20)
-    t_device, src = _device_ms(
-        lambda: bc._launch(g_t, ln, spec, cfg.grid, dense), 20,
-        "free_raster_kernel", t_kernel)
+    t_device = device_ms(launch, 20, "free_raster_kernel")
 
-    # bound: the union of the windows read and written once, the operands
-    # read once, the counts written once; every cell of the fan-bbox strips
-    # the kernel evaluates
-    cells = _covered_cells(w, size, dev)
-    n_bytes = 2 * g_t.element_size() * cells + \
-        _nbytes(ln.origins, ln.meta, ln.table) + 4 * n
+    # bounds: over the union of the windows; the operands read once, the
+    # counts written once; the covered bound evaluates every cell of the
+    # fan-bbox strips
     evaluated = int(((w.t_ch - w.t_cl).clamp_min(0) * w.rows * 128).sum())
-    bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
+    bounds, n_bytes = _bounds(
+        g_t.element_size(), _covered_cells(w, size, dev), changed,
+        _nbytes(ln.origins, ln.meta, ln.table) + 4 * n, OPS_PER_CELL,
+        evaluated)
+    text, rec = _timed(worst, t_kernel, t_plain, runs, t_wrapper, t_device,
+                       bounds, n_bytes, changed)
     form = bc.form_name(spec, pack8, ring, dtype, grouped)
     groups = f" in {w.n_bins} groups" if grouped else ""
     print(f"{name} raster at {n} agents x {spec.n_beams} beams{groups} "
           f"({form}, [{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: "
-          f"kernel {t_device:.4f} ms ({src}), launch call "
-          f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), wrapper "
-          f"with its preparation {t_wrapper:.4f} ms, plain torch "
-          f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
-          f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} cell "
-          f"evaluations); the kernel evaluates {_box_cells(w, spec)} cells "
-          f"(its boxes)")
-    return form, dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
-                      bound_ms=bound, bound_by=bound_by)
+          f"{text}; the kernel evaluates {_box_cells(w, spec)} cells (its "
+          f"boxes; the covered bound counts {evaluated})")
+    return form, rec
 
 
 def phase_window_kernel(card, dev):
@@ -699,40 +723,38 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
     rm = rc._rooms(g_t, xy, yaw, db, alive, spec, cfg.grid, per_row, tb,
                    reach, kw["n_groups"], tail)
     dense = rc._dense_fan(spec, reach)
-    t_kernel, t_plain, runs = _ab_ms(
-        lambda: rc._launch(g_t, rm, spec, cfg.grid, dense),
-        lambda: plain(g_t, xy, yaw, db, alive), 20, 3)
-    t_wrapper = _median_ms(lambda: kernel(g_t, xy, yaw, db, alive), 20)
-    t_device, src = _device_ms(
-        lambda: rc._launch(g_t, rm, spec, cfg.grid, dense), 20,
-        "room_raster_kernel", t_kernel)
 
-    # bound: in every tile the union of its two slots' window rows (an
-    # empty slot's too: the reference clips it) read and written once, the
-    # operands read once, the counts written once; every slot's window
-    # evaluated
+    def launch():
+        rc._launch(g_t, rm, spec, cfg.grid, dense)
+
+    changed = _changed_cells(launch, g_t)
+    t_kernel, t_plain, runs = _ab_ms(
+        launch, lambda: plain(g_t, xy, yaw, db, alive), 20, 3)
+    t_wrapper = _median_ms(lambda: kernel(g_t, xy, yaw, db, alive), 20)
+    t_device = device_ms(launch, 20, "room_raster_kernel")
+
+    # bounds: over, in every tile, the union of its two slots' window rows
+    # (an empty slot's too: the reference clips it); the operands read
+    # once, the counts written once; the covered bound evaluates every
+    # slot's window
     r_loc = rm.meta[..., 4]
     lo, hi = r_loc.amin(-1), r_loc.amax(-1)
     rows = torch.minimum(hi - lo, torch.full_like(lo, rm.win_rows)) + \
         rm.win_rows
-    cells = int(rows.sum()) * 256
     n_tiles = rm.meta.shape[0] * rm.meta.shape[1]
-    n_bytes = 2 * 4 * cells + _nbytes(rm.meta, rm.table) + 4 * n_tiles
     evaluated = n_tiles * rc.AGENTS_PER_ROOM * rm.win_rows * 256
-    bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
+    bounds, n_bytes = _bounds(
+        4, int(rows.sum()) * 256, changed,
+        _nbytes(rm.meta, rm.table) + 4 * n_tiles, OPS_PER_CELL, evaluated)
+    text, rec = _timed(worst, t_kernel, t_plain, runs, t_wrapper, t_device,
+                       bounds, n_bytes, changed)
     groups = f" in {rm.n_bins} groups" if n_groups else ""
     print(f"room raster at {N_AGENTS} agents ({n_tiles} tiles, {per_row} "
           f"rooms per row) x {spec.n_beams} beams{groups} ({key}) on "
-          f"{size}^2 "
-          f"[{card}]: kernel {t_device:.4f} ms ({src}), launch "
-          f"call {t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
-          f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
-          f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
-          f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} "
-          f"cell evaluations); the kernel evaluates "
-          f"{_room_box_cells(rm, spec)} cells (its boxes)")
-    return dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
-                bound_ms=bound, bound_by=bound_by)
+          f"{size}^2 [{card}]: {text}; the kernel evaluates "
+          f"{_room_box_cells(rm, spec)} cells (its boxes; the covered "
+          f"bound counts {evaluated})")
+    return rec
 
 
 def phase_path(card, dev, room_kernel: bool, beam_groups: int = 0):
@@ -1747,31 +1769,29 @@ def phase_exact_kernel(card, dev):
               f"differ (max |diff| {float((s_k - s_t).abs().max())})")
         del resid, s_k, s_t
         ln = er._prepare(g_t, w)
+
+        def launch():
+            er._launch(g_t, ln, spec, cfg.grid)
+
+        changed = _changed_cells(launch, g_t)
         t_kernel, t_plain, runs = _ab_ms(
-            lambda: er._launch(g_t, ln, spec, cfg.grid),
-            lambda: er.beam_raster_plain(g_t, xy, yaw, db, tb, alive, spec,
-                                         cfg.grid), 20, 3)
+            launch, lambda: er.beam_raster_plain(g_t, xy, yaw, db, tb, alive,
+                                                 spec, cfg.grid), 20, 3)
         t_wrapper = _median_ms(lambda: er.beam_raster(
             g_t, xy, yaw, db, tb, alive, spec, cfg.grid), 20)
-        t_device, src = _device_ms(
-            lambda: er._launch(g_t, ln, spec, cfg.grid), 20,
-            "exact_raster_kernel", t_kernel)
-        # bound: the union of the windows read and written once, the
-        # operands read once; every window cell evaluated (no strips)
-        n_bytes = 2 * 4 * _covered_cells(w, size, dev) + \
-            _nbytes(ln.origins, ln.meta, ln.table)
+        t_device = device_ms(launch, 20, "exact_raster_kernel")
+        # bounds: over the union of the windows; the operands read once;
+        # the covered bound evaluates every window cell (no strips)
         evaluated = n * w.rows * w.cols
-        bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL_EXACT)
+        bounds, n_bytes = _bounds(
+            4, _covered_cells(w, size, dev), changed,
+            _nbytes(ln.origins, ln.meta, ln.table), OPS_PER_CELL_EXACT,
+            evaluated)
+        text, out[fan] = _timed(worst, t_kernel, t_plain, runs, t_wrapper,
+                                t_device, bounds, n_bytes, changed)
         print(f"exact raster [{fan}] at {n} agents x {spec.n_beams} beams "
-              f"([{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: kernel "
-              f"{t_device:.4f} ms ({src}), launch call "
-              f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
-              f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
-              f"{t_plain:.4f} ms (runs {runs[1]:.4f}, {runs[2]:.4f}); bound "
-              f"{bound:.4f} ms by {bound_by} ({n_bytes} bytes, {evaluated} "
-              f"cell evaluations)")
-        out[fan] = dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
-                        bound_ms=bound, bound_by=bound_by)
+              f"([{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: {text}"
+              f"; the covered bound evaluates {evaluated} cells")
     return out
 
 
@@ -2003,37 +2023,34 @@ def phase_band_kernels(card, dev):
                             band=band, band_cols=band_cols, **tier)
             ln = bc._prepare(g_t, w, spec)
             dense = bc._dense_fan(spec, reach)
+
+            def launch():
+                bc._launch(g_t, ln, spec, cfg.grid, dense)
+
+            changed = _changed_cells(launch, g_t)
             t_kernel, t_plain, runs = _ab_ms(
-                lambda: bc._launch(g_t, ln, spec, cfg.grid, dense),
-                lambda: call(bc.free_raster_plain, g_t, wn, j, band,
-                             band_cols),
-                20, 3)
+                launch, lambda: call(bc.free_raster_plain, g_t, wn, j, band,
+                                     band_cols), 20, 3)
             t_wrapper = _median_ms(
                 lambda: call(bc.free_raster, g_t, wn, j, band, band_cols),
                 20)
-            t_device, src = _device_ms(
-                lambda: bc._launch(g_t, ln, spec, cfg.grid, dense), 20,
-                "free_raster_kernel", t_kernel)
-            cells = _covered_cells(w, shape[0], dev, shape[1])
-            n_bytes = 2 * 4 * cells + \
-                _nbytes(ln.origins, ln.meta, ln.table) + 4 * w.row0.numel()
+            t_device = device_ms(launch, 20, "free_raster_kernel")
             evaluated = int(((w.t_ch - w.t_cl).clamp_min(0) * w.rows *
                              128).sum())
-            bound, bound_by = _bound(n_bytes, evaluated * OPS_PER_CELL)
+            bounds, n_bytes = _bounds(
+                4, _covered_cells(w, shape[0], dev, shape[1]), changed,
+                _nbytes(ln.origins, ln.meta, ln.table) + 4 * w.row0.numel(),
+                OPS_PER_CELL, evaluated)
             key = bc.form_name(spec, False, ring, grouped=w.kind ==
                                "grouped", window=kind)
+            text, out[key] = _timed(worst, t_kernel, t_plain, runs,
+                                    t_wrapper, t_device, bounds, n_bytes,
+                                    changed)
             print(f"{key} raster at {w.row0.numel()} agents x "
                   f"{spec.n_beams} beams ([{w.rows}, {w.cols}] windows on "
-                  f"a {list(shape)} {kind} window) [{card}]: kernel "
-                  f"{t_device:.4f} ms ({src}), launch call "
-                  f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), "
-                  f"wrapper with its preparation {t_wrapper:.4f} ms, plain "
-                  f"torch {t_plain:.4f} ms (runs {runs[1]:.4f}, "
-                  f"{runs[2]:.4f}); bound {bound:.4f} ms by {bound_by} "
-                  f"({n_bytes} bytes, {evaluated} cell evaluations); the "
-                  f"kernel evaluates {_box_cells(w, spec)} cells (its boxes)")
-            out[key] = dict(max_abs_err=worst, ms=t_device, plain_ms=t_plain,
-                            bound_ms=bound, bound_by=bound_by)
+                  f"a {list(shape)} {kind} window) [{card}]: {text}; the "
+                  f"kernel evaluates {_box_cells(w, spec)} cells (its "
+                  f"boxes; the covered bound counts {evaluated})")
     return out
 
 

@@ -262,14 +262,17 @@ const void* instance(int grouped, int ring) {
 
 // grouped: 1 for the grouped table; ring: 1 with the endpoint ring; wrap: 1
 // for the wrapped 4-way fan; n_bins: beams, or groups. A table or grid the
-// kernel does not take returns cudaErrorInvalidValue without a launch.
+// kernel does not take (the clip pass reads the grid in 16-byte vectors, so
+// a grid not 16-byte aligned too) returns cudaErrorInvalidValue without a
+// launch.
 extern "C" int room_raster_launch(
     float* grid, const float* meta, const int* table, float* counts,
     int size, int win_rows, int tab_words, int grouped, int ring, int n_bins,
     int dense, int wrap, float theta0, float half_gdt, float half_dt,
     float gdt, float dt, float fan_lo, float fan_hi, float cover, float miss,
     float hit, float clampv, float tail_w, float miss_tail, void* stream) {
-  if (size % TILE_COLS != 0 || size % TILE_ROWS != 0 || tab_words < 1 ||
+  if (size % TILE_COLS != 0 || size % TILE_ROWS != 0 ||
+      ((uintptr_t)grid & 15) != 0 || tab_words < 1 ||
       win_rows < 1 || win_rows > TILE_ROWS || n_bins < 1 ||
       (grouped != 0 && grouped != 1) || (ring != 0 && ring != 1) ||
       (grouped ? (tab_words % 3 != 0 || tab_words > TABLE_WORDS ||

@@ -1,7 +1,8 @@
 """The port imports torch and never jax, and nothing of the JAX package:
 importing every module of `swarm_tpu_torch` (in a fresh interpreter) must
-load neither jax nor any `swarm_tpu` module, and no source of the port or
-of chip_smoke.py imports either or names torch.compile."""
+load neither jax nor any `swarm_tpu` module, and no source of the port,
+of chip_smoke.py or of kernel_ab.py (whose profiler timing chip_smoke.py
+uses) imports either or names torch.compile."""
 
 import ast
 import subprocess
@@ -38,6 +39,7 @@ def test_import_all_modules_without_jax_or_the_jax_package():
 def _sources():
     yield from sorted((ROOT / "swarm_tpu_torch").rglob("*.py"))
     yield ROOT / "chip_smoke.py"
+    yield ROOT / "kernel_ab.py"
 
 
 def test_no_jax_import_and_no_torch_compile_in_sources():

@@ -634,3 +634,51 @@ def test_room_box_cases_bit_equal_plain(cuda, n_groups, ring, prefill):
     assert diff == 0, f"{diff} cells differ"
     assert torch.equal(cnt_k, cnt_p)
     assert float(cnt_k.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["window", "room"])
+def test_misaligned_grid_raises(cuda, kernel):
+    """Both kernels read the grid in 16-byte vectors, so a contiguous grid
+    view 4 bytes past a 16-byte boundary is refused at the launch entry
+    (cudaErrorInvalidValue, raised by the wrapper) with nothing launched
+    or written; the card stays usable, and the same call on an aligned
+    grid paints."""
+    size, per_row, n_rooms = 512, 2, 4
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    rng = np.random.default_rng(7)
+    _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    n = 2 * n_rooms
+    xy = origins[np.arange(n) // 2] + rng.uniform([0.5, 0.5], [5.5, 3.5],
+                                                  (n, 2))
+    args = (torch.tensor(xy, dtype=torch.float32, device=cuda),
+            torch.tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32,
+                         device=cuda),
+            torch.tensor(rng.uniform(0.1, 1.0, (n, 181)),
+                         dtype=torch.float32, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda))
+    spec = BeamSpec.scan(181)
+    if kernel == "window":
+        fn = free_raster
+
+        def call(g):
+            return free_raster(g, *args, None, spec, cfg, reach=26)
+    else:
+        fn = room_raster
+
+        def call(g):
+            return room_raster(g, *args, spec, cfg, per_row=per_row,
+                               reach=26)
+    buf = torch.zeros(size * size + 4, device=cuda)
+    g = buf[1:1 + size * size].view(size, size)
+    assert g.is_contiguous() and g.data_ptr() % 16 == 4
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        call(g)
+    torch.cuda.synchronize()
+    assert fn.launches == before
+    assert not bool(buf.any())
+    _, cnt = call(torch.zeros((size, size), device=cuda))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert float(cnt.sum()) > 0
