@@ -6,8 +6,8 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
   1. build the three raster kernels (swarm_tpu_torch/csrc/free_raster.cu,
      room_raster.cu and exact_raster.cu) from the checkout, one nvcc each,
      started together; print each build time, and per instance of the
-     window and room kernels its registers and spilled bytes (ptxas) and
-     its resident blocks per SM (CUDA's occupancy calculator);
+     window, room and exact-raster kernels its registers and spilled bytes
+     (ptxas) and its resident blocks per SM (CUDA's occupancy calculator);
   2. each kernel, in each of its per-beam forms, vs its plain torch version
      at the shapes of the path that runs it: 1024 agents in the tiled
      4096^2 world, preset start poses with random headings, noisy readings
@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      an overlap case on a grid pre-filled near +-clamp (window kernel: 64
      agents around one point; room kernel: both agents of every room within
      a few cells of each other), so the per-agent clip order (and on a bf16
-     grid the per-agent rounding) decides cells. The window kernel's 16
+     grid the per-agent rounding) decides cells, and a NaN case (the
+     overlap case's agents on such a grid with 1% NaN and 1% -0.0 cells:
+     the clip keeps a NaN, as jnp.clip does). The window kernel's 16
      instances: pack8 / pack16 table x with / without the endpoint ring x
      the 181-beam scan / the wrapped 4-way fan x a float32 / bfloat16 grid;
      the room kernel's four forms: with / without the ring x scan / wrapped
@@ -89,11 +91,14 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      kernel's 8 grouped instances (ring x scan / wrapped fan x float32 /
      bfloat16 grid) and the room kernel's 4 grouped forms (ring x fan) vs
      its plain version at 1024 agents in the world of the flags that launch
-     it, main and overlap case, as in phase 2 (maps BIT-EQUAL; the counts,
-     sums of fractions that both sides sum exactly in double, equal), 181
-     beams in 16 groups too (ROADMAP C1); the r1 exact raster (csrc/exact_raster.cu, no engine
-     path calls it) on the scan and the wrapped 4-way fan, maps BIT-EQUAL
-     to its plain version (torch.sin on the card), the kernel's sinf
+     it, main, overlap and NaN case, as in phase 2 (maps BIT-EQUAL; the
+     counts, sums of fractions that both sides sum exactly in double,
+     equal), 181 beams in 16 groups too (ROADMAP C1); the r1 exact raster
+     (csrc/exact_raster.cu, no engine path calls it) on the scan and the
+     wrapped 4-way fan, maps BIT-EQUAL to its plain version (torch.sin on
+     the card) on the main, overlap, dirty-tile (no tile clean: values
+     beyond +-clamp, -0.0) and NaN cases, its evaluated cells (the boxes,
+     exact_raster_cuda.evaluation_box) printed, the kernel's sinf
      against torch.sin on the main case's residuals, and its entry point
      driven over 17 sensed frames per fan; the grouped paths
      (presets.deployable(1024, beam_groups=8), with and without
@@ -294,15 +299,18 @@ def phase_build():
 
 
 def _print_instances():
-    """Per instance of the window and room kernels: ptxas's registers and
-    spilled bytes, and the resident blocks per SM that CUDA's occupancy
-    calculator gives (128-thread window blocks, 512-thread room blocks)."""
+    """Per instance of the window, room and exact-raster kernels: ptxas's
+    registers and spilled bytes, and the resident blocks per SM that CUDA's
+    occupancy calculator gives (128-thread window and exact-raster blocks,
+    512-thread room blocks)."""
     from swarm_tpu_torch.ops import beam_raster_cuda as bc
     from swarm_tpu_torch.ops import cuda_build
+    from swarm_tpu_torch.ops import exact_raster_cuda as er
     from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec
 
-    reports = {label: (regs, spill) for name in ("free_raster", "room_raster")
+    reports = {label: (regs, spill)
+               for name in ("free_raster", "room_raster", "exact_raster")
                for label, regs, spill in
                cuda_build.ptxas_instances.get(name, [])}
     rows = []
@@ -320,6 +328,8 @@ def _print_instances():
                          "room " + rc.form_name(BeamSpec.scan(), ring,
                                                 grouped),
                          rc.blocks_per_sm(grouped, ring)))
+    rows.append(("exact_raster_kernel", "exact scan, wrapped",
+                 er.blocks_per_sm()))
     for label, form, blocks in rows:
         regs, spill = reports.get(label, ("built before", "-"))
         print(f"kernel instance {label} ({form}): {regs} registers, "
@@ -354,6 +364,22 @@ def _prefilled(size, gen, dev, dtype=torch.float32):
     levels = torch.tensor([-9.9, 9.7, -9.6, 9.95], device=dev)
     return levels[torch.randint(0, 4, (size, size), generator=gen,
                                 device=dev)].to(dtype)
+
+
+def _dirty(size, gen, dev):
+    """A grid that leaves no tile clean: values beyond +-clamp, -0.0 cells
+    and values within, so that every window cell takes its clip."""
+    levels = torch.tensor([-12.5, 11.0, -0.0, 9.7, -3.2, 0.0], device=dev)
+    return levels[torch.randint(0, 6, (size, size), generator=gen,
+                                device=dev)]
+
+
+def _with_nan(grid, gen):
+    """`grid` with 1% of its cells NaN and 1% -0.0: the clip after each
+    agent keeps both, as the reference's jnp.clip does."""
+    u = torch.rand(grid.shape, generator=gen, device=grid.device)
+    grid = grid.masked_fill(u < 0.01, float("nan"))
+    return grid.masked_fill((u >= 0.01) & (u < 0.02), -0.0)
 
 
 # bench.py's single-chip raster flags beyond the paths with a phase of
@@ -437,9 +463,17 @@ def _form_of(flags):
 
 
 def _n_differ(a, b) -> int:
-    """Cells whose bits differ (a -0.0 against a +0.0 counts)."""
+    """Cells whose bits differ (a -0.0 against a +0.0 counts; a NaN against
+    a NaN, whatever its payload, does not)."""
     bits = torch.int16 if a.element_size() == 2 else torch.int32
-    return int((a.view(bits) != b.view(bits)).sum())
+    return int(((a.view(bits) != b.view(bits)) &
+                ~(torch.isnan(a) & torch.isnan(b))).sum())
+
+
+def _max_abs_diff(a, b) -> float:
+    """The largest |a - b| over the cells where neither is NaN."""
+    d = (a.float() - b.float()).abs()
+    return float(torch.where(torch.isnan(d), torch.zeros_like(d), d).max())
 
 
 def _box_cells(w, spec) -> int:
@@ -487,9 +521,9 @@ def _room_box_cells(rm, spec) -> int:
 
 def _hold_equal(name, kernel, plain, cases, size):
     """Run kernel and plain version on each case's copy of the grid; maps
-    bit-equal, counts equal (both sum them exactly, in double: the grouped
-    tier's fractional counts too). Returns the largest |difference|
-    (0.0)."""
+    bit-equal (NaN cells NaN on both sides), counts equal (both sum them
+    exactly, in double: the grouped tier's fractional counts too). Returns
+    the largest |difference| (0.0)."""
     worst = 0.0
     for case, (grid0, args) in cases.items():
         g_k, g_p = grid0.clone(), grid0.clone()
@@ -498,11 +532,12 @@ def _hold_equal(name, kernel, plain, cases, size):
         _, c_p = plain(g_p, *args)
         torch.cuda.synchronize()
         n_diff = _n_differ(g_k, g_p)
-        err = float((g_k - g_p).abs().max())
+        err = _max_abs_diff(g_k, g_p)
         worst = max(worst, err)
         print(f"{name} kernel vs plain [{case}]: {n_diff} of {size * size} "
               f"cells differ (max |diff| {err}), "
-              f"{int((g_k != grid0).sum())} cells changed, counts sum "
+              f"{_n_differ(g_k, grid0)} cells changed, "
+              f"{int(torch.isnan(g_k).sum())} NaN cells, counts sum "
               f"{float(c_k.sum())} vs {float(c_p.sum())}")
         if n_diff:
             raise AssertionError(f"{name}: kernel and plain maps differ in "
@@ -550,8 +585,9 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
     """One form of the window kernel at a path's shapes (the grid's dtype
     from `cfg`; `n_groups` below the fan's beams: the grouped tier with the
     engine's tail weight): held bit-equal to its plain version at the
-    path's swarm size and in an overlap case (64 agents around one point on
-    a grid pre-filled near +-clamp), then timed: the launch on prepared
+    path's swarm size, in an overlap case (64 agents around one point on
+    a grid pre-filled near +-clamp) and in a NaN case (the same agents, 1%
+    NaN and 1% -0.0 cells), then timed: the launch on prepared
     operands, the wrapper with its preparation, the plain version (in agent
     chunks above PLAIN_CHUNK agents); the bound from this run's inputs.
     Returns (the form's launch-count key, its record)."""
@@ -591,6 +627,8 @@ def _window_form(card, dev, name, cfg, params, rooms, seed, four_way,
                      None if tr is None else tr[:k], spec, cfg.grid,
                      reach)),
     }
+    cases["nan"] = (_with_nan(_prefilled(size, gen, dev), gen).to(dtype),
+                    cases["overlap"][1])
     worst = _hold_equal(name, kernel, plain, cases, size)
     del cases
 
@@ -674,8 +712,8 @@ def phase_form_kernels(card, dev):
 def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
     """One form of the room kernel (the ring on the scan, or the form a
     ROOM_ROWS or GROUPED_ROOM_ROWS row launches) at 1024 agents: held
-    bit-equal to its plain version on the main case and an overlap case,
-    then timed as the window forms are."""
+    bit-equal to its plain version on the main case, an overlap case and
+    a NaN case, then timed as the window forms are."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
@@ -716,6 +754,8 @@ def phase_room_kernel(card, dev, flags=None, seed=SEED + 1):
         "main": (torch.zeros((size, size), device=dev),
                  (xy, yaw, db, alive)),
         "overlap": (_prefilled(size, gen, dev), (xy_o, yaw, db, alive)),
+        "nan": (_with_nan(_prefilled(size, gen, dev), gen),
+                (xy_o, yaw, db, alive)),
     }
     worst = _hold_equal(f"room {key}", kernel, plain, cases, size)
 
@@ -1709,14 +1749,32 @@ def _exact_world(dev, four_way: bool):
     return cfg, params, rooms, spec
 
 
+def _exact_box_cells(w, spec) -> int:
+    """The cells the exact raster evaluates on a clean grid: per agent its
+    evaluation box (`exact_raster_cuda.evaluation_box`) within its
+    window."""
+    from swarm_tpu_torch.ops import exact_raster_cuda as er
+
+    r_lo, r_hi, c_lo, c_hi = er.evaluation_box(w, spec)
+    row0, col0 = w.row0.to(torch.float32), w.col0.to(torch.float32)
+    rows = torch.minimum(r_hi, row0 + w.rows) - torch.maximum(r_lo, row0)
+    cols = torch.minimum(c_hi, col0 + w.cols) - torch.maximum(c_lo, col0)
+    return int((rows.clamp_min(0).double() *
+                cols.clamp_min(0).double()).sum())
+
+
 def phase_exact_kernel(card, dev):
     """The r1 exact raster (csrc/exact_raster.cu, for beam_raster_pallas's
     _kernel) on the scan and on the wrapped 4-way fan at 1024 agents: the
     map held BIT-EQUAL to beam_raster_plain (torch.sin on the card) on the
-    main case (one agent inactive) and an overlap case (64 agents around
-    one point on a grid pre-filled near +-clamp); the kernel's sinf against
+    main case (one agent inactive), an overlap case (64 agents around one
+    point on a grid pre-filled near +-clamp), a dirty-tile case (the main
+    case's agents on a grid of values beyond +-clamp and -0.0 cells: no
+    tile clean, every window cell clipped) and a NaN case (the overlap
+    case's agents, 1% NaN and 1% -0.0 cells); the kernel's sinf against
     torch.sin on the main case's residual bearings; then timed as the
-    window forms are. Returns {fan: record}."""
+    window forms are, with its evaluated cells (its boxes). Returns {fan:
+    record}."""
     from swarm_tpu_torch.ops import exact_raster_cuda as er
 
     out = {}
@@ -1732,10 +1790,13 @@ def phase_exact_kernel(card, dev):
         k = min(64, n)
         xy_o = xy[:1] + 0.2 + (torch.rand((k, 2), generator=gen, device=dev)
                                - 0.5) * 0.4
-        cases = {"main": (torch.zeros((size, size), device=dev),
-                          (xy, yaw, db, tb, alive)),
-                 "overlap": (_prefilled(size, gen, dev),
-                             (xy_o, yaw[:k], db[:k], tb[:k], alive[:k]))}
+        main = (xy, yaw, db, tb, alive)
+        overlap = (xy_o, yaw[:k], db[:k], tb[:k], alive[:k])
+        cases = {"main": (torch.zeros((size, size), device=dev), main),
+                 "overlap": (_prefilled(size, gen, dev), overlap),
+                 "dirty": (_dirty(size, gen, dev), main),
+                 "nan": (_with_nan(_prefilled(size, gen, dev), gen),
+                         overlap)}
         worst = 0.0
         for case, (grid0, args) in cases.items():
             g_k, g_p = grid0.clone(), grid0.clone()
@@ -1743,17 +1804,18 @@ def phase_exact_kernel(card, dev):
             torch.cuda.synchronize()
             er.beam_raster_plain(g_p, *args, spec, cfg.grid)
             torch.cuda.synchronize()
-            n_diff = int((g_k != g_p).sum())
-            err = float((g_k - g_p).abs().max())
+            n_diff = _n_differ(g_k, g_p)
+            err = _max_abs_diff(g_k, g_p)
             worst = max(worst, err)
-            changed = int((g_k != grid0).sum())
+            changed = _n_differ(g_k, grid0)
+            n_nan = int(torch.isnan(g_k).sum())
             print(f"exact raster [{fan}] kernel vs plain [{case}]: {n_diff} "
                   f"of {size * size} cells differ (max |diff| {err}), "
-                  f"{changed} cells changed")
-            if n_diff:
+                  f"{changed} cells changed, {n_nan} NaN cells")
+            if n_diff or n_nan != int(torch.isnan(grid0).sum()):
                 raise AssertionError(f"exact raster [{fan}]: kernel and "
-                                     f"plain maps differ in {n_diff} cells "
-                                     f"[{case}]")
+                                     f"plain maps differ in {n_diff} cells, "
+                                     f"{n_nan} NaN [{case}]")
             if changed <= 0:
                 raise AssertionError(f"exact raster [{fan}]: nothing "
                                      f"painted [{case}]")
@@ -1791,7 +1853,8 @@ def phase_exact_kernel(card, dev):
                                 t_device, bounds, n_bytes, changed)
         print(f"exact raster [{fan}] at {n} agents x {spec.n_beams} beams "
               f"([{w.rows}, {w.cols}] windows) on {size}^2 [{card}]: {text}"
-              f"; the covered bound evaluates {evaluated} cells")
+              f"; the kernel evaluates {_exact_box_cells(w, spec)} cells "
+              f"(its boxes; the covered bound counts {evaluated})")
     return out
 
 

@@ -1,5 +1,6 @@
-"""Back-to-back timing of the window and room kernels (csrc/free_raster.cu,
-csrc/room_raster.cu) of two or more checkouts on one CUDA card.
+"""Back-to-back timing of the window, room and exact-raster kernels
+(csrc/free_raster.cu, csrc/room_raster.cu, csrc/exact_raster.cu) of two or
+more checkouts on one CUDA card.
 
     python3 kernel_ab.py OTHER [OTHER ...] [--rounds 1]
 
@@ -8,7 +9,7 @@ The checkouts (this one, then each OTHER: a directory holding a
 its own, in the order OTHER..., this, this, ...OTHER (reversed in every
 second half, `--rounds` times), so that a drift of the card's clock over
 the run falls on both sides alike. Each process builds its checkout's
-window and room kernels into that checkout's build directory (once: later
+three kernels into that checkout's build directory (once: later
 processes of the same checkout find them built) and times the kernel
 launch alone on prepared operands, with CUDA events, median of REPS
 launches, for
@@ -16,19 +17,25 @@ launches, for
   * pack8-ring at 1024 agents on the 4096^2 float32 grid (bench.py's
     deployable path, `presets.deployable(1024)`),
   * pack8-ring-bf16 at 32,768 agents on the 23,296^2 bfloat16 grid (the
-    slice, `presets.deployable(32768, grid_dtype="bfloat16")`), and
+    slice, `presets.deployable(32768, grid_dtype="bfloat16")`),
   * the room kernel's pack16-ring at 1024 agents on the 4096^2 grid
     (bench.py --room-kernel, `presets.deployable(1024, room_kernel=True)`),
+    and
+  * the exact raster (`exact_raster_cuda.beam_raster`'s kernel) at 1024
+    agents on the 4096^2 grid, on the 181-beam scan
+    (`presets.deployable(1024)`) and on the wrapped 4-way fan
+    (`presets.deployable(1024, scan_rays=0)`), one agent inactive, as
+    chip_smoke.py's exact-raster phase,
 
 from the same seed in every checkout (`chip_smoke._raster_inputs`: preset
-start poses, random headings, noisy 181-beam readings; a checksum of the
-inputs is printed so that equal inputs can be seen). Each form is timed
-twice: the launch call on prepared operands between two CUDA events (the
-wrapper's `_launch`: host work, the window wrapper's zero-fill and sum,
-the kernel), and the kernel alone on the device, the mean of torch.profiler
-'s CUDA kernel times ("<form> (device)"). Prints one line per process, then
-the card's name and power limit, then one JSON object {checkout: {form:
-[ms per process]}}. Needs one card.
+start poses, random headings, noisy 181-beam or 4-way readings; a
+checksum of the inputs is printed so that equal inputs can be seen). Each
+form is timed twice: the launch call on prepared operands between two
+CUDA events (the wrapper's `_launch`: host work, the window wrapper's
+zero-fill and sum, the kernel), and the kernel alone on the device, the
+mean of torch.profiler's CUDA kernel times ("<form> (device)"). Prints one
+line per process, then the card's name and power limit, then one JSON
+object {checkout: {form: [ms per process]}}. Needs one card.
 """
 
 from __future__ import annotations
@@ -43,11 +50,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # (form name, presets.deployable arguments)
 FORMS = (("pack8-ring", dict(n=1024)),
          ("pack8-ring-bf16", dict(n=32768, grid_dtype="bfloat16")),
-         ("room pack16-ring", dict(n=1024, room_kernel=True)))
+         ("room pack16-ring", dict(n=1024, room_kernel=True)),
+         ("exact scan", dict(n=1024)),
+         ("exact wrapped", dict(n=1024, scan_rays=0)))
 SEED = 0
 REPS = 50
-# the kernels' names in a profiler trace (window, room)
-KERNELS = ("free_raster_kernel", "room_raster_kernel")
+# the kernels' names in a profiler trace
+KERNELS = {"window": "free_raster_kernel", "room": "room_raster_kernel",
+           "exact": "exact_raster_kernel"}
 
 
 def device_ms(fn, reps: int, kernel: str, sessions: int = 3) -> float:
@@ -80,8 +90,8 @@ def device_ms(fn, reps: int, kernel: str, sessions: int = 3) -> float:
 
 
 def child(root: str) -> dict:
-    """In this process: build `root`'s window and room kernels and time
-    their forms. Returns {form: ms}."""
+    """In this process: build `root`'s kernels and time their forms.
+    Returns {form: ms}."""
     sys.path.insert(0, root)
     import torch
 
@@ -89,13 +99,15 @@ def child(root: str) -> dict:
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.ops import beam_raster_cuda as bc
     from swarm_tpu_torch.ops import cuda_build
+    from swarm_tpu_torch.ops import exact_raster_cuda as er
     from swarm_tpu_torch.ops import room_raster_cuda as rc
     from swarm_tpu_torch.ops.beam_raster import BeamSpec, reach_cells
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    cuda_build.build_all(["free_raster", "room_raster"])
-    for name in ("free_raster", "room_raster"):
+    names = ["free_raster", "room_raster", "exact_raster"]
+    cuda_build.build_all(names)
+    for name in names:
         print(f"  ptxas [{name}]: "
               f"{getattr(cuda_build, 'ptxas', {}).get(name)}", flush=True)
     out = {}
@@ -103,16 +115,28 @@ def child(root: str) -> dict:
         kw = dict(kw)
         cfg, _, params, rooms = presets.deployable(kw.pop("n"), device=dev,
                                                    **kw)
+        kind = ("exact" if form.startswith("exact") else
+                "room" if cfg.engine.room_tile_per_row > 0 else "window")
+        four_way = cfg.engine.scan_rays == 0
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        xy, yaw, db, tb = cs._raster_inputs(cfg, params, rooms, gen, dev)
-        spec = BeamSpec.scan(cfg.engine.scan_rays)
+        xy, yaw, db, tb = cs._raster_inputs(cfg, params, rooms, gen, dev,
+                                            four_way)
+        spec = (BeamSpec.four_way() if four_way
+                else BeamSpec.scan(cfg.engine.scan_rays))
         reach = reach_cells(cfg)
         n = cfg.n_agents
         alive = torch.ones((n,), dtype=torch.bool, device=dev)
         g = torch.zeros((cfg.grid.size,) * 2, device=dev,
                         dtype=cfg.grid.lo_dtype)
         dense = bc._dense_fan(spec, reach)
-        if cfg.engine.room_tile_per_row > 0:
+        if kind == "exact":
+            alive[-3] = False
+            ln = er._prepare(g, er._windows(g, xy, yaw, db, tb, alive,
+                                            cfg.grid))
+
+            def launch():
+                er._launch(g, ln, spec, cfg.grid)
+        elif kind == "room":
             ln = rc._rooms(g, xy, yaw, db, alive, spec, cfg.grid,
                            cfg.engine.room_tile_per_row, tb, reach,
                            spec.n_beams)
@@ -129,8 +153,7 @@ def child(root: str) -> dict:
         check = float(xy.double().sum() + db.double().sum())
         launch()
         out[form] = cs._median_ms(launch, REPS)
-        out[f"{form} (device)"] = device_ms(launch, REPS, KERNELS[
-            cfg.engine.room_tile_per_row > 0])
+        out[f"{form} (device)"] = device_ms(launch, REPS, KERNELS[kind])
         print(f"  {form}: {n} agents, inputs checksum {check!r}, launch "
               f"{out[form]:.4f} ms, kernel on the device "
               f"{out[f'{form} (device)']:.4f} ms", flush=True)

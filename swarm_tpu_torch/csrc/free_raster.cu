@@ -190,27 +190,6 @@ __device__ __forceinline__ float stored(float v) {
   }
 }
 
-// A value on which an agent's clip with a +0.0 delta is the identity:
-// in [-clamp, clamp] (so not NaN) and not -0.0.
-__device__ __forceinline__ bool clean(float v, float clampv) {
-  return fabsf(v) <= clampv && __float_as_uint(v) != 0x80000000u;
-}
-
-// Asynchronous 4-byte copies from global into shared memory (cp.async,
-// sm_80 and later): the next pair's table and agent data arrive while the
-// block evaluates the current pair.
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // One pair's operands in shared memory: the agent's table words and its
 // origins (row0, col0, t_cl, t_ch) and meta (ax, ay, yaw, act, goff_r,
 // goff_c) as words.
@@ -227,39 +206,14 @@ __device__ __forceinline__ void fetch_pair(PairData& d, int a,
                                            const int* __restrict__ table,
                                            int n_words) {
   for (int w = threadIdx.x; w < n_words; w += THREADS)
-    copy_async(&d.table[w], table + (size_t)a * n_words + w);
+    raster::copy_async(&d.table[w], table + (size_t)a * n_words + w);
   if (threadIdx.x < 4)
-    copy_async(&d.origin[threadIdx.x], origins + 4 * a + threadIdx.x);
+    raster::copy_async(&d.origin[threadIdx.x],
+                       origins + 4 * a + threadIdx.x);
   else if (threadIdx.x < 10)
-    copy_async(&d.meta[threadIdx.x - 4], meta + 6 * a + threadIdx.x - 4);
-  copy_commit();
-}
-
-// Whether every value of this thread's share of the tile is clean: 16-byte
-// loads, 4 float or 8 bf16 cells each, rows past the grid skipped.
-template <typename T>
-__device__ __forceinline__ bool scan_clean(const T* __restrict__ grid,
-                                           int gr0, int gc0, int n_tr,
-                                           int n_cols, float clampv) {
-  constexpr int PER = 16 / sizeof(T);        // cells per 16-byte chunk
-  constexpr int CHUNKS = TILE_C / PER;       // chunks per tile row
-  bool ok = true;
-  for (int i = threadIdx.x; i < n_tr * CHUNKS; i += THREADS) {
-    const T* p = grid + (size_t)(gr0 + i / CHUNKS) * n_cols + gc0 +
-                 PER * (i % CHUNKS);
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if constexpr (sizeof(T) == 2) {
-        ok = ok && clean(__uint_as_float(w[j] << 16), clampv) &&
-             clean(__uint_as_float(w[j] & 0xFFFF0000u), clampv);
-      } else {
-        ok = ok && clean(__uint_as_float(w[j]), clampv);
-      }
-    }
-  }
-  return ok;
+    raster::copy_async(&d.meta[threadIdx.x - 4],
+                       meta + 6 * a + threadIdx.x - 4);
+  raster::copy_commit();
 }
 
 // One block's tile. GUARD: the tile windows' grid-edge guard, a template
@@ -289,13 +243,13 @@ __device__ __forceinline__ void raster_tile(
   // neither read nor written)
   fetch_pair(s_pair[0], pair_agent[p0], origins, meta, table, p.n_words);
   int a_next = p0 + 1 < p1 ? pair_agent[p0 + 1] : 0;
-  bool mine_clean = scan_clean(grid, gr0, gc0, min(TILE_R, p.n_rows - gr0),
-                               p.n_cols, clampv);
+  bool mine_clean = raster::scan_clean<T, TILE_C, THREADS>(
+      grid, gr0, gc0, min(TILE_R, p.n_rows - gr0), p.n_cols, clampv);
 
   bool tile_clean = true;
   for (int q = p0; q < p1; ++q) {
     const PairData& d = s_pair[(q - p0) & 1];
-    copy_wait();
+    raster::copy_wait();
     // this pair's operands have arrived; done with the previous pair's
     // cells, operands and painted partials
     tile_clean = __syncthreads_and(tile_clean && mine_clean) != 0;
@@ -418,10 +372,9 @@ __device__ __forceinline__ void raster_tile(
         painted_sum += painted;
       }
       // 11. apply, clipped (and on a bf16 grid stored) after this agent
-      const float v =
-          stored<T>(fminf(fmaxf(old + delta, -clampv), clampv));
+      const float v = stored<T>(raster::clip(old + delta, clampv));
       store_cell(cell, v);
-      mine_clean = mine_clean && clean(v, clampv);
+      mine_clean = mine_clean && raster::clean(v, clampv);
       lr += step_r;
       lc += step_c;
       if (lc >= vc_lo + v_w) {

@@ -1,10 +1,11 @@
 // Semantics shared by the port's raster kernels (free_raster.cu,
-// room_raster.cu): the reference's float literals, its atan2 polynomial,
-// and the per-cell polar binning of swarm_tpu/ops/beam_raster_pallas.py
-// (_atan2_poly, _wrap_pi_cheap, the beam or group bin and fan test, the
-// crossing count). Each kernel is built with --fmad=false, IEEE 1/sqrtf and IEEE
-// division, so every operation here rounds as the plain torch version in
-// ops/beam_raster_cuda.py issues it.
+// room_raster.cu, exact_raster.cu): the reference's float literals, its
+// atan2 polynomial, the per-cell polar binning of
+// swarm_tpu/ops/beam_raster_pallas.py (_atan2_poly, _wrap_pi_cheap, the beam
+// or group bin and fan test, the crossing count), its clip, the evaluation
+// box, the clean-tile test and the cp.async copies. Each kernel is built
+// with --fmad=false, IEEE 1/sqrtf and IEEE division, so every operation
+// here rounds as its counterpart in the plain torch versions (ops/).
 
 #pragma once
 
@@ -212,6 +213,68 @@ __device__ __forceinline__ int2 clamp_range(float lo, float hi, int origin,
   const float fb = (float)max(a, b);
   return make_int2((int)fminf(fmaxf(lo - (float)origin, fa), fb),
                    (int)fmaxf(fminf(hi - (float)origin, fb), fa));
+}
+
+// The reference's clip after each agent, jnp.clip(v, -c, c) (torch.clamp
+// in the plain versions): a NaN stays NaN, where fmaxf(NaN, -c) would give
+// -c, and a -0.0 stays -0.0. max.NaN / min.NaN (sm_80 and later) return a
+// NaN if either operand is one, each in one instruction as fmaxf / fminf.
+__device__ __forceinline__ float clip(float v, float c) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(-c));
+  asm("min.NaN.f32 %0, %0, %1;" : "+f"(r) : "f"(c));
+  return r;
+}
+
+// A value on which an agent's clip with a +0.0 delta is the identity:
+// in [-clamp, clamp] (so not NaN) and not -0.0.
+__device__ __forceinline__ bool clean(float v, float clampv) {
+  return fabsf(v) <= clampv && __float_as_uint(v) != 0x80000000u;
+}
+
+// Whether every value of this thread's share of a tile (n_tr rows of
+// TILE_C cells from (gr0, gc0) of a grid n_cols wide) is clean: 16-byte
+// loads, 4 float or 8 bf16 cells each, so the grid must be 16-byte
+// aligned; the block's THREADS threads share the tile.
+template <typename T, int TILE_C, int THREADS>
+__device__ __forceinline__ bool scan_clean(const T* __restrict__ grid,
+                                           int gr0, int gc0, int n_tr,
+                                           int n_cols, float clampv) {
+  constexpr int PER = 16 / sizeof(T);        // cells per 16-byte chunk
+  constexpr int CHUNKS = TILE_C / PER;       // chunks per tile row
+  bool ok = true;
+  for (int i = threadIdx.x; i < n_tr * CHUNKS; i += THREADS) {
+    const T* p = grid + (size_t)(gr0 + i / CHUNKS) * n_cols + gc0 +
+                 PER * (i % CHUNKS);
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (sizeof(T) == 2) {
+        ok = ok && clean(__uint_as_float(w[j] << 16), clampv) &&
+             clean(__uint_as_float(w[j] & 0xFFFF0000u), clampv);
+      } else {
+        ok = ok && clean(__uint_as_float(w[j]), clampv);
+      }
+    }
+  }
+  return ok;
+}
+
+// Asynchronous copies of BYTES (4 or 8) from global into shared memory
+// (cp.async, sm_80 and later): a block's next (agent, tile) pair's
+// operands arrive while it evaluates the current pair.
+template <int BYTES = 4>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(BYTES));
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace raster

@@ -42,12 +42,12 @@
 // not the 64 x 256 window. Every other cell of the window still takes the
 // slot's clip with a +0.0 delta (`v + 0 * act`, clipped): a cheap pass, one
 // 16-byte load per four cells, that writes a cell only where the clip
-// changes its bits (a value beyond +-clamp, a -0.0), so on a clean grid it
-// reads the window and writes nothing. Rows in neither window are not
-// touched. The
-// slots' range tables sit in shared memory and the lookup is an index (the
-// TPU's select tree, _hexadecet_gather_packed, and its loop over groups are
-// Mosaic workarounds). The tile's painted count is a block reduction in
+// changes its bits (a value beyond +-clamp, a -0.0; a NaN stays NaN), so
+// on a clean grid it reads the window and writes nothing. Rows in neither
+// window are not touched. The slots' range tables sit in shared memory
+// and the lookup is an index (the TPU's select tree,
+// _hexadecet_gather_packed, and its loop over groups are Mosaic
+// workarounds). The tile's painted count is a block reduction in
 // double, exact under csrc/free_raster.cu's conditions (nonzero terms of
 // at least 2^-8, a total below 2^22), so it equals the plain version's in
 // any order, rounded to float once.
@@ -169,7 +169,7 @@ room_raster_kernel(float* __restrict__ grid,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (row_in && lc + j >= ec.x && lc + j < ec.y) continue;
-        const float v = fminf(fmaxf(v4[j] + 0.f * act[s], -clampv), clampv);
+        const float v = raster::clip(v4[j] + 0.f * act[s], clampv);
         if (__float_as_uint(v) != __float_as_uint(v4[j])) cell[j] = v;
       }
     }
@@ -220,7 +220,7 @@ room_raster_kernel(float* __restrict__ grid,
       painted[s] += pc;
       // apply, clipped after this slot
       float* cell = grid + (size_t)(gr0 + lr) * p.size + gc0 + lc;
-      *cell = fminf(fmaxf(*cell + delta * act[s], -clampv), clampv);
+      *cell = raster::clip(*cell + delta * act[s], clampv);
       lr += step_r;
       lc += step_c;
       if (lc >= ec.y) {

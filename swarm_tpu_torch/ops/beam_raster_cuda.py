@@ -378,9 +378,19 @@ def evaluation_box(table, kind: str, ring: bool, ax, ay, yaw,
     tier. Returns (row_lo, row_hi, col_lo, col_hi) [M] float32, upper
     bounds exclusive. Only tests and chip_smoke.py call it: it mirrors the
     kernels' arithmetic (sines and cosines up to their last bits)."""
+    return sector_box(table_reach(table, kind, ring) + BOX_RADIUS, ax, ay,
+                      yaw, spec, n_bins)
+
+
+def sector_box(rho, ax, ay, yaw, spec: BeamSpec, n_bins: int):
+    """csrc/raster_common.cuh `evaluation_box` for a radius `rho` [M]: the
+    bounding box of the sector of radius rho around (ax, ay) over the fan's
+    arc from `yaw`, widened by 0.01 rad on each side (the whole disc on the
+    wrapped fan, or where |yaw| > 64), with its apex, widened by one cell.
+    Returns (row_lo, row_hi, col_lo, col_hi) [M] float32, upper bounds
+    exclusive."""
     f32 = torch.float32
     k = _constants(spec, GridConfig(), n_bins, 0.0)
-    rho = table_reach(table, kind, ring) + BOX_RADIUS
     one = torch.ones_like(ax)
     xmin, xmax, ymin, ymax = -one, one, -one, one
     arc = float(torch.tensor(float(n_bins), dtype=f32) *

@@ -88,10 +88,11 @@ def _ptxas_summary(log: str) -> str:
 def _instance_label(mangled: str) -> str:
     """`free_raster_kernel<0,1,bf16>` for a mangled kernel template
     instance: integers, bools as 0 / 1, float as f32, __nv_bfloat16 as
-    bf16."""
+    bf16; `exact_raster_kernel` for a kernel that is no template."""
     m = re.search(r"([A-Za-z_]+_kernel)I(.*?)EEv", mangled)
     if not m:
-        return mangled
+        plain = re.search(r"\d([A-Za-z][A-Za-z_]*_kernel)E", mangled)
+        return plain.group(1) if plain else mangled
     args = re.findall(r"L[ib](\d+)E|(?<![\d_])(f)(?=E|L|\d|$)|"
                       r"\d+(__nv_bfloat16)", m.group(2) + "E")
     names = [a or ("f32" if f else "bf16") for a, f, _ in args]

@@ -13,8 +13,9 @@ test `|r sin(rel - b dtheta)| <= 0.6`, `near` within the agent's longest
 range over all its beams plus one cell, then HIT (`|r - rb| <= 0.71` on a
 trusted beam) over FREE (`r < rb - 0.5`), times `active`; the ranges are
 unquantized float32 cells. The window is clipped to [-clamp, clamp] after
-each agent, agents in index order (the TPU kernel's sequential grid; ROADMAP
-C2: `beam_raster_reference` clips once after the sum). The grid is float32
+each agent (a NaN stays NaN, as under `jnp.clip`), agents in index order
+(the TPU kernel's sequential grid; ROADMAP C2: `beam_raster_reference`
+clips once after the sum). The grid is float32
 only, as the TPU kernel's float32 scratch window implies; there is no
 counter (the reference returns the grid alone).
 
@@ -22,15 +23,18 @@ The sine is periodic, so a cell of the wrapped fan whose bin was negative
 before the floor-mod still tests its residual correctly here: the right and
 back beams are painted, unlike the grouped and per-beam tiers (C16).
 
-What bounds it on the H100: like the window raster (csrc/free_raster.cu),
-the windows' cells read and written once (~134 MB at 1024 agents on a
-4096^2 grid, ~40 us at 3.35 TB/s) against ~90 float operations a cell
-(the window raster's polar binning plus a floor-mod and a sine; ~20 us at
-67 TFLOP/s): bytes bound it. The design (csrc/exact_raster.cu) is the
-window raster's: owner-computes 64 x 128 tiles in float registers, the
-(agent, tile) pairs sorted by (tile, agent), each agent's [B, 2] table in
-shared memory (the TPU kernel's loop over beams is a Mosaic workaround for
-a gather).
+What bounds it on the H100: the bytes the function needs, the windows'
+covered cells read once and the changed cells written once (~0.02 ms at
+1024 agents on a 4096^2 grid), against a long dependent chain per
+evaluated cell (the radius, the atan2 polynomial, a floor-mod, a sine).
+The design (csrc/exact_raster.cu) is the window raster's since its
+redesign: owner-computes 64 x 128 tiles updated in place in the grid, the
+(agent, tile) pairs sorted by (tile, agent), each agent's [B, 2] table
+prefetched into shared memory with cp.async (the TPU kernel's loop over
+beams is a Mosaic workaround for a gather), only the cells of each agent's
+evaluation box evaluated (`evaluation_box`, proved on the CPU in
+tests/test_torch_raster_box.py), and on a tile whose values are all clean
+only those cells visited.
 
 `beam_raster` dispatches on where the grid lies: a CPU tensor goes to
 `beam_raster_plain`; a CUDA tensor launches the kernel or raises.
@@ -50,8 +54,9 @@ from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.ops import cuda_build
 from swarm_tpu_torch.ops.beam_raster import BeamSpec, patch_dims, patch_origin
-from swarm_tpu_torch.ops.beam_raster_cuda import (TILE_C, _atan2_poly,
-                                                  _tile_pairs, cells_of)
+from swarm_tpu_torch.ops.beam_raster_cuda import (BOX_RADIUS, TILE_C,
+                                                  _atan2_poly, _tile_pairs,
+                                                  cells_of, sector_box)
 from swarm_tpu_torch.utils.angles import jmod
 
 MAX_BEAMS = 1024       # csrc MAX_BEAMS: beams per agent table
@@ -105,6 +110,18 @@ def _windows(logodds, agent_xy, yaw, dist_m, trusted, active,
                   yaw=yaw.to(torch.float32), act=active.to(torch.float32),
                   max_reach=cells.amax(dim=-1), table=table, rows=rows,
                   cols=cols)
+
+
+def evaluation_box(w: _Exact, spec: BeamSpec):
+    """The cells the kernel evaluates for each agent, as
+    csrc/exact_raster.cu computes them: raster_common.cuh `evaluation_box`
+    for the radius `max_reach + 1` and one bin per beam
+    (`beam_raster_cuda.sector_box`). No cell outside it takes evidence
+    (the kernel's source note); the kernel intersects it with the window
+    and the tile. Returns (row_lo, row_hi, col_lo, col_hi) [N] float32,
+    upper bounds exclusive. Only tests and chip_smoke.py call it."""
+    return sector_box(w.max_reach + BOX_RADIUS, w.ax, w.ay, w.yaw, spec,
+                      spec.n_beams)
 
 
 # --------------------------------------------------------------------------
@@ -180,6 +197,20 @@ def _bind(lib):
     lib.exact_raster_launch.restype = I
     lib.exact_raster_sin.argtypes = [P, P, I, P]
     lib.exact_raster_sin.restype = I
+    lib.exact_raster_blocks_per_sm.argtypes = [ctypes.POINTER(I)]
+    lib.exact_raster_blocks_per_sm.restype = I
+
+
+def blocks_per_sm() -> int:
+    """Resident blocks per SM of the kernel, from CUDA's occupancy
+    calculator (builds the kernel; needs a card)."""
+    out = ctypes.c_int(0)
+    err = cuda_build.load("exact_raster", _bind).exact_raster_blocks_per_sm(
+        ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"exact_raster occupancy query failed: CUDA "
+                           f"error {err}")
+    return out.value
 
 
 class _Launch(NamedTuple):

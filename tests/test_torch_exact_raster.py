@@ -15,6 +15,9 @@
 - The wrapped fan's right and back beams are painted (the sine is
   periodic, so the residual from the wrapped bin is harmless here, unlike
   the window kernel's, ROADMAP C16).
+- A NaN grid cell stays NaN, inside a window and outside, as under the
+  reference's `jnp.clip` (`torch.clamp` keeps it too; the CUDA kernels'
+  clip is held to the same in tests/test_torch_kernel_cuda.py).
 """
 
 import functools
@@ -85,6 +88,41 @@ def test_plain_matches_pallas(rng, n_beams, case):
     assert pe.beam_raster.launches == before     # CPU: the plain version
     changed = int((np.asarray(ref) != grid).sum())
     decision_equal(got, ref, f"exact {n_beams} {case} map", painted=changed)
+    assert changed > 200
+
+
+@pytest.mark.parametrize("n_beams", [4, 181])
+def test_plain_keeps_nan_as_pallas(rng, n_beams):
+    """Overlapping agents on a grid pre-filled near +-clamp with a -0.0 and
+    1% NaN cells: the NaN cells equal in both maps (inside the windows and
+    outside), every other cell decision-equal as in
+    test_plain_matches_pallas."""
+    _, spec_p = _specs(n_beams)
+    cells = np.array([200.0, 260.0]) + rng.uniform(-4, 4, (6, 2))
+    grid = rng.choice([-9.9, 9.7, -0.0, -0.3], (512, 512)).astype(np.float32)
+    grid[rng.random((512, 512)) < 0.01] = np.nan
+    xy = (cells * 0.05).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, 6).astype(np.float32)
+    d, tr = jb.beams_from_4way(jnp.asarray(rng.uniform(
+        0.1, 2.0, (6, n_beams)), jnp.float32), 1.2, 0.05)
+    d, tr = np.asarray(d), np.asarray(tr)
+    act = np.array([True] * 5 + [False])
+    ref = np.asarray(_pallas(grid, xy, yaw, d, tr, act, n_beams))
+    got = pe.beam_raster(torch.from_numpy(grid.copy()), t(xy), t(yaw), t(d),
+                         t(tr), t(act), spec_p, PGRID).numpy()
+    nan = np.isnan(grid)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(np.isnan(ref), nan)
+    # NaN cells on both sides of the windows' edges
+    w = pe._windows(torch.from_numpy(grid), t(xy), t(yaw), t(d), t(tr),
+                    t(act), PGRID)
+    inside = np.zeros_like(nan)
+    for r0, c0 in zip(w.row0.tolist(), w.col0.tolist()):
+        inside[r0:r0 + w.rows, c0:c0 + w.cols] = True
+    assert (nan & inside).sum() > 100 and (nan & ~inside).sum() > 100
+    changed = int(((ref != grid) & ~nan).sum())
+    decision_equal(np.where(nan, 0.0, got), np.where(nan, 0.0, ref),
+                   f"exact {n_beams} NaN map", painted=changed)
     assert changed > 200
 
 

@@ -3,9 +3,11 @@ each of its 16 per-beam instances: table x ring x fan x float32/bfloat16
 grid, and its 8 grouped ones: ring x fan x storage, and the sharded
 engine's band and tile windows of its float32 forms; the room-tile raster in
 its four per-beam and four grouped forms; the r1 exact raster on the scan
-and the wrapped 4-way fan) against their plain torch versions, on the card,
-at small sizes; and the endpoint scatter on the card against the CPU, on
-float32 and bfloat16 grids.
+and the wrapped 4-way fan, with its evaluation box and clean-tile rule)
+against their plain torch versions, on the card, at small sizes; NaN grid
+cells, which every kernel's clip keeps as NaN, as the plain versions'
+torch.clamp and the reference's jnp.clip do; and the endpoint scatter on
+the card against the CPU, on float32 and bfloat16 grids.
 
 Needs an NVIDIA GPU with the CUDA toolkit; every test skips without one.
 This file imports no jax, so on a card (whose machine need not have jax,
@@ -533,6 +535,122 @@ def _dirty_grid(rng, shape, prefill):
     return np.where(rng.random(shape) < 0.01, dirty, 0.0)
 
 
+def _bits_differ(a, b) -> int:
+    """Cells whose bits differ (a -0.0 against a +0.0 counts; a NaN against
+    a NaN, whatever its payload, does not)."""
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return int(((a.view(bits) != b.view(bits)) &
+                ~(torch.isnan(a) & torch.isnan(b))).sum())
+
+
+def _edge_agents(rng, n, size, n_beams, res, cuda):
+    """n agents on the 64 x 128 tile edges (the first 8 overlapping), their
+    headings, readings of a few cells, about the reach or 7 m (past the
+    exact raster's window), trusted flags and a fifth of them inactive."""
+    edges = np.stack([rng.integers(1, size // 64, n) * 64.0,
+                      rng.integers(1, size // 128, n) * 128.0], -1)
+    cells = edges + rng.uniform(-4, 4, (n, 2))
+    cells[:8] = cells[0] + rng.uniform(-3, 3, (8, 2))
+    scale = rng.choice([0.3, 1.2, 7.0], (n, 1))
+    return [torch.tensor(a, device=cuda) for a in (
+        (cells[:, ::-1] * res).astype(np.float32),
+        rng.uniform(-np.pi, np.pi, n).astype(np.float32),
+        (rng.uniform(0.02, 1.0, (n, n_beams)) * scale).astype(np.float32),
+        rng.random((n, n_beams)) < 0.7, rng.random(n) < 0.8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_beams", [181, 37, 4])
+@pytest.mark.parametrize("prefill", ["zero", "beyond", "sparse", "nan"])
+def test_exact_box_cases_bit_equal_plain(cuda, n_beams, prefill):
+    """The exact raster's evaluation box and clean-tile rule: agents on the
+    64 x 128 tile edges so that the boxes cross them, ranges from a few
+    cells to past the window, inactive agents (skipped whole on a clean
+    tile, evaluated on a dirty one), and grids holding values beyond
+    +-clamp, -0.0 cells and NaN cells, which every window's clip must still
+    change (a NaN stays NaN). Bit for bit; the NaN cells equal."""
+    size = 512
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    rng = np.random.default_rng(n_beams + 11)
+    args = _edge_agents(rng, 40, size, n_beams, cfg.resolution, cuda)
+    grid = _dirty_grid(rng, (size, size),
+                       "sparse" if prefill == "nan" else prefill)
+    if prefill == "nan":
+        grid[rng.random((size, size)) < 0.01] = np.nan
+    g0 = torch.tensor(grid, dtype=torch.float32, device=cuda)
+    g_k, g_p = g0.clone(), g0.clone()
+    before = beam_raster.launches
+    beam_raster(g_k, *args, spec, cfg)
+    torch.cuda.synchronize()
+    assert beam_raster.launches == before + 1
+    beam_raster_plain(g_p, *args, spec, cfg)
+    assert torch.equal(torch.isnan(g_k), torch.isnan(g0))
+    diff = _bits_differ(g_k, g_p)
+    assert diff == 0, f"{diff} cells differ"
+    assert _bits_differ(g_k, g0) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["window", "window-bf16", "room",
+                                    "exact-scan", "exact-wrapped"])
+def test_nan_cells_stay_nan(cuda, kernel):
+    """Each kernel's clip keeps a NaN grid cell NaN, as its plain version's
+    torch.clamp and the reference's jnp.clip do (CUDA's fmaxf(NaN, -c)
+    alone would store -clamp): a grid pre-filled near +-clamp with -0.0
+    cells and 2% NaN cells under overlapping agents; the NaN masks equal
+    and every other cell bit-equal."""
+    size, per_row, n_rooms = 512, 2, 7
+    cfg = GridConfig(size=size, origin_x=0.0, origin_y=0.0)
+    rng = np.random.default_rng(len(kernel))
+    grid = rng.choice([-9.9, 9.7, -0.0, -3.2, 0.0], (size, size))
+    grid[rng.random((size, size)) < 0.02] = np.nan
+    dtype = torch.bfloat16 if kernel.endswith("bf16") else torch.float32
+    g0 = torch.tensor(grid, dtype=torch.float32, device=cuda).to(dtype)
+    g_k, g_p = g0.clone(), g0.clone()
+    kernels = (free_raster, room_raster, beam_raster)
+    before = [f.launches for f in kernels]
+    if kernel.startswith("room"):
+        _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+        n = 2 * n_rooms
+        xy = origins[np.arange(n) // 2] + rng.uniform([0.3, 0.3],
+                                                      [5.7, 3.7], (n, 2))
+        xy[1::2] = xy[0::2] + rng.uniform(-0.1, 0.1, (n_rooms, 2))
+        args = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in
+                (xy, rng.uniform(-np.pi, np.pi, n),
+                 rng.uniform(0.02, 1.6, (n, 181)))]
+        act = torch.ones(n, dtype=torch.bool, device=cuda)
+        tr = torch.tensor(rng.random((n, 181)) < 0.7, device=cuda)
+        kw = dict(per_row=per_row, reach=26, trusted=tr)
+        room_raster(g_k, *args, act, BeamSpec.scan(181), cfg, **kw)
+        torch.cuda.synchronize()
+        room_raster_plain(g_p, *args, act, BeamSpec.scan(181), cfg, **kw)
+    else:
+        n_beams = 4 if kernel.endswith("wrapped") else 181
+        spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(181)
+        grid0, xy, yaw, dist, trusted, active = _case(
+            n_beams + 5, 24, n_beams, size, True, False)
+        args = [torch.from_numpy(a).to(cuda) for a in (xy, yaw, dist)]
+        act = torch.from_numpy(active).to(cuda)
+        tr = torch.from_numpy(trusted).to(cuda)
+        if kernel.startswith("exact"):
+            beam_raster(g_k, *args, tr, act, spec, cfg)
+            torch.cuda.synchronize()
+            beam_raster_plain(g_p, *args, tr, act, spec, cfg)
+        else:
+            kw = dict(reach=26, pack8=dtype == torch.float32)
+            free_raster(g_k, *args, act, tr, spec, cfg, **kw)
+            torch.cuda.synchronize()
+            free_raster_plain(g_p, *args, act, tr, spec, cfg, **kw)
+    assert sum(f.launches for f in kernels) == sum(before) + 1
+    nan0 = torch.isnan(g0)
+    assert torch.equal(torch.isnan(g_k), nan0)
+    assert torch.equal(torch.isnan(g_p), nan0)
+    diff = _bits_differ(g_k, g_p)
+    assert diff == 0, f"{diff} cells differ"
+    assert _bits_differ(g_k, g0) > 0
+
+
 # window forms for the box cases: (beams, groups, pack8, ring, dtype)
 BOX_WINDOW_FORMS = [(181, 181, True, True, torch.float32),
                     (181, 181, False, False, torch.bfloat16),
@@ -637,9 +755,9 @@ def test_room_box_cases_bit_equal_plain(cuda, n_groups, ring, prefill):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["window", "room"])
+@pytest.mark.parametrize("kernel", ["window", "room", "exact"])
 def test_misaligned_grid_raises(cuda, kernel):
-    """Both kernels read the grid in 16-byte vectors, so a contiguous grid
+    """The kernels read the grid in 16-byte vectors, so a contiguous grid
     view 4 bytes past a 16-byte boundary is refused at the launch entry
     (cudaErrorInvalidValue, raised by the wrapper) with nothing launched
     or written; the card stays usable, and the same call on an aligned
@@ -663,12 +781,19 @@ def test_misaligned_grid_raises(cuda, kernel):
 
         def call(g):
             return free_raster(g, *args, None, spec, cfg, reach=26)
-    else:
+    elif kernel == "room":
         fn = room_raster
 
         def call(g):
             return room_raster(g, *args, spec, cfg, per_row=per_row,
                                reach=26)
+    else:
+        fn = beam_raster
+        tr = torch.ones((n, 181), dtype=torch.bool, device=cuda)
+
+        def call(g):
+            beam_raster(g, *args[:3], tr, args[3], spec, cfg)
+            return g, (g != 0).sum().to(torch.float32)
     buf = torch.zeros(size * size + 4, device=cuda)
     g = buf[1:1 + size * size].view(size, size)
     assert g.is_contiguous() and g.data_ptr() % 16 == 4

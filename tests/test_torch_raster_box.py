@@ -1,20 +1,25 @@
-"""The evaluation box of the raster kernels (csrc/free_raster.cu and
-csrc/room_raster.cu evaluate only the cells of the bounding box of the
-fan's sector of radius R + 1 around an agent, R the largest range its own
-table holds, widened by a cell), proved on the CPU against the kernels'
+"""The evaluation box of the raster kernels (csrc/free_raster.cu,
+csrc/room_raster.cu and csrc/exact_raster.cu evaluate only the cells of the
+bounding box of the fan's sector of radius R + 1 around an agent, R the
+largest range its own table holds, or for the exact raster its meta's
+longest range, widened by a cell), proved on the CPU against the kernels'
 plain torch versions: every cell to which the plain
 version gives a nonzero delta or a nonzero painted count lies inside
 `evaluation_box`. The painted count per cell is read as the delta of a
 grid config whose miss and hit log-odds are 1 (then each evidence term of
 the delta is the matching painted term, all of them >= 0) on active
-agents.
+agents; the exact raster has no count, and its unit-log-odds delta marks
+every cell that takes evidence.
 
 Covers the pack8 and pack16 tables with and without the ring, the grouped
 table (181 beams in 8 and in 16 groups, the 0.25 tail), the wrapped 4-way
 fan, ranges up to each field's clamp (31.75 cells pack8, 127.99 pack16 and
 grouped), agents at the grid's and the window's edges, a row band and a
-tile window of the sharded engine, and the room raster's slots. 512^2
-grids, at most 48 agents.
+tile window of the sharded engine, and the room raster's slots; the exact
+raster on the 181- and 37-beam scans and the wrapped fan, ranges from a
+few cells to past its window, agents at the grid's edges and across the
+64 x 128 tile edges, inactive agents, and yaws up to +-100 (beyond 64 the
+box takes the whole disc). 512^2 grids, at most 48 agents.
 """
 
 import dataclasses
@@ -26,6 +31,7 @@ import torch
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.geom.world import make_tiled_rooms
 from swarm_tpu_torch.ops import beam_raster_cuda as bc
+from swarm_tpu_torch.ops import exact_raster_cuda as pe
 from swarm_tpu_torch.ops import room_raster_cuda as rc
 from swarm_tpu_torch.ops.beam_raster import BeamSpec
 
@@ -34,7 +40,8 @@ CFG = GridConfig(size=SIZE, origin_x=0.0, origin_y=0.0)
 # every evidence term of the delta equals its painted term
 UNIT = dataclasses.replace(CFG, logodds_miss=1.0, logodds_hit=1.0)
 
-# (table, beams, groups, ring, grid window (band, band_cols))
+# (table, beams, groups, ring, grid window (band, band_cols)); the exact
+# raster's: ("exact", beams, None, True, the largest |yaw|)
 CASES = {
     "pack8-ring": ("pack8", 181, None, True, None),
     "pack8": ("pack8", 181, None, False, None),
@@ -49,6 +56,10 @@ CASES = {
                                                     (-128, 512))),
     "room-pack16-ring": ("room", 181, None, True, None),
     "room-grouped-181/8": ("room", 181, 8, False, None),
+    "exact-181": ("exact", 181, None, True, np.pi),
+    "exact-37": ("exact", 37, None, True, np.pi),
+    "exact-wrapped": ("exact", 4, None, True, np.pi),
+    "exact-181-yaw100": ("exact", 181, None, True, 100.0),
 }
 
 
@@ -147,12 +158,54 @@ def _room_case(n_groups, ring, rng):
     return deltas, rows, cols, box
 
 
+def _exact_case(n_beams, yaw_max, rng):
+    """The exact raster (`exact_raster_cuda._deltas`, beam_raster_plain's
+    per-agent deltas) and its box, for 48 agents: 6 at the grid's corners
+    and edges, 12 across the 64 x 128 tile edges, the rest anywhere; yaws
+    up to +-yaw_max (a third of them within 1 of +-64 where it is larger);
+    ranges of a few cells, about the reach, and 7 m (past the 64-row
+    window); a sixth of the agents inactive. Agents 18-23 read 1.2 m on
+    every beam, all trusted and active: their rings reach R + 0.71 in
+    every direction of the fan, so the box's edges are tested where they
+    are tightest."""
+    n = 48
+    cells = rng.uniform(0, SIZE, (n, 2))
+    cells[:6] = [[0.3, 0.6], [SIZE - 0.4, SIZE - 0.2], [1.5, SIZE - 2.0],
+                 [SIZE - 3.0, 0.9], [SIZE / 2, 0.1], [0.05, SIZE / 2]]
+    cells[6:18] = np.stack([rng.integers(1, SIZE // 64, 12) * 64.0,
+                            rng.integers(1, SIZE // 128, 12) * 128.0], -1) + \
+        rng.uniform(-3, 3, (12, 2))
+    yaw = rng.uniform(-yaw_max, yaw_max, n)
+    if yaw_max > 64:
+        yaw[::3] = rng.choice([-1, 1], 16) * rng.uniform(63, 65, 16)
+    dist = _ranges(rng, n, n_beams, 7.0)
+    trusted = rng.random((n, n_beams)) < 0.7
+    active = rng.random(n) < 0.83
+    dist[18:24], trusted[18:24], active[18:24] = 1.2, True, True
+    args = (torch.tensor(cells[:, ::-1] * CFG.resolution,
+                         dtype=torch.float32),
+            torch.tensor(yaw, dtype=torch.float32),
+            torch.tensor(dist, dtype=torch.float32), torch.tensor(trusted),
+            torch.tensor(active))
+    spec = BeamSpec.four_way() if n_beams == 4 else BeamSpec.scan(n_beams)
+    grid = torch.zeros((SIZE, SIZE))
+    deltas = []
+    for cfg in (CFG, UNIT):
+        w = pe._windows(grid, *args, cfg)
+        deltas.append(pe._deltas(w, spec, cfg))
+    rows = w.row0[:, None] + torch.arange(w.rows)[None, :]
+    cols = w.col0[:, None] + torch.arange(w.cols)[None, :]
+    return deltas, rows, cols, pe.evaluation_box(w, spec)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_evidence_lies_in_the_evaluation_box(case):
     kind, n_beams, n_groups, ring, window = CASES[case]
     rng = np.random.default_rng(len(case) * 31 + n_beams)
     if kind == "room":
         deltas, rows, cols, box = _room_case(n_groups, ring, rng)
+    elif kind == "exact":
+        deltas, rows, cols, box = _exact_case(n_beams, window, rng)
     else:
         deltas, rows, cols, box = _window_case(kind, n_beams, n_groups, ring,
                                                window, rng)
