@@ -139,7 +139,33 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      within 1e-5); then every
      other band and tile form through the sharded body's bench.py flag rows
      (BAND_ROWS), 17 steps each;
- 15. parallel/dryrun.py at world size 1 on the card, as its own process.
+ 15. parallel/dryrun.py at world size 1 on the card, as its own process;
+ 16. every raster mode of the fused engine, which no raster kernel serves
+     (the XLA beam tier, the line and parity rasters are torch code): the
+     untiled world's bench.py rows at 1024 agents (presets.untiled on
+     3840^2: --raster line, --no-pallas, --no-pallas --grid-dtype
+     bfloat16), each a warm-up step, the counters set to 0, 65 steps
+     (merges at 15, 31, 47, 63), the counters read: no raster kernel
+     launched, every step writes, merges at every event, all agents
+     online, poses finite; steps/s, applied cells/s, peak memory, the
+     ordered add's deepest layer, a 17-step split;
+ 17. the profiling mode (raster_mode="off") on the same world, 17 steps:
+     writes 0, grid and log-odds bit-unchanged; each row's raster share;
+ 18. the parity path: presets.dual_bot() for 200 steps (FREE > 500,
+     OCCUPIED > 20 cells, both agents online, closures printed), the
+     untiled world in parity mode without a sweep at 1024 agents for 33
+     steps and a 17-step split (the sequential closure's time); the swarm
+     preset (run_session --preset swarm) at 64 agents for 201 steps;
+ 19. the yaw-rate bias (merge_bias_alpha=0.1) on presets.deployable(1024)
+     for 33 steps: the estimate finite, nonzero for some agent;
+ 20. card against CPU on the same inputs at the untiled world's
+     1024-agent shapes: parity_raster, the line raster and the ordered add
+     of the XLA tier's own deltas BIT-EQUAL (NaN payloads aside), the XLA
+     tier decision-equal on both fans and grid dtypes, the line raster and
+     the XLA tier run twice bit-identical;
+ 21. card against CPU at 8 agents (phase 11's bar) on the line raster, the
+     XLA tier (f32, bf16), the parity mode (untiled, dual_bot), the
+     profiling mode and the bias.
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`), then the card's name and power limit; the last
@@ -148,6 +174,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -971,20 +998,28 @@ def phase_merge(card, dev, cfg, rooms, state, m):
 
 
 def phase_reference(dev, name: str, steps: int = REF_STEPS,
-                    equal_merges: bool = False, **flags):
-    """The same `steps` steps of presets.deployable(REF_AGENTS, **flags) on
-    the card and on the CPU, from the same state and noise; with
-    `equal_merges` the merge counts must be equal on both sides."""
+                    equal_merges: bool = False, world=None,
+                    expect_merges: bool = True, **flags):
+    """The same `steps` steps of presets.deployable(REF_AGENTS, **flags)
+    (or of `world(device)`, a preset's return) on the card and on the CPU,
+    from the same state and noise; with `equal_merges` the merge counts
+    must be equal on both sides, and with `expect_merges` a merge event
+    must run.
+    The tri-state map is the int8 grid in the parity and profiling
+    modes."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.engine.sim import (agent_merge_box, draw_step_noise,
                                             sim_init, sim_step)
     from swarm_tpu_torch.ops.raster import tri_state_view
 
-    n = REF_AGENTS
+    if world is None:
+        def world(d):
+            return presets.deployable(REF_AGENTS, device=d, **flags)
     cpu = torch.device("cpu")
     gen = torch.Generator(device=cpu).manual_seed(SEED)
-    worlds = {d: presets.deployable(n, device=d, **flags)
-              for d in (cpu, dev)}
+    worlds = {d: world(d) for d in (cpu, dev)}
+    n = worlds[cpu][0].n_agents
+    n_rays = worlds[cpu][0].engine.scan_rays
     states = {d: sim_init(w[0], w[2]) for d, w in worlds.items()}
     boxes = {d: agent_merge_box(w[0], w[3][0], w[3][1], d)
              for d, w in worlds.items()}
@@ -992,10 +1027,11 @@ def phase_reference(dev, name: str, steps: int = REF_STEPS,
     merges = {cpu: [], dev: []}
     last = {}
     for k in range(steps):
-        noise = draw_step_noise(gen, n, 181, cpu)
+        noise = draw_step_noise(gen, n, n_rays, cpu)
         ms = {}
         for d, (cfg, walls, params, rooms) in worlds.items():
-            nz = type(noise)(*(type(f)(*(x.to(d) for x in f))
+            nz = type(noise)(*(None if f is None else
+                               type(f)(*(x.to(d) for x in f))
                                for f in noise))
             states[d], ms[d] = sim_step(
                 states[d], nz, cfg, walls, params, walls_grouped=rooms[0],
@@ -1017,11 +1053,17 @@ def phase_reference(dev, name: str, steps: int = REF_STEPS,
     if abs(w_c - w_d) > 0.01 * w_c:
         raise AssertionError(f"reference [{name}]: writes {w_d} on the card "
                              f"vs {w_c} on the CPU")
-    tri_c = tri_state_view(states[cpu].srv.logodds, cfg.grid)
-    tri_d = tri_state_view(states[dev].srv.logodds, cfg.grid).cpu()
+    int8 = cfg.engine.parity_mode or cfg.engine.raster_mode == "off"
+
+    def tri(d):
+        return (states[d].srv.grid if int8 else tri_state_view(
+            states[d].srv.logodds, cfg.grid)).cpu()
+
+    tri_c, tri_d = tri(cpu), tri(dev)
     explored = (tri_c != cfg.grid.unknown) | (tri_d != cfg.grid.unknown)
-    agree = float(((tri_c == tri_d) & explored).sum()) / max(
-        int(explored.sum()), 1)
+    # the profiling mode maps nothing: nothing explored is agreement
+    agree = float(((tri_c == tri_d) & explored).sum()) / int(
+        explored.sum()) if int(explored.sum()) else 1.0
     ev = [k for k in range(steps) if merges[cpu][k] or merges[dev][k]]
     print(f"reference [{name}] at {n} agents, {steps} steps: writes "
           f"{w_d} (card) vs {w_c} (CPU), tri-state agreement {agree:.6f} "
@@ -1031,7 +1073,7 @@ def phase_reference(dev, name: str, steps: int = REF_STEPS,
     if agree < 0.99:
         raise AssertionError(f"reference [{name}]: card and CPU maps "
                              f"disagree")
-    if not ev:
+    if expect_merges and not ev:
         raise AssertionError(f"reference [{name}]: no merge event ran")
     if equal_merges and merges[cpu] != merges[dev]:
         raise AssertionError(f"reference [{name}]: merge counts differ")
@@ -1416,9 +1458,10 @@ def _sim_parts():
     from swarm_tpu_torch.engine import sim
 
     names = {"sensing": ("sense_4way", "sense_scan"),
-             "raster": ("_raster_fans",), "merge": ("_merge_event",),
+             "raster": ("_raster_fans", "logodds_raster", "parity_raster"),
+             "merge": ("_merge_event",),
              "zones": ("zones_for_agents",),
-             "closure": ("closure_add_poses_batch",),
+             "closure": ("closure_add_poses_batch", "closure_add_poses_seq"),
              "v2v": ("v2v_stats",)}
     return {part: tuple((sim, nm) for nm in nms)
             for part, nms in names.items()}
@@ -1427,11 +1470,13 @@ def _sim_parts():
 def _step_split(step, state, n_steps: int, parts=None):
     """n_steps more steps with CUDA events around the step and around each
     part the engine calls by name: engine.sim's `sense_4way` and
-    `sense_scan` (sensing), `_raster_fans` (the raster, its preparation
-    and any endpoint scatter), `_merge_event` (the merge, on merge steps),
-    `zones_for_agents` (the zone snapshot, every 2 s of simulated time),
-    `closure_add_poses_batch` (the closure ring's landmark match) and
-    `v2v_stats` (the pairwise radio statistics). Returns (state, split):
+    `sense_scan` (sensing), `_raster_fans` (the beam raster, its
+    preparation and any endpoint scatter, or the XLA tier),
+    `logodds_raster` and `parity_raster` (the line and parity rasters),
+    `_merge_event` (the merge, on merge steps), `zones_for_agents` (the
+    zone snapshot, every 2 s of simulated time), `closure_add_poses_batch`
+    and `closure_add_poses_seq` (the closure's landmark match, batched or
+    sequential) and `v2v_stats` (the pairwise radio statistics). Returns (state, split):
     per part (device-timeline median ms over the steps that ran it, their
     count, the most device memory allocated while it ran); for the step
     and its rest (the step less its parts), medians over the steps with
@@ -2438,6 +2483,482 @@ def phase_dryrun(card):
     print(f"parallel/dryrun.py on the card [{card}]: "
           f"{time.perf_counter() - t0:.2f} s")
 
+# every raster mode of the fused engine: the untiled world's rows
+# (bench.py --raster line, --no-pallas), the profiling mode, the parity
+# path, the swarm preset and the yaw-rate bias; no raster kernel runs on
+# these paths (the XLA tier, the line and the parity rasters are torch)
+
+UNTILED_STEPS = 65           # four merge events (steps 15, 31, 47, 63)
+OFF_STEPS = 17
+DUAL_BOT_STEPS = 200         # run_session --preset dual_bot --steps 200
+PARITY_STEPS = 33
+SWARM_AGENTS = 64            # __graft_entry__.entry()'s swarm
+SWARM_STEPS = 201
+BIAS_STEPS = 33              # two merge events (steps 15, 31)
+UNTILED_ROWS = {
+    "--raster line": dict(raster_mode="line"),
+    "--no-pallas": dict(raster_mode="beam"),
+    "--no-pallas --grid-dtype bfloat16": dict(raster_mode="beam",
+                                              grid_dtype="bfloat16")}
+
+
+def _kernel_launches() -> dict:
+    from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
+    from swarm_tpu_torch.ops.exact_raster_cuda import beam_raster
+    from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+
+    return {"free_raster": free_raster.launches,
+            "room_raster": room_raster.launches,
+            "exact_raster": beam_raster.launches}
+
+
+def _run_steps(step, state, n_steps: int):
+    """n_steps of `step` with a CUDA event after each. Returns (state, the
+    metrics per step, wall seconds, device step times in ms)."""
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(n_steps + 1)]
+    ms = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for k in range(n_steps):
+        state, m = step(state)
+        events[k + 1].record()
+        ms.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, ms, wall, [events[k].elapsed_time(events[k + 1])
+                             for k in range(n_steps)]
+
+
+def _stacked(ms, field):
+    return torch.stack([getattr(m, field) for m in ms]).cpu()
+
+
+def _check_path(name, n, ms, state, writes=True, kernels=False):
+    """A path's run: no raster kernel launched (unless `kernels`), every
+    step writing (none with writes=False), all n agents online, poses
+    finite. Returns (writes, merges) per step on the host."""
+    w, online = _stacked(ms, "writes"), _stacked(ms, "online")
+    launches = _kernel_launches()
+    if not kernels and any(launches.values()):
+        raise AssertionError(f"{name}: raster kernels launched {launches}")
+    if writes and not bool((w > 0).all()):
+        raise AssertionError(f"{name}: a step wrote no cells")
+    if not writes and bool(w.any()):
+        raise AssertionError(f"{name}: writes {w.tolist()}")
+    if not bool((online == n).all()):
+        raise AssertionError(f"{name}: online {online.tolist()[:8]}")
+    if not bool(torch.isfinite(state.pose_true).all()):
+        raise AssertionError(f"{name}: non-finite poses")
+    return w, _stacked(ms, "merges")
+
+
+def _world_step(cfg, walls, params, rooms, dev):
+    from swarm_tpu_torch.engine.sim import make_sim_step, sim_init
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return sim_init(cfg, params), make_sim_step(
+        cfg, walls, params, gen, walls_grouped=rooms[0],
+        room_of_agent=rooms[1])
+
+
+def _split_text(split) -> str:
+    return ", ".join(f"{p} {t:.4f} (n={k}" + (
+        "" if peak is None else f", peak {peak} bytes") + ")"
+        for p, (t, k, peak) in split.items())
+
+
+def phase_untiled(card, dev):
+    """bench.py's untiled rows at N_AGENTS agents (presets.untiled: the
+    3840^2 world, 512 rooms): --raster line, --no-pallas and --no-pallas
+    --grid-dtype bfloat16. Each: a warm-up step (step 0), every counter
+    set to 0, UNTILED_STEPS steps (merges at 15, 31, 47, 63), the counters
+    read: no raster kernel launched, every step writes, merges at every
+    event, all agents online, poses finite; steps/s, applied cells/s (the
+    XLA tier's count is free plus occupied cells, ROADMAP C18), peak memory,
+    the ordered add's deepest layer; then SPLIT_STEPS more steps split on
+    the device timeline. Returns per row its device step median without a
+    merge (ms)."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.ops.raster import ordered_add
+
+    out = {}
+    for row, kw in UNTILED_ROWS.items():
+        name = f"untiled {row}"
+        cfg, walls, params, rooms = presets.untiled(N_AGENTS, device=dev,
+                                                    **kw)
+        every = cfg.engine.merge_every
+        state, step = _world_step(cfg, walls, params, rooms, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_set = time.perf_counter()
+        state, _ = step(state)               # warm-up: step 0
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t_set
+        _reset_counts()                      # this path starts here
+        ordered_add.deepest = 0
+        state, ms, wall, step_ms = _run_steps(step, state, UNTILED_STEPS)
+        writes, merges = _check_path(name, N_AGENTS, ms, state)
+        merge_steps = [k for k in range(1, UNTILED_STEPS + 1)
+                       if k % every == every - 1]
+        on = [int(merges[k - 1]) for k in merge_steps]
+        if not all(x > 0 for x in on):
+            raise AssertionError(f"{name}: merges {merges.tolist()}")
+        applied = int(writes.to(torch.int64).sum())
+        peak = torch.cuda.max_memory_allocated()
+        off = [t for k, t in enumerate(step_ms, 1) if k not in merge_steps]
+        print(f"{name}: {UNTILED_STEPS} steps at {N_AGENTS} agents on "
+              f"{cfg.grid.size}^2 after a warm-up ({t_set:.2f} s): raster "
+              f"kernels {_kernel_launches()}, min writes "
+              f"{int(writes.min())}, merges {on} at steps {merge_steps}, "
+              f"online {N_AGENTS}/{N_AGENTS}, poses finite; the ordered "
+              f"add's deepest layer {ordered_add.deepest}")
+        print(f"{name} [{card}]: {UNTILED_STEPS / wall:.4f} steps/s, "
+              f"{applied / wall:.6e} applied cells/s ({applied} cells in "
+              f"{wall:.4f} s), peak memory {peak} bytes; device step "
+              f"median {_median(off):.4f} ms without a merge, "
+              f"{_median([step_ms[k - 1] for k in merge_steps]):.4f} ms "
+              f"with one")
+        state, split = _step_split(step, state, SPLIT_STEPS)
+        print(f"{name} step split [{card}], device-timeline medians over "
+              f"{SPLIT_STEPS} more steps (ms): {_split_text(split)}; raster "
+              f"share of the device step "
+              f"{split['raster'][0] / split['step'][0]:.4f}")
+        out[row] = _median(off)
+        del state, step, ms
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_profiling(card, dev, untiled_ms):
+    """The profiling mode (raster_mode="off") on the untiled world at
+    N_AGENTS agents, OFF_STEPS steps after a warm-up: writes 0 on every
+    step, the int8 grid and the log-odds bit-unchanged, no raster kernel;
+    steps/s, and each untiled row's raster share as one less the ratio of
+    the device step medians without a merge."""
+    from swarm_tpu_torch import presets
+
+    cfg, walls, params, rooms = presets.untiled(N_AGENTS, raster_mode="off",
+                                                device=dev)
+    state, step = _world_step(cfg, walls, params, rooms, dev)
+    state, _ = step(state)                   # warm-up: step 0
+    grid0 = state.srv.grid.clone()
+    lo0 = state.srv.logodds.clone()
+    torch.cuda.synchronize()
+    _reset_counts()                          # this path starts here
+    state, ms, wall, step_ms = _run_steps(step, state, OFF_STEPS)
+    _check_path("profiling mode", N_AGENTS, ms, state, writes=False)
+    if not (torch.equal(state.srv.grid, grid0) and torch.equal(
+            state.srv.logodds.view(torch.int32), lo0.view(torch.int32))):
+        raise AssertionError("profiling mode: the maps changed")
+    every = cfg.engine.merge_every
+    off = _median([t for k, t in enumerate(step_ms, 1)
+                   if k % every != every - 1])
+    print(f"profiling mode at {N_AGENTS} agents [{card}]: {OFF_STEPS} steps, "
+          f"writes 0, grid and log-odds bit-unchanged, "
+          f"{OFF_STEPS / wall:.4f} steps/s, device step median {off:.4f} ms "
+          f"without a merge; the raster's share of each untiled row's step "
+          + ", ".join(f"{row} {1 - off / t:.4f} (step {t:.4f} ms)"
+                      for row, t in untiled_ms.items()))
+    del state, step, ms, grid0, lo0
+    torch.cuda.empty_cache()
+
+
+def phase_parity(card, dev):
+    """The reference-parity path: presets.dual_bot() for DUAL_BOT_STEPS
+    steps (the verify recipe's bar: more than 500 FREE and 20 OCCUPIED
+    cells, both agents online; closures printed), then the untiled world
+    at N_AGENTS agents in parity mode without a sweep
+    (`_cfg_and_world(1024, parity=True)`) for PARITY_STEPS steps and a
+    SPLIT_STEPS split (the sequential closure's device time). No raster
+    kernel; the log-odds stay zero."""
+    from swarm_tpu_torch import presets
+
+    cfg, walls, params, rooms = presets.dual_bot(device=dev)
+    state, step = _world_step(cfg, walls, params, rooms, dev)
+    torch.cuda.synchronize()
+    _reset_counts()                          # this path starts here
+    state, ms, wall, _ = _run_steps(step, state, DUAL_BOT_STEPS)
+    _check_path("dual_bot", 2, ms[1:], state)
+    g = cfg.grid
+    free = int((state.srv.grid == g.free).sum())
+    occ = int((state.srv.grid == g.occupied).sum())
+    closures = int(_stacked(ms, "closures").sum())
+    writes = int(_stacked(ms, "writes").to(torch.int64).sum())
+    print(f"dual_bot [{card}]: {DUAL_BOT_STEPS} steps, {wall:.4f} s "
+          f"({DUAL_BOT_STEPS / wall:.2f} steps/s), FREE {free}, OCCUPIED "
+          f"{occ} cells, {writes} cell writes, {closures} closures, online "
+          f"2/2, raster kernels {_kernel_launches()}")
+    if free <= 500 or occ <= 20 or bool(state.srv.logodds.any()):
+        raise AssertionError(f"dual_bot: FREE {free}, OCCUPIED {occ}")
+
+    cfg, walls, params, rooms = presets.untiled(
+        N_AGENTS, raster_mode="line", scan_rays=0, device=dev)
+    cfg = cfg.replace(engine=dataclasses.replace(cfg.engine,
+                                                 parity_mode=True))
+    state, step = _world_step(cfg, walls, params, rooms, dev)
+    state, _ = step(state)                   # warm-up: step 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                          # this path starts here
+    state, ms, wall, step_ms = _run_steps(step, state, PARITY_STEPS)
+    writes, _ = _check_path("untiled parity", N_AGENTS, ms, state)
+    closures = int(_stacked(ms, "closures").sum())
+    print(f"untiled parity mode at {N_AGENTS} agents [{card}]: "
+          f"{PARITY_STEPS} steps, {PARITY_STEPS / wall:.4f} steps/s, min "
+          f"writes {int(writes.min())}, {closures} closures, device step "
+          f"median {_median(step_ms):.4f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes, raster kernels "
+          f"{_kernel_launches()}")
+    if bool(state.srv.logodds.any()):
+        raise AssertionError("untiled parity: the log-odds changed")
+    state, split = _step_split(step, state, SPLIT_STEPS)
+    print(f"untiled parity mode step split [{card}] (ms): "
+          f"{_split_text(split)}; the sequential closure "
+          f"{split['closure'][0]:.4f} ms a step")
+    del state, step, ms
+    torch.cuda.empty_cache()
+
+
+def phase_swarm(card, dev):
+    """`run_session --preset swarm` at SWARM_AGENTS agents
+    (`__graft_entry__.entry()`'s world; presets.swarm): SWARM_STEPS steps
+    of the line raster of the 4-way ultrasonics, no raster kernel, every
+    step writes, all agents online, poses finite."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.ops.raster import ordered_add
+
+    cfg, walls, params, rooms = presets.swarm(SWARM_AGENTS, device=dev)
+    state, step = _world_step(cfg, walls, params, rooms, dev)
+    torch.cuda.synchronize()
+    _reset_counts()                          # this path starts here
+    ordered_add.deepest = 0
+    state, ms, wall, step_ms = _run_steps(step, state, SWARM_STEPS)
+    writes, _ = _check_path("swarm", SWARM_AGENTS, ms[1:], state)
+    print(f"swarm preset at {SWARM_AGENTS} agents [{card}]: {SWARM_STEPS} "
+          f"steps, {SWARM_STEPS / wall:.4f} steps/s, device step median "
+          f"{_median(step_ms):.4f} ms, {int(writes.sum())} cell writes, "
+          f"the ordered add's deepest layer {ordered_add.deepest}, raster "
+          f"kernels {_kernel_launches()}")
+
+
+def phase_bias(card, dev):
+    """The yaw-rate bias (merge_bias_alpha=0.1) on presets.deployable at
+    N_AGENTS agents for BIAS_STEPS steps (merges at 15 and 31): the window
+    kernel once per step, every step writes, merges at both events, the
+    estimate finite everywhere and nonzero for some agent after them."""
+    from swarm_tpu_torch import presets
+
+    cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev)
+    cfg = cfg.replace(slam=dataclasses.replace(cfg.slam,
+                                               merge_bias_alpha=0.1))
+    state, step = _world_step(cfg, walls, params, rooms, dev)
+    torch.cuda.synchronize()
+    _reset_counts()                          # this path starts here
+    state, ms, wall, _ = _run_steps(step, state, BIAS_STEPS)
+    _, by_form, n_room = _read_counts()
+    _check_path("bias", N_AGENTS, ms[1:], state, kernels=True)
+    merges = _stacked(ms, "merges")
+    rate = state.srv.merge_yaw_rate
+    n_rate = int((rate != 0).sum())
+    print(f"yaw-rate bias at {N_AGENTS} agents [{card}]: {BIAS_STEPS} steps, "
+          f"{BIAS_STEPS / wall:.4f} steps/s, launches {by_form}, room "
+          f"{n_room}, merges {int(merges[15])} and {int(merges[31])}, "
+          f"{n_rate} agents with a rate, max |rate| "
+          f"{float(rate.abs().max()):.6e} rad/m, max |mark| "
+          f"{float(state.srv.merge_dist_mark.abs().max()):.4f} m")
+    if by_form != {"pack8-ring": BIAS_STEPS} or n_room or \
+            not (int(merges[15]) > 0 and int(merges[31]) > 0):
+        raise AssertionError(f"bias: launches {by_form}, merges "
+                             f"{merges.tolist()}")
+    if not bool(torch.isfinite(rate).all()) or n_rate == 0:
+        raise AssertionError("bias: the estimate is not finite or is zero")
+    del state, step, ms
+    torch.cuda.empty_cache()
+
+
+def _bit_differ(a, b) -> int:
+    """Cells whose bits differ (a -0.0 against a +0.0 counts), a NaN
+    against a NaN counting as equal whatever their payloads (the card's
+    arithmetic returns its canonical NaN)."""
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    differ = a.view(view) != b.view(view)
+    if a.is_floating_point():
+        differ = (differ & ~(torch.isnan(a) & torch.isnan(b))) | (
+            torch.isnan(a) != torch.isnan(b))
+    return int(differ.sum())
+
+
+def phase_card_vs_cpu(card, dev):
+    """One call each, on the card and on the CPU, on the same inputs at the
+    untiled world's 1024-agent shapes (homes, random headings, noisy 4-way
+    and sweep readings against each agent's room): `parity_raster` and the
+    line raster (`logodds_raster`) on the step's ordered rays, and
+    `ordered_add` on the XLA tier's own patch deltas (on a grid with -0.0
+    and NaN cells), each BIT-EQUAL (a NaN equal to a NaN); the XLA tier (`beam_raster_reference`,
+    both fans, float32 and bfloat16) decision-equal (cells differing by
+    more than 1e-6 at most 0.01% of the painted cells, writes within the
+    same bar); the line raster and the XLA tier run twice on the card,
+    bit-identical."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch._device import recip32
+    from swarm_tpu_torch.engine import sim
+    from swarm_tpu_torch.models.scan import sense_scan
+    from swarm_tpu_torch.models.sensors import draw_sensor_noise, sense_4way
+    from swarm_tpu_torch.ops import beam_raster as br
+    from swarm_tpu_torch.ops import raster
+
+    cpu = torch.device("cpu")
+    cfg, walls, params, rooms = presets.untiled(N_AGENTS, raster_mode="beam",
+                                                device=dev)
+    sens, size = cfg.sensors, cfg.grid.size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    n, r = cfg.n_agents, cfg.engine.scan_rays
+    yaw = (torch.rand((n,), generator=gen, device=dev) * 2 - 1) * torch.pi
+    pose = torch.stack([params.home_x, params.home_y, yaw], -1)
+    wa = rooms[0][rooms[1].long()]
+    dist4 = sense_4way(draw_sensor_noise(gen, (n, 4), dev), pose, wa, sens)
+    scan = sense_scan(draw_sensor_noise(gen, (n, r), dev), pose, wa, r, sens)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    rx, ry = pose[:, 0], pose[:, 1]
+    hv = (dist4 > sens.min_range) & (dist4 <= sens.max_range)
+    rng = torch.where(hv, dist4, torch.full_like(dist4, sens.max_range))
+    ang = yaw[:, None] + torch.tensor(sens.angles, device=dev)[None, :]
+    rays = sim._line_rays(rx, ry, yaw, rx[:, None] + rng * torch.cos(ang),
+                          ry[:, None] + rng * torch.sin(ang), hv, alive,
+                          scan, cfg)
+    rays_c = type(rays)(*(x.cpu() for x in rays))
+
+    grid0 = torch.tensor([cfg.grid.unknown, cfg.grid.free,
+                          cfg.grid.occupied], dtype=torch.int8,
+                         device=dev)[torch.randint(0, 3, (size, size),
+                                                   generator=gen,
+                                                   device=dev)]
+    g_d, w_d = raster.parity_raster(grid0.clone(), rays, cfg.grid)
+    g_c, w_c = raster.parity_raster(grid0.cpu(), rays_c, cfg.grid)
+    n_par = _bit_differ(g_d.cpu(), g_c)
+    print(f"card vs CPU [{card}]: parity_raster on {rays.ox.numel()} rays: "
+          f"{n_par} of {size * size} cells differ, writes {int(w_d)} vs "
+          f"{int(w_c)}")
+
+    lo0 = (torch.rand((size, size), generator=gen, device=dev) * 2 - 1) \
+        * 9.9
+    outs = []
+    for _ in range(2):
+        raster.ordered_add.deepest = 0
+        outs.append(raster.logodds_raster(lo0.clone(), rays, cfg.grid))
+    depth = raster.ordered_add.deepest
+    l_c, lw_c = raster.logodds_raster(lo0.cpu(), rays_c, cfg.grid)
+    n_line = _bit_differ(outs[0][0].cpu(), l_c)
+    n_line2 = _bit_differ(outs[0][0], outs[1][0])
+    print(f"card vs CPU [{card}]: logodds_raster (the line raster): "
+          f"{n_line} of {size * size} cells differ, writes "
+          f"{int(outs[0][1])} vs {int(lw_c)}; run twice on the card "
+          f"{n_line2} cells differ; the ordered add's deepest layer "
+          f"{depth}")
+
+    # the ordered add on the XLA tier's own deltas (the first patch chunk)
+    inv = recip32(cfg.grid.resolution)
+    ax = (rx - cfg.grid.origin_x) * inv
+    ay = (ry - cfg.grid.origin_y) * inv
+    db, tb = br.beams_from_scan(scan, sens.max_range, sens.min_range)
+    pr, pc = br.patch_dims(size, br.reach_cells(cfg))
+    row0, col0 = br.patch_origin(ax, ay, size, pr, pc, br.reach_cells(cfg))
+    m = min(n, br.PATCH_CHUNK_CELLS // (pr * pc))
+    delta, _, _ = br._patch_delta(ax[:m], ay[:m], yaw[:m], db[:m] * inv,
+                                  tb[:m], row0[:m], col0[:m],
+                                  br.BeamSpec.scan(r), cfg.grid.logodds_hit,
+                                  cfg.grid.logodds_miss, pr, pc)
+    cells = ((row0[:m].long()[:, None, None]
+              + torch.arange(pr, device=dev)[:, None]) * size
+             + col0[:m].long()[:, None, None]
+             + torch.arange(pc, device=dev))
+    special = torch.randint(0, size * size, (20000,), generator=gen,
+                            device=dev)
+    n_oa = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g0 = lo0.to(dtype)
+        g0.view(-1)[special[:10000]] = -0.0
+        g0.view(-1)[special[10000:]] = float("nan")
+        a_d, a_c = g0.clone(), g0.cpu()
+        raster.ordered_add(a_d.view(-1), cells, delta)
+        raster.ordered_add(a_c.view(-1), cells.cpu(), delta.cpu())
+        n_oa[str(dtype)[6:]] = _bit_differ(a_d.cpu(), a_c)
+    print(f"card vs CPU [{card}]: ordered_add of {cells.numel()} patch "
+          f"deltas ({m} agents of the sweep's XLA tier): cells differing "
+          f"{n_oa}")
+
+    n_tier, worst = {}, 0.0
+    for dtype in ("float32", "bfloat16"):
+        gcfg = dataclasses.replace(cfg.grid, logodds_dtype=dtype)
+        lo = lo0.to(gcfg.lo_dtype)
+        for spec, d, t in ((br.BeamSpec.four_way(),) + br.beams_from_4way(
+                dist4, sens.max_range, sens.min_range),
+                (br.BeamSpec.scan(r), db, tb)):
+            args = (torch.stack([rx, ry], -1), yaw, d, t, spec, gcfg)
+            runs = [br.beam_raster_reference(lo.clone(), *args,
+                                             reach=br.reach_cells(cfg))
+                    for _ in range(2)]
+            ref, wr = br.beam_raster_reference(
+                lo.cpu(), *(a.cpu() if isinstance(a, torch.Tensor) else a
+                            for a in args), reach=br.reach_cells(cfg))
+            got = runs[0][0].cpu().to(torch.float32)
+            want = ref.to(torch.float32)
+            changed = int((want != lo.cpu().to(torch.float32)).sum())
+            diff = int(((got - want).abs() > 1e-6).sum())
+            key = f"{'wrapped' if spec.wrap else 'scan'} {dtype}"
+            n_tier[key] = (diff, changed, int(runs[0][1]), int(wr),
+                           _bit_differ(runs[0][0], runs[1][0]))
+            worst = max(worst, float((got - want).abs().max()))
+            if diff > 1e-4 * changed or abs(int(runs[0][1]) - int(wr)) > \
+                    1e-4 * int(wr) or n_tier[key][4]:
+                raise AssertionError(f"XLA tier card vs CPU {key}: "
+                                     f"{n_tier[key]}")
+    print(f"card vs CPU [{card}]: the XLA tier, per fan and grid dtype "
+          f"(cells differing by > 1e-6, changed cells, writes card, writes "
+          f"CPU, cells differing between two card runs): {n_tier}; max "
+          f"|diff| {worst:.4e}")
+    if n_par or int(w_d) != int(w_c) or n_line or n_line2 or \
+            int(outs[0][1]) != int(lw_c) or any(n_oa.values()):
+        raise AssertionError("card vs CPU: a bit-equal raster differs")
+
+
+def phase_reference_modes(dev):
+    """Card against CPU at REF_AGENTS agents (phase_reference's bar) on each
+    new path: the line raster and the XLA tier on the untiled world, the
+    parity mode there (no sweep) and on dual_bot, the profiling mode, and
+    the yaw-rate bias on the deployable path."""
+    from swarm_tpu_torch import presets
+
+    def untiled(**kw):
+        return lambda d: presets.untiled(REF_AGENTS, device=d, **kw)
+
+    def parity(d):
+        cfg, *rest = presets.untiled(REF_AGENTS, raster_mode="line",
+                                     scan_rays=0, device=d)
+        return (cfg.replace(engine=dataclasses.replace(
+            cfg.engine, parity_mode=True)), *rest)
+
+    def bias(d):
+        cfg, *rest = presets.deployable(REF_AGENTS, device=d)
+        return (cfg.replace(slam=dataclasses.replace(
+            cfg.slam, merge_bias_alpha=0.1)), *rest)
+
+    phase_reference(dev, "untiled --raster line", world=untiled(
+        raster_mode="line"))
+    phase_reference(dev, "untiled --no-pallas", world=untiled(
+        raster_mode="beam"))
+    phase_reference(dev, "untiled --no-pallas bf16", 17, world=untiled(
+        raster_mode="beam", grid_dtype="bfloat16"))
+    phase_reference(dev, "untiled parity", 17, world=parity,
+                    expect_merges=False)
+    phase_reference(dev, "dual_bot", REF_STEPS, expect_merges=False,
+                    world=lambda d: presets.dual_bot(device=d))
+    phase_reference(dev, "profiling mode", 17, expect_merges=False,
+                    world=untiled(raster_mode="off"))
+    phase_reference(dev, "bias", world=bias)
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -2495,6 +3016,15 @@ def run(card, dev) -> list:
     k_band = phase_band_kernels(card, dev)
     n_band = phase_sharded(card, dev)
     phase_dryrun(card)
+
+    # every raster mode of the fused engine (no raster kernel on these)
+    untiled_ms = phase_untiled(card, dev)
+    phase_profiling(card, dev, untiled_ms)
+    phase_parity(card, dev)
+    phase_swarm(card, dev)
+    phase_bias(card, dev)
+    phase_card_vs_cpu(card, dev)
+    phase_reference_modes(dev)
 
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),

@@ -2,35 +2,42 @@
 
 One call advances every agent by one tick: sense (4-way + servo scan from
 the TRUE pose), landmark, telemetry from the drifted estimate, server
-ingest (frame tracker, beam raster through the CUDA kernel, zones, closure
-ring, heartbeat), navigate, wall-clamped physics, drift integration, EKF,
+ingest (frame tracker, the map's raster, zones, closure ring, heartbeat),
+navigate, wall-clamped physics, drift integration, EKF,
 V2V. State is NamedTuples of tensors on one device; the step is eager torch,
 a Python loop replaces `lax.scan`, and noise comes in as tensors
 (`StepNoise`) drawn from an explicit `torch.Generator`.
 
-The raster updates `state.srv.logodds` IN PLACE: the grid of the state
-passed in is the grid of the state returned.
+The log-odds rasters update `state.srv.logodds` IN PLACE: the grid of the
+state passed in is the grid of the state returned (the parity raster
+returns a new int8 grid).
 
-Ported: the deployable preset's paths (presets.deployable, every
-single-chip `bench.py` raster flag) — the per-agent window raster
-(`free_raster`: pack8 or pack16 table per beam, or the grouped table with
-the weak tail where `engine.beam_groups` is below a fan's beams; with the
-endpoint ring or without it, on a float32 or bfloat16 grid) or the
-room-tile raster (`engine.room_tile_per_row > 0`, `room_raster`: pack16 per
-beam or grouped, with or without the ring, float32), each with the
-anchored scan merge at
-`engine.merge_every` and the anchor freeze — and the exploration path
-(presets.coverage): the wrapped 4-way ultrasonic fan and the servo scan
-each through a raster kernel, the exact endpoint scatter after each fan
-without a ring, frontier detection at the 3 s cadence and frontier-target
-assignment (`enable_targets`), delivered in each agent's odometry frame.
-With `scan_rays == 0` the 4-way fan is the only raster and no sweep is
-sensed. The merge, zone and frontier cadences are host `if`s on a
-host-side step number: `make_sim_step` keeps it, `sim_step` takes it as
-`step_no` (or reads `state.step` once). Every config path the port does not
-run raises NotImplementedError naming its ROADMAP item, and the
-combinations the reference refuses raise its ValueError
-(`check_supported`). `StepMetrics.writes` is one step's int32 count; sum a
+Ported: every configuration the reference's fused engine runs except the
+scan-matched closures (`slam.closure_scanmatch`). The beam rasters
+(`raster_mode="beam"`): the per-agent window raster (`free_raster`: pack8
+or pack16 table per beam, or the grouped table with the weak tail where
+`engine.beam_groups` is below a fan's beams; with the endpoint ring or
+without it, on a float32 or bfloat16 grid) or the room-tile raster
+(`engine.room_tile_per_row > 0`, `room_raster`: pack16 per beam or grouped,
+with or without the ring, float32), and with `engine.use_pallas=False` the
+XLA beam tier (`beam_raster_reference`, float32 or bfloat16); the line
+raster (`raster_mode="line"`, `logodds_raster` over the ultrasonic and
+sweep rays); the profiling mode (`raster_mode="off"`: no mapping); and the
+reference-parity path (`parity_mode`, EngineConfig's default: the line
+rays into the int8 tri-state grid by `parity_raster`, the sequential
+closure `closure_add_poses_seq`, no merge and no anchor). With them the
+anchored scan merge at `engine.merge_every` and the anchor freeze, the
+yaw-rate bias (`slam.merge_bias_alpha > 0`), the exact endpoint scatter
+after each kernel fan without a ring, frontier detection at the 3 s
+cadence (on the int8 grid in the parity and profiling modes) and
+frontier-target assignment (`enable_targets`), delivered in each agent's
+odometry frame. With `scan_rays == 0` no sweep is sensed. The merge, zone
+and frontier cadences are host `if`s on a host-side step number:
+`make_sim_step` keeps it, `sim_step` takes it as `step_no` (or reads
+`state.step` once). The paths the port does not run raise
+NotImplementedError naming their ROADMAP item, and the combinations the
+reference refuses raise its ValueError (`check_supported`).
+`StepMetrics.writes` is one step's int32 count; sum a
 rollout's on the host in int64 (`rollout_writes`): at 32,768 agents a step
 writes ~1e8 cells and a few dozen steps pass 2^31.
 """
@@ -58,24 +65,29 @@ from swarm_tpu_torch.models.odometry import (DriftNoise, OdomState,
                                              draw_drift_noise,
                                              drift_integrate, encoder_emit,
                                              odom_init, quantize_yaw_deg)
-from swarm_tpu_torch.models.scan import sense_scan
+from swarm_tpu_torch.models.scan import scan_angles, sense_scan
 from swarm_tpu_torch.models.sensors import (SensorNoise, walls_for_rays,
                                             draw_sensor_noise, sense_4way)
-from swarm_tpu_torch.ops.beam_raster import (BeamSpec, beams_from_4way,
+from swarm_tpu_torch.ops.beam_raster import (BeamSpec, beam_raster_reference,
+                                             beams_from_4way,
                                              beams_from_scan, endpoint_rays,
                                              reach_cells)
 from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
 from swarm_tpu_torch.ops.frontier import (frontier_clusters,
                                           frontier_targets_coarse)
-from swarm_tpu_torch.ops.raster import endpoint_scatter, tri_state_view
+from swarm_tpu_torch.ops.raster import (RayBatch, endpoint_scatter,
+                                        logodds_raster, parity_raster,
+                                        tri_state_view)
 from swarm_tpu_torch.ops.room_raster_cuda import room_raster
 from swarm_tpu_torch.parallel.sharded import merge_window_box
 from swarm_tpu_torch.slam.closure import (ClosureState,
                                           closure_add_poses_batch,
+                                          closure_add_poses_seq,
                                           closure_init)
 from swarm_tpu_torch.slam.livemerge import (FrameState, frame_add,
                                             frame_advance, frame_init,
                                             frame_innovate, frame_theta_q,
+                                            merge_bias_ff, merge_bias_update,
                                             merge_fail_update,
                                             merge_increments,
                                             scan_merge_recover)
@@ -290,7 +302,9 @@ def check_supported(cfg: SwarmConfig, sharded: bool = False):
     yet, naming its ROADMAP item — never a silently different path — and
     ValueError for the combinations the reference itself refuses. With
     `sharded` the rows are the sharded engine's
-    (parallel/sharded.make_sharded_sim_step)."""
+    (parallel/sharded.make_sharded_sim_step). The fused engine runs every
+    raster mode (beam through a kernel or the XLA tier, line, parity, off)
+    and the yaw-rate bias; it refuses only the scan-matched closures."""
     e, s = cfg.engine, cfg.slam
     if sharded:
         # the reference's make_sharded_sim_step refuses these, in these
@@ -310,21 +324,13 @@ def check_supported(cfg: SwarmConfig, sharded: bool = False):
             "logodds_dtype=bfloat16 is supported by the fused beam "
             "tiers (window kernel + XLA reference) only")
     todo = [
-        (e.parity_mode, "parity_mode (tri-state line raster)",
-         "Queue A3, the reference-parity path"),
-        (e.raster_mode == "off", 'raster_mode="off" (the profiling mode)',
-         "Queue A8, the profiling mode"),
-        (e.raster_mode not in ("beam", "off"),
-         f"raster_mode={e.raster_mode!r} (the line raster)",
-         "Queue A8, the line raster"),
+        (sharded and e.raster_mode != "beam",
+         f"raster_mode={e.raster_mode!r} on the sharded path (its body "
+         "rasters every mode but the beam as the line scatter)",
+         "Queue A9, the sharded XLA tiers"),
         (not e.use_pallas and sharded,
          "use_pallas=False on the sharded path (the XLA fast tier "
-         "free_raster_reference)", "Queue A9, the sharded XLA fast tier"),
-        (not e.use_pallas and not sharded,
-         "use_pallas=False (the XLA beam tier)",
-         "Queue A8, the XLA beam tier"),
-        (s.merge_bias_alpha > 0.0, "merge_bias_alpha > 0",
-         "Queue A1, anchored merge"),
+         "free_raster_reference)", "Queue A9, the sharded XLA tiers"),
         (s.closure_scanmatch, "closure_scanmatch",
          "Queue A5, offline SLAM"),
     ]
@@ -384,7 +390,7 @@ def sim_init(cfg: SwarmConfig, params: AgentParams) -> SimState:
 def _merge_event(logodds, anchor, merge_fail, frame: FrameState, rx, ry,
                  ryaw, gate_yaw, scan_dist, alive, step_no: int,
                  cfg: SwarmConfig, merge_win_box, id0=None, band_row0=None,
-                 band_col0=None):
+                 band_col0=None, bias=None):
     """The anchored scan merge of one merge step (the merge block of the
     reference's _ingest_batched, and of its sharded body): match every
     attempted agent's scan against the map as of the previous step (the
@@ -394,7 +400,11 @@ def _merge_event(logodds, anchor, merge_fail, frame: FrameState, rx, ry,
     and its band or tile of the map (`band_row0` / `band_col0`). Returns
     (rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, the frame
     tracker's innovation (a FrameState delta, None without the tracker),
-    (n_merges, merge_fit, merge_ok [N], merge_fit [N]))."""
+    (n_merges, merge_fit, merge_ok [N], merge_fit [N]), the yaw-rate bias
+    deltas (fold, rate, mark) of `merge_bias_update` or None). `bias`:
+    (merge_yaw_rate, merge_dist_mark, total_dist, the reported yaw's
+    quantisation residual) of the same rows, with
+    `slam.merge_bias_alpha > 0`."""
     slam = cfg.slam
     if slam.merge_anchor:
         match_map = torch.where(torch.abs(anchor) >= 0.5, anchor, logodds)
@@ -422,6 +432,11 @@ def _merge_event(logodds, anchor, merge_fail, frame: FrameState, rx, ry,
         inc_dx = inc_dx * sdamp
         inc_dy = inc_dy * sdamp
         inc_dth = inc_dth * sdamp
+    bias_d = None
+    if bias is not None:
+        yaw_rate, dist_mark, total_dist, quant_resid = bias
+        bias_d = merge_bias_update(yaw_rate, dist_mark, total_dist, m, upd,
+                                   cfg, quant_resid=quant_resid)
     merge_fail = merge_fail_update(merge_fail, m, att, rec, alive, cfg)
     innovation = None
     if slam.merge_frame_gain > 0.0:
@@ -441,7 +456,7 @@ def _merge_event(logodds, anchor, merge_fail, frame: FrameState, rx, ry,
         ok_agent = upd
     return (rx + fdx, ry + fdy, ryaw + fdth, (inc_dx, inc_dy, inc_dth),
             merge_fail, innovation, (n_merges, merge_fit, ok_agent,
-                                     fit_agent))
+                                     fit_agent), bias_d)
 
 
 class TargetRooms(NamedTuple):
@@ -470,11 +485,14 @@ def agent_target_rooms(cfg: SwarmConfig, walls_grouped, room_of_agent,
 
 def _raster_fans(logodds, axy, ryaw, dist4, scan_dist, alive,
                  cfg: SwarmConfig):
-    """Every fan of the step through its raster kernel, the wrapped 4-way
-    fan first, then the sweep; after each fan without an endpoint ring, the
-    exact endpoint scatter and a clip. Returns (logodds, writes int32):
-    each fan's per-agent (or per-tile) kernel counts rounded to int32
-    before the sum, plus its endpoint writes."""
+    """Every fan of the step through its beam raster, the wrapped 4-way
+    fan first, then the sweep: a raster kernel, and after each fan without
+    an endpoint ring the exact endpoint scatter and a clip; or, with
+    `engine.use_pallas=False`, the XLA tier (`beam_raster_reference`, which
+    paints its own endpoints; a dead agent's ranges zeroed and its trust
+    masked). Returns (logodds, writes int32): each fan's per-agent (or
+    per-tile) kernel counts rounded to int32 before the sum, plus its
+    endpoint writes; the XLA tier's free plus occupied cells."""
     sens, eng = cfg.sensors, cfg.engine
     fans = []
     if eng.raster_4way or scan_dist is None:
@@ -487,6 +505,13 @@ def _raster_fans(logodds, axy, ryaw, dist4, scan_dist, alive,
     reach = reach_cells(cfg)
     writes = torch.zeros((), dtype=torch.int32, device=axy.device)
     for spec, (db, tb) in fans:
+        if not eng.use_pallas:
+            logodds, w = beam_raster_reference(
+                logodds, axy, ryaw,
+                torch.where(alive[:, None], db, torch.zeros_like(db)),
+                tb & alive[:, None], spec, cfg.grid, reach=reach)
+            writes = writes + w
+            continue
         trusted = tb if eng.kernel_endpoints else None
         # the tier per fan, as the reference picks it (swarm_tpu/engine/
         # sim.py:587-589): grouped where beam_groups is below the fan's
@@ -517,15 +542,17 @@ def _raster_fans(logodds, axy, ryaw, dist4, scan_dist, alive,
 
 def _frontier_event(logodds, rx, ry, online, cfg: SwarmConfig,
                     enable_targets: bool,
-                    target_rooms: Optional[TargetRooms]):
-    """One frontier event: the tri-state view of the map, frontier
-    centroids (exact clusters up to a 512 grid, block-pooled beyond), and
-    with `enable_targets` the greedy assignment (per room at swarm scale).
-    Returns (centroids, count, targets [N, 2] or None, has [N] or None)."""
+                    target_rooms: Optional[TargetRooms], tri=None):
+    """One frontier event: the tri-state map (`tri`, or the view of the
+    log-odds when None), frontier centroids (exact clusters up to a 512
+    grid, block-pooled beyond), and with `enable_targets` the greedy
+    assignment (per room at swarm scale). Returns (centroids, count,
+    targets [N, 2] or None, has [N] or None)."""
     ffn = (frontier_clusters if cfg.grid.size <= 512
            else frontier_targets_coarse)
-    cents, _, n_fr = ffn(tri_state_view(logodds, cfg.grid), cfg.grid,
-                         cfg.coord)
+    if tri is None:
+        tri = tri_state_view(logodds, cfg.grid)
+    cents, _, n_fr = ffn(tri, cfg.grid, cfg.coord)
     if not enable_targets:
         return cents, n_fr, None, None
     agent_xy = torch.stack([rx, ry], dim=-1)
@@ -539,28 +566,65 @@ def _frontier_event(logodds, rx, ry, online, cfg: SwarmConfig,
     return cents, n_fr, tg, has
 
 
+def _line_rays(rx, ry, ryaw, hx, hy, hit_valid, alive, scan_dist,
+               cfg: SwarmConfig) -> RayBatch:
+    """The step's ordered ray batch for the line and parity rasters: each
+    agent's 4 ultrasonic rays, agent by agent, then with a sweep each
+    agent's sweep beams projected at `scan_angles` from the raster pose
+    (an untrusted reading ends at max range)."""
+    rays = RayBatch(ox=rx.repeat_interleave(4), oy=ry.repeat_interleave(4),
+                    hx=hx.reshape(-1), hy=hy.reshape(-1),
+                    hit_valid=hit_valid.reshape(-1),
+                    active=alive.repeat_interleave(4))
+    if scan_dist is None:
+        return rays
+    sens = cfg.sensors
+    r_scan = scan_dist.shape[-1]
+    sa = ryaw[:, None] + scan_angles(r_scan, rx.dtype, rx.device)[None, :]
+    sv = (scan_dist > sens.min_range) & (scan_dist <= sens.max_range)
+    sr = torch.where(sv, scan_dist, torch.full_like(scan_dist,
+                                                    sens.max_range))
+    return RayBatch(
+        ox=torch.cat([rays.ox, rx.repeat_interleave(r_scan)]),
+        oy=torch.cat([rays.oy, ry.repeat_interleave(r_scan)]),
+        hx=torch.cat([rays.hx, (rx[:, None] + sr * torch.cos(sa)
+                                ).reshape(-1)]),
+        hy=torch.cat([rays.hy, (ry[:, None] + sr * torch.sin(sa)
+                                ).reshape(-1)]),
+        hit_valid=torch.cat([rays.hit_valid, sv.reshape(-1)]),
+        active=torch.cat([rays.active, alive.repeat_interleave(r_scan)]))
+
+
 def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
                     alive, t, step_no: int, cfg: SwarmConfig,
                     params: AgentParams, scan_dist, merge_win_box=None,
                     enable_targets: bool = False,
-                    target_rooms: Optional[TargetRooms] = None):
-    """One step's N packets into the mapping server (the beam + kernel
-    branch of the reference's _ingest_batched): frame-tracker advance, the
-    anchored merge on merge steps, the beam rasters of every fan (window or
-    room kernel, then the endpoint scatter where the kernel has no ring),
-    zones, the closure ring, heartbeat, frontiers and targets on frontier
-    steps, and the anchor freeze. `scan_dist` is None without a sweep."""
+                    target_rooms: Optional[TargetRooms] = None, *,
+                    total_dist, yaw_quant_resid):
+    """One step's N packets into the mapping server (the reference's
+    _ingest_batched): frame-tracker advance, the yaw-rate bias's
+    feed-forward, the anchored merge on merge steps (not in parity mode),
+    the raster of the configured mode — the beam rasters of every fan
+    (`_raster_fans`), the line raster, the parity raster into the int8
+    grid, or none (`raster_mode="off"`, the profiling mode) — zones, the
+    closure (the sequential form in parity mode, else the batch), heartbeat,
+    frontiers and targets on frontier steps (on the int8 grid in the parity
+    and profiling modes), and the anchor freeze. `scan_dist` is None
+    without a sweep; `total_dist` and `yaw_quant_resid` (the reported yaw
+    less the estimate, wrapped) feed the yaw-rate bias."""
     n = cfg.n_agents
-    sens = cfg.sensors
+    sens, eng, slam = cfg.sensors, cfg.engine, cfg.slam
     dev = est_x.device
-    merge_every = cfg.engine.merge_every
-    merge_step = merge_every > 0 and \
+    merge_every = eng.merge_every
+    # the merge cadence (the merge and the anchor freeze; not in parity
+    # mode, which keeps no log-odds to match)
+    merge_cadence = merge_every > 0 and not eng.parity_mode and \
         step_no % merge_every == merge_every - 1
 
     merge_dx, merge_dy, merge_dyaw = srv.merge_dx, srv.merge_dy, \
         srv.merge_dyaw
     frame = srv.frame
-    if cfg.slam.merge_frame_gain > 0.0:
+    if slam.merge_frame_gain > 0.0:
         adx, ady, fd = frame_advance(frame, est_x + params.x_offset, est_y,
                                      alive, cfg)
         merge_dx = merge_dx + adx
@@ -569,28 +633,41 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     rx = est_x + params.x_offset + srv.closure.drift_dx + merge_dx
     ry = est_y + srv.closure.drift_dy + merge_dy
     ryaw = est_yaw + merge_dyaw
-    if cfg.slam.merge_frame_gain > 0.0:
+    if slam.merge_frame_gain > 0.0:
         # scans project at the de-rotated (quantized) yaw
         ryaw = ryaw - frame_theta_q(frame.theta, cfg)
+    bias = slam.merge_bias_alpha > 0.0
+    if bias:
+        ryaw = ryaw + merge_bias_ff(srv.merge_yaw_rate, srv.merge_dist_mark,
+                                    total_dist, cfg)
 
     # the merge, on merge steps only (an off-cadence step's merge block is
     # a no-op in the reference: no agent attempted, zero increments)
     merge_fail = srv.merge_fail
+    merge_yaw_rate, merge_dist_mark = srv.merge_yaw_rate, \
+        srv.merge_dist_mark
     i32, f32 = torch.int32, torch.float32
     merge_m = (torch.zeros((), dtype=i32, device=dev),
                torch.zeros((), dtype=f32, device=dev),
                torch.zeros((n,), dtype=torch.bool, device=dev),
                torch.zeros((n,), dtype=f32, device=dev))
-    if merge_step:
+    if merge_cadence and scan_dist is not None:
         rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, innovation, \
-            merge_m = _merge_event(srv.logodds, srv.anchor, srv.merge_fail,
-                                   frame, rx, ry, ryaw, est_yaw, scan_dist,
-                                   alive, step_no, cfg, merge_win_box)
+            merge_m, bias_d = _merge_event(
+                srv.logodds, srv.anchor, srv.merge_fail, frame, rx, ry,
+                ryaw, est_yaw, scan_dist, alive, step_no, cfg, merge_win_box,
+                bias=((srv.merge_yaw_rate, srv.merge_dist_mark, total_dist,
+                       yaw_quant_resid) if bias else None))
         if innovation is not None:
             frame = frame_add(frame, innovation)
         merge_dx = merge_dx + inc_dx
         merge_dy = merge_dy + inc_dy
         merge_dyaw = merge_dyaw + inc_dth
+        if bias_d is not None:
+            fold, rate_d, mark_d = bias_d
+            merge_dyaw = merge_dyaw + fold
+            merge_yaw_rate = merge_yaw_rate + rate_d
+            merge_dist_mark = merge_dist_mark + mark_d
 
     last_packet_t = torch.where(alive, t, srv.last_packet_t)
     pkt_counts = srv.pkt_counts + alive.to(torch.int32)
@@ -604,11 +681,28 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     hx = rx[:, None] + rng * torch.cos(angles)
     hy = ry[:, None] + rng * torch.sin(angles)
 
-    # beam rasters of the fans through a kernel (the reference also builds
+    # the raster of the configured mode (the reference also builds
     # tri_state_view(logodds) here; only a frontier event reads it, so the
-    # port builds it there)
-    logodds, writes = _raster_fans(srv.logodds, torch.stack([rx, ry], -1),
-                                   ryaw, dist4, scan_dist, alive, cfg)
+    # port builds it there); `tri` is the int8 map frontiers read instead
+    grid, logodds, tri = srv.grid, srv.logodds, None
+    if eng.parity_mode:
+        grid, writes = parity_raster(srv.grid, _line_rays(
+            rx, ry, ryaw, hx, hy, hit_valid, alive, scan_dist, cfg),
+            cfg.grid)
+        tri = grid
+    elif eng.raster_mode == "off":
+        # the profiling mode: no mapping at all
+        writes = torch.zeros((), dtype=i32, device=dev)
+        tri = grid
+    elif eng.raster_mode == "beam":
+        logodds, writes = _raster_fans(srv.logodds,
+                                       torch.stack([rx, ry], -1), ryaw,
+                                       dist4, scan_dist, alive, cfg)
+    else:
+        logodds, writes = logodds_raster(srv.logodds, _line_rays(
+            rx, ry, ryaw, hx, hy, hit_valid, alive, scan_dist, cfg),
+            cfg.grid)
+    writes = writes.to(i32)
 
     # territory AABBs fold the path point + valid hits
     agents = torch.arange(n, dtype=torch.int32, device=dev)
@@ -617,9 +711,13 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
         torch.cat([ry[:, None], hy], dim=1),
         torch.cat([alive[:, None], hit_valid & alive[:, None]], dim=1))
 
-    closure, closed, _, _ = closure_add_poses_batch(
-        srv.closure, rx, ry, agents, lm_types, cfg.slam, valid=alive,
-        yaws=ryaw)
+    if eng.parity_mode:
+        closure, closed, _, _ = closure_add_poses_seq(
+            srv.closure, rx, ry, agents, lm_types, slam, valid=alive)
+    else:
+        closure, closed, _, _ = closure_add_poses_batch(
+            srv.closure, rx, ry, agents, lm_types, slam, valid=alive,
+            yaws=ryaw)
 
     online = heartbeat_update(last_packet_t, t, cfg.coord.heartbeat_timeout_s)
 
@@ -635,30 +733,33 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     target_every = max(1, round(cfg.coord.target_interval_s / dt))
     cents, n_fr = srv.frontier_centroids, srv.n_frontiers
     targets = None
-    if cfg.engine.compute_frontiers and step_no % target_every == 0:
+    if eng.compute_frontiers and step_no % target_every == 0:
         cents, n_fr, tg, has = _frontier_event(logodds, rx, ry, online, cfg,
-                                               enable_targets, target_rooms)
+                                               enable_targets, target_rooms,
+                                               tri=tri)
         if tg is not None:
             targets = (tg, has)
 
     # freeze newly confident cells into the anchor at the merge cadence
     anchor = srv.anchor
-    if cfg.slam.merge_anchor and merge_step and (
-            cfg.slam.merge_anchor_freeze_steps <= 0
-            or step_no < cfg.slam.merge_anchor_freeze_steps):
+    if slam.merge_anchor and merge_cadence and (
+            slam.merge_anchor_freeze_steps <= 0
+            or step_no < slam.merge_anchor_freeze_steps):
         anchor = torch.where(
             (torch.abs(srv.anchor) < 0.5) &
-            (torch.abs(logodds) >= cfg.slam.merge_anchor_thresh),
+            (torch.abs(logodds) >= slam.merge_anchor_thresh),
             logodds, srv.anchor)
 
     new_srv = srv._replace(
-        logodds=logodds, closure=closure, zone=zone,
+        grid=grid, logodds=logodds, closure=closure, zone=zone,
         last_packet_t=last_packet_t, pkt_counts=pkt_counts,
         zone_boxes=zone_boxes, zone_active=zone_active,
         frontier_centroids=cents, n_frontiers=n_fr,
         total_writes=writes_accumulate(srv.total_writes, writes),
         merge_dx=merge_dx, merge_dy=merge_dy, merge_dyaw=merge_dyaw,
-        anchor=anchor, merge_fail=merge_fail, frame=frame)
+        anchor=anchor, merge_fail=merge_fail,
+        merge_yaw_rate=merge_yaw_rate, merge_dist_mark=merge_dist_mark,
+        frame=frame)
     return new_srv, closed, online, targets, \
         (rx, ry, ryaw, hx, hy, hit_valid), merge_m
 
@@ -737,7 +838,8 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
     srv, closed, online, targets, proj, merge_m = _ingest_batched(
         state.srv, odom.x_est, odom.y_est, yaw_q, dist4, lm, alive,
         state.t, step_no, cfg, params, scan_dist, merge_win_box,
-        enable_targets, target_rooms)
+        enable_targets, target_rooms, total_dist=state.total_dist,
+        yaw_quant_resid=wrap_pi(yaw_q - odom.yaw_est))
     rx_t, ry_t, ryaw_t, hx_t, hy_t, hv_t = proj
     n_merges, merge_fit, merge_ok_a, merge_fit_a = merge_m
     est_x_t = odom.x_est + params.x_offset

@@ -13,6 +13,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# The reference's bedroom: a 6 m x 4 m hall, x in [-0.5, 5.5], y in
+# [-2, 2] (the dual-bot session's world).
+BEDROOM_WALLS = np.array(
+    [
+        [-0.5, -2.0, 5.5, -2.0],   # bottom
+        [5.5, -2.0, 5.5, 2.0],     # right
+        [5.5, 2.0, -0.5, 2.0],     # top
+        [-0.5, 2.0, -0.5, -2.0],   # left
+    ],
+    dtype=np.float32,
+)
+
 RAY_MISS = 99.0        # sentinel for "no wall within 50 m"
 RAY_MAX_VALID = 50.0
 
@@ -31,6 +43,21 @@ def make_rect_room(x0: float, y0: float, x1: float, y1: float) -> np.ndarray:
         ],
         dtype=np.float32,
     )
+
+
+def make_multi_room(n_rooms: int, room_w: float = 6.0, room_h: float = 4.0,
+                    gap: float = 2.0, per_row: int = 32) -> np.ndarray:
+    """n_rooms copies of the bedroom on a grid of rooms, `per_row` to a
+    row, `gap` metres apart: the untiled world of the large swarms. One
+    flat [4 * n_rooms, 4] array of segments."""
+    rooms = []
+    for i in range(n_rooms):
+        r, c = divmod(i, per_row)
+        ox = c * (room_w + gap)
+        oy = r * (room_h + gap)
+        rooms.append(make_rect_room(ox - 0.5, oy - 2.0,
+                                    ox + room_w - 0.5, oy + room_h - 2.0))
+    return np.concatenate(rooms, axis=0)
 
 
 def make_tiled_rooms(n_rooms: int, per_row: int, res: float = 0.05,

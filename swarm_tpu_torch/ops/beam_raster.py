@@ -4,8 +4,11 @@ the whole grid, or on a band or tile window of the sharded engine), the
 fan's bounding box, the 8- and 16-bit range quantisations (the 16-bit pair
 packing of swarm_tpu/ops/beam_raster_pallas.py:186-209), the grouped
 tier's per-group range statistics and trusted fraction, the beam tables
-built from sensor readings and the endpoint rays of a fan. The rasters
-themselves are ops/beam_raster_cuda.py (per-agent windows),
+built from sensor readings and the endpoint rays of a fan, and the fused
+engine's XLA beam tier (`beam_raster_reference`, `EngineConfig.use_pallas=
+False`): each agent's dense patch of nearest-beam evidence, the patches
+added in agent order (`ops.raster.ordered_add`) and the grid clipped once.
+The kernel rasters are ops/beam_raster_cuda.py (per-agent windows),
 ops/room_raster_cuda.py (room tiles) and ops/exact_raster_cuda.py (the r1
 exact per-beam raster).
 """
@@ -19,6 +22,8 @@ from typing import Tuple
 import torch
 
 from swarm_tpu_torch._device import recip32
+from swarm_tpu_torch.config import GridConfig
+from swarm_tpu_torch.ops.raster import ordered_add
 from swarm_tpu_torch.utils.angles import jmod
 
 REACH_CELLS = 26        # max beam reach: 1.2 m trust / 5 cm + ring margin
@@ -226,3 +231,96 @@ def beams_from_scan(scan_m, sens_max_range: float, sens_min_range: float):
     trusted = (scan_m > sens_min_range) & (scan_m <= sens_max_range)
     return torch.where(trusted, scan_m,
                        torch.full_like(scan_m, sens_max_range)), trusted
+
+
+# patch cells computed at once by the XLA tier (its float temporaries are
+# [agents, rows, cols]; 2^23 cells keep each near 32 MB)
+PATCH_CHUNK_CELLS = 1 << 23
+
+
+def _patch_delta(ax, ay, yaw, ranges_cells, trusted, row0, col0,
+                 spec: BeamSpec, hit: float, miss: float, rows_n: int,
+                 cols_n: int):
+    """Evidence of each agent's [rows_n, cols_n] patch (the reference's
+    `_patch_delta`, batched over agents): the nearest beam's free space
+    and trusted endpoint, by the cell centre's polar coordinates. ax, ay
+    [M] agent cells (fractional), yaw [M], ranges_cells / trusted [M, B].
+    Returns (delta [M, rows_n, cols_n] float32, free, occ bool)."""
+    dev = ax.device
+    rows = torch.arange(rows_n, dtype=torch.int32, device=dev)[None, :, None]
+    cols = torch.arange(cols_n, dtype=torch.int32, device=dev)[None, None, :]
+    cy = (row0[:, None, None] + rows).to(torch.float32) + 0.5
+    cx = (col0[:, None, None] + cols).to(torch.float32) + 0.5
+    dx = cx - ax[:, None, None]
+    dy = cy - ay[:, None, None]
+    r = torch.sqrt(dx * dx + dy * dy)
+    theta = torch.atan2(dy, dx)
+    rel = theta - yaw[:, None, None] - spec.theta0
+    rel = jmod(rel + math.pi, 2 * math.pi) - math.pi
+    # the jitted reference multiplies by the reciprocal (ROADMAP C15)
+    b = torch.round(rel * recip32(spec.dtheta)).to(torch.int64)
+    if spec.wrap:
+        b = torch.remainder(b, spec.n_beams)
+        in_fan = torch.ones_like(r, dtype=torch.bool)
+    else:
+        in_fan = (b >= 0) & (b < spec.n_beams)
+        b = torch.clamp(b, 0, spec.n_beams - 1)
+    m = b.shape[0]
+    rb = torch.gather(ranges_cells, 1, b.reshape(m, -1)).reshape(b.shape)
+    tb = torch.gather(trusted, 1, b.reshape(m, -1)).reshape(b.shape)
+    resid = rel - b.to(torch.float32) * spec.dtheta
+    on_beam = torch.abs(r * torch.sin(resid)) <= 0.6
+    reach = ranges_cells.amax(dim=1)[:, None, None] + 1.0
+    near = (r > 1e-3) & (r <= reach) & in_fan & on_beam
+    free = near & (r < rb - 0.5)
+    occ = near & tb & (torch.abs(r - rb) <= 0.71)
+    zero = torch.zeros_like(r)
+    return (torch.where(occ, zero + hit, torch.where(free, zero + miss,
+                                                     zero)), free, occ)
+
+
+def beam_raster_reference(logodds, agent_xy, yaw, dist_m, trusted,
+                          spec: BeamSpec, cfg: GridConfig = GridConfig(),
+                          reach: int = REACH_CELLS):
+    """The fused engine's XLA beam tier (swarm_tpu/ops/beam_raster.py
+    `beam_raster_reference`), IN PLACE on `logodds` (float32 or bfloat16):
+    every agent's patch evidence (`_patch_delta`) added to the grid in
+    agent index order, each add rounded to the grid's dtype, then one clip
+    of the whole grid (not one per agent; ROADMAP C2). The reference adds
+    every patch cell; a zero changes only a -0.0 cell (to +0.0), so each
+    -0.0 cell under a patch is made +0.0 first and only the nonzero
+    evidence goes through the ordered add. agent_xy [N, 2] world, yaw [N],
+    dist_m / trusted [N, B]: the caller zeroes a dead agent's ranges and
+    trust. Agents go through in chunks of PATCH_CHUNK_CELLS patch cells,
+    each chunk one ordered add. Returns (logodds, writes): free plus
+    occupied cells, unweighted (a cell both free and occupied counts
+    twice; ROADMAP C18)."""
+    inv = recip32(cfg.resolution)
+    ax = (agent_xy[:, 0] - cfg.origin_x) * inv
+    ay = (agent_xy[:, 1] - cfg.origin_y) * inv
+    ranges_cells = dist_m * inv
+    pr, pc = patch_dims(cfg.size, reach)
+    row0, col0 = patch_origin(ax, ay, cfg.size, pr, pc, reach)
+    flat = logodds.view(-1)
+    writes = torch.zeros((), dtype=torch.int64, device=logodds.device)
+    n = ax.shape[0]
+    step = max(1, PATCH_CHUNK_CELLS // (pr * pc))
+    rows = torch.arange(pr, dtype=torch.int64, device=logodds.device)
+    cols = torch.arange(pc, dtype=torch.int64, device=logodds.device)
+    for a in range(0, n, step):
+        sl = slice(a, min(n, a + step))
+        delta, free, occ = _patch_delta(
+            ax[sl], ay[sl], yaw[sl], ranges_cells[sl], trusted[sl],
+            row0[sl], col0[sl], spec, cfg.logodds_hit, cfg.logodds_miss,
+            pr, pc)
+        cells = ((row0[sl].to(torch.int64)[:, None, None] + rows[:, None])
+                 * cfg.size + col0[sl].to(torch.int64)[:, None, None]
+                 + cols)
+        cells = cells.reshape(-1)
+        v = flat[cells]
+        flat[cells] = torch.where(v == 0, torch.zeros_like(v), v)
+        ordered_add(flat, cells, delta, keep=delta != 0)
+        writes = writes + free.sum() + occ.sum()
+    c = cfg.logodds_clamp
+    logodds.clamp_(-c, c)
+    return logodds, writes.to(torch.int32)

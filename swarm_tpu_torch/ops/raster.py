@@ -11,6 +11,20 @@ has no endpoint ring (`EngineConfig.kernel_endpoints=False`): the exact
 endpoint hits of one fan, `clip(logodds + logodds_delta(endpoint_rays,
 k_max=1))`, applied IN PLACE at the endpoints' cells only.
 
+`parity_raster` is the reference-parity path's tri-state update: a
+scatter-max of each write's sequence id into a free plane and an occupied
+plane, exact and order-free on any device. `logodds_raster` is the line
+raster: `logodds_delta` summed in ray order by `ordered_add`, then one clip.
+
+`ordered_add` adds (cell, delta) pairs to a flat buffer in the order they
+are given, each add rounded to the buffer's dtype, as a sequential loop
+would: it stable-sorts the pairs by cell, ranks each within its cell and
+adds layer r (the r-th contribution of every cell) in one gather and
+scatter. The kept count, the deepest layer and the layer bounds are read
+to the host once per call (ROADMAP C25). On the card `index_add_` adds
+with float atomics, in no fixed order, so a cell's sum of unlike addends
+would change from run to run.
+
 Cell indices follow the reference's `int()`: `world_to_grid` truncates
 toward zero (`.to(torch.int32)`), not floor, so a point up to one cell left
 of or below the origin lands in cell 0; and it multiplies by the reciprocal
@@ -109,6 +123,102 @@ def logodds_delta(rays: RayBatch, cfg: GridConfig = GridConfig(),
         0, flat_r.reshape(-1).to(torch.int64), delta.reshape(-1))
     writes = free.sum() + occ.sum()
     return out.reshape(n_rows, n_cols), writes
+
+
+def ordered_add(buf, cells, deltas, keep=None):
+    """buf[cells[k]] = dtype(float32(buf[cells[k]]) + deltas[k]) for k in
+    order (for each k with keep[k], when `keep` is given), IN PLACE, on a
+    1-D buffer. `cells` int [K] (each kept one in range), `deltas` float32
+    [K]. Bit-equal to the loop on any device, up to a NaN's payload (the
+    card's arithmetic returns its canonical NaN): the adds of one cell
+    happen in the given order, one layer at a time, each rounded to the
+    buffer's dtype (so a -0.0 cell under any add becomes +0.0 and a NaN
+    stays NaN, as under the loop). Host reads: the kept count (with
+    `keep`), the deepest layer and the layer bounds. Returns the deepest
+    layer (the most adds to one cell); the deepest since the last reset is
+    kept in `ordered_add.deepest`."""
+    cells, deltas = cells.reshape(-1), deltas.reshape(-1)
+    if keep is not None:
+        keep = keep.reshape(-1)
+        cells, deltas = cells[keep], deltas[keep]
+    k = cells.numel()
+    if k == 0:
+        return 0
+    dev = cells.device
+    key = torch.int32 if buf.numel() < 2 ** 31 and k < 2 ** 31 \
+        else torch.int64
+    sc, perm = torch.sort(cells.to(key), stable=True)
+    sd = deltas[perm]
+    pos = torch.arange(k, dtype=key, device=dev)
+    first = torch.ones(k, dtype=torch.bool, device=dev)
+    first[1:] = sc[1:] != sc[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    sr, order = torch.sort(rank, stable=True)
+    depth = int(sr[-1]) + 1
+    bounds = torch.searchsorted(
+        sr, torch.arange(depth + 1, dtype=key, device=dev)).tolist()
+    lc, ld = sc[order].to(torch.int64), sd[order]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        c, d = lc[lo:hi], ld[lo:hi]
+        v = buf.index_select(0, c)
+        buf.index_copy_(0, c, (v.to(torch.float32) + d).to(buf.dtype))
+    ordered_add.deepest = max(ordered_add.deepest, depth)
+    return depth
+
+
+ordered_add.deepest = 0
+
+
+def parity_raster(grid, rays: RayBatch, cfg: GridConfig = GridConfig(),
+                  k_max: int = 32):
+    """The ordered ray batch on the int8 tri-state grid, each cell in the
+    state the reference's sequential last-write-wins update leaves it:
+    every path cell FREE, a trusted endpoint OCCUPIED, the latest write
+    winning (within a ray the endpoint is written last, so OCCUPIED wins at
+    equal sequence ids). Each write's ray index is scatter-maxed into a
+    free and an occupied plane (int32 `amax`: exact, in any order).
+    Entries that write nothing (masked, or outside the grid, where the
+    reference's flat index may alias a cell inside it) go to a spare cell
+    past the grid. Returns (grid, writes)."""
+    flat, free, occ = _traced_cells(rays, cfg, k_max)
+    ncells = cfg.size * cfg.size
+    seq = torch.arange(flat.shape[0], dtype=torch.int32,
+                       device=flat.device)[:, None].expand(flat.shape)
+    spare = torch.full_like(flat, ncells)
+
+    def plane(mask):
+        idx = torch.where(mask, flat, spare).reshape(-1).to(torch.int64)
+        return torch.full((ncells + 1,), -1, dtype=torch.int32,
+                          device=flat.device).scatter_reduce_(
+            0, idx, seq.reshape(-1), "amax")[:ncells]
+
+    free_seq, occ_seq = plane(free), plane(occ)
+    touched = torch.maximum(free_seq, occ_seq) >= 0
+    code = torch.where(occ_seq >= free_seq,
+                       torch.tensor(cfg.occupied, dtype=torch.int8,
+                                    device=flat.device),
+                       torch.tensor(cfg.free, dtype=torch.int8,
+                                    device=flat.device))
+    new = torch.where(touched, code, grid.reshape(-1))
+    return new.reshape(grid.shape), free.sum() + occ.sum()
+
+
+def logodds_raster(logodds, rays: RayBatch, cfg: GridConfig = GridConfig(),
+                   k_max: int = 32):
+    """The line raster: `clip(logodds + logodds_delta(rays))`, the delta
+    summed from zero in ray order (`ordered_add`, as the reference's
+    scatter-add sums it on the CPU), the whole grid added and clipped IN
+    PLACE. Returns (logodds, writes)."""
+    flat, free, occ = _traced_cells(rays, cfg, k_max)
+    zero = torch.zeros(flat.shape, dtype=torch.float32, device=flat.device)
+    delta = torch.where(occ, zero + cfg.logodds_hit,
+                        torch.where(free, zero + cfg.logodds_miss, zero))
+    buf = torch.zeros(cfg.size * cfg.size, dtype=torch.float32,
+                      device=flat.device)
+    ordered_add(buf, flat, delta, keep=free | occ)
+    c = cfg.logodds_clamp
+    logodds.add_(buf.view(logodds.shape)).clamp_(-c, c)
+    return logodds, free.sum() + occ.sum()
 
 
 _HIT_SUMS = {}

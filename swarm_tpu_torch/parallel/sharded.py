@@ -421,7 +421,7 @@ def _step_body(state, noise, step_no: int, st: _Static):
     from swarm_tpu_torch.slam.closure import closure_add_poses_batch
     from swarm_tpu_torch.slam.livemerge import (FrameState, frame_add,
                                                 frame_advance, frame_init,
-                                                frame_theta_q)
+                                                frame_theta_q, merge_bias_ff)
     from swarm_tpu_torch.utils.angles import radians, wrap_pi
 
     cfg, lay = st.cfg, st.layout
@@ -476,6 +476,11 @@ def _step_body(state, noise, step_no: int, st: _Static):
     ryaw = yaw_q + srv.merge_dyaw[rows]
     if slam.merge_frame_gain > 0.0:
         ryaw = ryaw - frame_theta_q(frame_loc.theta, cfg)
+    bias = slam.merge_bias_alpha > 0.0
+    if bias:
+        ryaw = ryaw + merge_bias_ff(srv.merge_yaw_rate[rows],
+                                    srv.merge_dist_mark[rows],
+                                    state.total_dist, cfg)
 
     rows_mode = st.grid_sharding == "rows"
     tiles_mode = st.grid_sharding == "tiles"
@@ -493,18 +498,26 @@ def _step_body(state, noise, step_no: int, st: _Static):
     fitsum = torch.zeros((), dtype=f32, device=dev)
     merge_ok = torch.zeros((n_loc,), dtype=torch.bool, device=dev)
     merge_fit = zeros
-    cdx = cdy = cdth = zeros
+    cdx = cdy = cdth = rate_d = mark_d = zeros
     new_fail = srv.merge_fail[rows]
     if every > 0 and scan_dist is not None and step_no % every == every - 1:
         wb = None if st.win_box is None else tuple(b[rows]
                                                    for b in st.win_box)
         rx, ry, ryaw, (cdx, cdy, cdth), new_fail, innovation, \
-            (n_merges, _, merge_ok, merge_fit) = sim._merge_event(
+            (n_merges, _, merge_ok, merge_fit), bias_d = sim._merge_event(
                 srv.logodds, srv.anchor, srv.merge_fail[rows], frame_loc,
                 rx, ry, ryaw, yaw_q, scan_dist, alive, step_no, cfg, wb,
-                id0=id0, band_row0=band_row0, band_col0=band_col0)
+                id0=id0, band_row0=band_row0, band_col0=band_col0,
+                bias=((srv.merge_yaw_rate[rows], srv.merge_dist_mark[rows],
+                       state.total_dist, wrap_pi(yaw_q - odom.yaw_est))
+                      if bias else None))
         if innovation is not None:
             inno_d = innovation
+        if bias_d is not None:
+            # the level fold rides with the yaw increment; the rate and
+            # mark deltas are gathered like it (sharded.py:382-387, :697)
+            fold, rate_d, mark_d = bias_d
+            cdth = cdth + fold
         fitsum = merge_fit.sum()
 
     angles = ryaw[:, None] + torch.tensor(sens.angles, dtype=f32,
@@ -551,7 +564,7 @@ def _step_body(state, noise, step_no: int, st: _Static):
         rx=rx, ry=ry, ryaw=ryaw, yaw_q=yaw_q, hx=hx, hy=hy, dist4=dist4,
         est_x=est_x, est_y=odom.y_est, est_yaw=odom.yaw_est,
         merge_fit=merge_fit, adv_x=adv_x, adv_y=adv_y, cdx=cdx, cdy=cdy,
-        cdth=cdth, tx=state.pose_true[:, 0] + p.x_offset,
+        cdth=cdth, rate_d=rate_d, mark_d=mark_d, tx=state.pose_true[:, 0] + p.x_offset,
         ty=state.pose_true[:, 1],
         adv_d=torch.stack(list(adv_d), -1),
         inno_d=torch.stack(list(inno_d), -1),
@@ -610,6 +623,8 @@ def _step_body(state, noise, step_no: int, st: _Static):
         merge_dx=merge_dx, merge_dy=merge_dy,
         merge_dyaw=srv.merge_dyaw + a["cdth"], anchor=anchor,
         merge_fail=a["fail"],
+        merge_yaw_rate=srv.merge_yaw_rate + a["rate_d"],
+        merge_dist_mark=srv.merge_dist_mark + a["mark_d"],
         frame=frame_add(frame_add(srv.frame, frame_of(a["adv_d"])),
                         frame_of(a["inno_d"])))
 

@@ -1,6 +1,6 @@
 """The repository's preset worlds, built without jax.
 
-Both return what `__graft_entry__._cfg_and_world(n, frontiers=...,
+`deployable`, `coverage`, `vertical_rooms` and `tile_blocks` return what `__graft_entry__._cfg_and_world(n, frontiers=...,
 parity=False, raster_mode="beam", use_pallas=True, scan_rays=...,
 tiled=True, room_kernel=...)` returns, for the tool that runs it:
 
@@ -30,6 +30,17 @@ own raster defaults (`raster_4way=True`, `kernel_endpoints=False`,
 `endpoint_hits=True`, `beam_pack8=False`, `beam_groups=0`), the merge off.
 Its variants are wall-following (`frontiers=False`) and frontier targets
 (`frontiers=True`, run with `enable_targets=True`).
+
+`untiled`, `swarm` and `dual_bot` are the untiled worlds: the bedroom
+(`BEDROOM_WALLS`) tiled into a grid of rooms 2 m apart (`make_multi_room`,
+grid origin (-3, -4)), or the bedroom alone. `untiled` is bench.py's
+`--raster line` and `--no-pallas` rows (`_cfg_and_world(n, tiled=False,
+use_pallas=False, ...)`, bench.py:105-128: the beam fields at
+EngineConfig's defaults, so both beam fans run through the XLA tier);
+`swarm` is `run_session --preset swarm` and `__graft_entry__.entry()`
+(line raster, no sweep); `dual_bot` is `run_session --preset dual_bot`, the
+reference's two-robot session in the default parity mode. Each returns
+what `deployable` returns (`dual_bot`'s rooms are (None, None)).
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ from swarm_tpu_torch._device import default_device
 from swarm_tpu_torch.config import (EngineConfig, GridConfig, SlamConfig,
                                     SwarmConfig)
 from swarm_tpu_torch.engine.sim import make_agent_params
-from swarm_tpu_torch.geom.world import (make_tiled_rooms,
+from swarm_tpu_torch.geom.world import (BEDROOM_WALLS, make_multi_room,
+                                        make_tiled_rooms,
                                         make_tiled_rooms_blocks,
                                         make_vertical_rooms, walls_by_group)
 
@@ -153,3 +165,82 @@ def tile_blocks(dev_rows: int, dev_cols: int, size: int, device=None,
     walls, origins = make_tiled_rooms_blocks(dev_rows, dev_cols, size)
     return _rooms_world(walls, origins, size, 2 * origins.shape[0], device,
                         False, 181, **_sharded_engine(merge_every))
+
+
+def _untiled_world(n_agents: int, device, frontiers: bool, raster_mode: str,
+                   scan_rays: int, grid_dtype: str = "float32",
+                   merge_every: int = 0):
+    """The untiled branch of `__graft_entry__._cfg_and_world` with
+    use_pallas=False: ceil(sqrt(R)) rooms to a row (R = n_agents / 2), the
+    grid covering them plus 4 m in 256-cell steps, origin (-3, -4), agents
+    2k and 2k+1 both at room k's home (its bedroom's origin), the preset's
+    SLAM settings; the merge every `merge_every` steps with a sweep."""
+    device = default_device(device)
+    n_rooms = max(1, n_agents // 2)
+    per_row = max(1, math.ceil(math.sqrt(n_rooms)))
+    n_rows = math.ceil(n_rooms / per_row)
+    extent = max(per_row * 8.0, n_rows * 6.0) + 4.0
+    size = math.ceil(extent / 0.05 / 256) * 256
+    walls = make_multi_room(n_rooms, per_row=per_row)
+    cfg = SwarmConfig(
+        n_agents=n_agents,
+        grid=GridConfig(size=size, origin_x=-3.0, origin_y=-4.0,
+                        logodds_dtype=grid_dtype),
+        engine=EngineConfig(
+            parity_mode=False, compute_frontiers=frontiers,
+            raster_mode=raster_mode, use_pallas=False, scan_rays=scan_rays,
+            room_tile_per_row=0,
+            merge_every=merge_every if scan_rays > 0 else 0),
+        # the reference preset's SLAM settings (__graft_entry__.py:65-91)
+        slam=SlamConfig(closure_same_agent_only=True, merge_anchor=True,
+                        closure_correction=0.0, merge_frame_gain=0.35))
+    params = make_agent_params(n_agents, separation=2.0, device=device)
+    room = np.arange(n_agents) // 2
+    params = params._replace(
+        home_x=torch.tensor((room % per_row) * 8.0, dtype=torch.float32,
+                            device=device),
+        home_y=torch.tensor((room // per_row) * 6.0, dtype=torch.float32,
+                            device=device),
+        x_offset=torch.zeros((n_agents,), dtype=torch.float32,
+                             device=device))
+    rooms = (torch.tensor(walls_by_group(walls), device=device),
+             torch.tensor(room, dtype=torch.int32, device=device))
+    return cfg, torch.tensor(walls, device=device), params, rooms
+
+
+def untiled(n_agents: int, raster_mode: str = "line", scan_rays: int = 181,
+            frontiers: bool = False, merge_every: int = 16,
+            grid_dtype: str = "float32", device=None):
+    """bench.py's untiled rows: `--raster line` (raster_mode="line", the
+    line raster of every ultrasonic and sweep ray) and `--no-pallas`
+    (raster_mode="beam": both beam fans through the XLA tier; with
+    grid_dtype="bfloat16" on a bf16 grid), each with bench.py's
+    `--scan-rays`, `--frontiers` and `--merge-every` (the merge only with a
+    sweep). raster_mode="off" is the profiling mode on the same world.
+    Returns what `deployable` returns, on `device` (the card when None).
+    At 1024 agents: a 3840^2 grid, 512 rooms at 23 to a row (188 m)."""
+    return _untiled_world(n_agents, device, frontiers, raster_mode,
+                          scan_rays, grid_dtype, merge_every)
+
+
+def swarm(n_agents: int, device=None):
+    """`run_session --preset swarm` (and, at 64 agents,
+    `__graft_entry__.entry()`): `_cfg_and_world(n, frontiers=False,
+    parity=False)` with its defaults, the line raster of the 4-way
+    ultrasonics on the untiled world, no sweep, no merge. Returns what
+    `deployable` returns."""
+    return _untiled_world(n_agents, device, False, "line", 0)
+
+
+def dual_bot(separation: float = 5.0, frontiers: bool = True, device=None):
+    """`run_session --preset dual_bot`: the reference's two-robot session,
+    EngineConfig's defaults (the parity mode: the line raster into the
+    int8 tri-state grid, the sequential closure; no sweep, no merge) on the
+    bedroom and its 200^2 grid, Bot2 `separation` metres along x in the
+    server frame. Returns (cfg, walls [4, 4], params, (None, None))."""
+    device = default_device(device)
+    cfg = SwarmConfig(n_agents=2,
+                      engine=EngineConfig(compute_frontiers=frontiers))
+    params = make_agent_params(2, separation=separation, device=device)
+    return cfg, torch.tensor(BEDROOM_WALLS, device=device), params, \
+        (None, None)

@@ -1,13 +1,21 @@
 """Landmark-based loop closure as fixed-capacity ring buffers
 (swarm_tpu/slam/closure.py `ClosureState`, `closure_init`,
-`closure_add_poses_batch`).
+`closure_add_poses_batch`, `closure_add_pose`).
 
-The batched throughput form the engine runs: one step's packets (one per
-agent) are matched against the landmarks stored BEFORE the batch, the first
-match in insertion order wins, the closure log and the landmark ring append
-in packet order. The scan-matched closure measurement and the proximity
-pairs (`SlamConfig.closure_scanmatch`) are not ported yet; the engine
-refuses configs that turn them on.
+Two forms. `closure_add_poses_batch` is the throughput form: one step's
+packets (one per agent) are matched against the landmarks stored BEFORE the
+batch, the first match in insertion order wins, the closure log and the
+landmark ring append in packet order. `closure_add_poses_seq` is the
+reference-parity form, the reference's `lax.scan` of `closure_add_pose`
+over the packets, computed without a loop: each packet is matched against
+the ring as the packets before it left it. Only the landmark appends
+change what a later packet sees (each packet's closure guard is its own
+agent's, and agents are distinct), and the appends do not depend on the
+matches, so the ring before packet j is known in closed form: each slot
+holds the last of the earlier appends that landed on it, or its old
+landmark. The scan-matched closure measurement and the proximity pairs
+(`SlamConfig.closure_scanmatch`) are not ported yet; the engine refuses
+configs that turn them on.
 """
 
 from __future__ import annotations
@@ -176,3 +184,134 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
         cl_mx=cl_mx, cl_my=cl_my, cl_mth=cl_mth, cl_fit=cl_fit,
         last_pair_node=state.last_pair_node)
     return new, closed, cdx, cdy
+
+
+# packet rows x landmark slots matched at once by closure_add_poses_seq
+SEQ_CHUNK = 1 << 21
+
+
+def _last_append(count0, n_before, cap: int, slots):
+    """Ring appends numbered 0, 1, ... land at (count0 + q) mod cap. For
+    each row's n_before [M] earlier appends and each slot [S]: the number
+    of the last one that landed on the slot, or a negative value where
+    none did. [M, S] int64."""
+    n = n_before.to(torch.int64)[:, None]
+    return n - 1 - torch.remainder(count0.to(torch.int64) + n - 1 - slots,
+                                   cap)
+
+
+def _ring_appends(count0, keep, cap: int):
+    """Where appending the kept packets in order at (count0 + q) mod cap
+    leaves each slot, the later append winning it (the reference's
+    sequential `.set`): (written [cap] bool, the packet that wrote it
+    [cap]). `put(buf, vals)` applies them to a buffer of `cap` rows."""
+    incl = torch.cumsum(keep.to(torch.int64), 0)
+    slots = torch.arange(cap, device=keep.device)
+    q = _last_append(count0, incl[-1:], cap, slots)[0]
+    src = torch.searchsorted(incl, torch.clamp_min(q, 0), right=True)
+    written, src = q >= 0, torch.clamp_max(src, keep.shape[0] - 1)
+
+    def put(buf, vals):
+        return torch.where(written, vals.to(buf.dtype)[src], buf)
+    return put
+
+
+def closure_add_poses_seq(state: ClosureState, xs, ys, agents, lm_types,
+                          cfg: SlamConfig = SlamConfig(), valid=None):
+    """The reference's sequential closure, `closure_add_pose` applied to
+    the packets [M] one after another (the parity step's `lax.scan`,
+    swarm_tpu/engine/sim.py:652-659), for packets of distinct agents.
+    Returns (new_state, closed [M] bool, cdx [M], cdy [M]); every field
+    equals the scan's.
+
+    Packet j sees the ring as the earlier packets left it: a slot last
+    written by an earlier packet of the batch holds that packet's
+    landmark, and slot s counts as occupied when s < min(lm_count_j, L).
+    Rows are matched SEQ_CHUNK row-slot pairs at a time."""
+    if cfg.closure_scanmatch:
+        raise NotImplementedError(
+            "scan-matched closures are not ported yet (ROADMAP Queue A, "
+            "offline SLAM)")
+    M = xs.shape[0]
+    dev = xs.device
+    if valid is None:
+        valid = torch.ones((M,), dtype=torch.bool, device=dev)
+    i32 = torch.int32
+    vi = valid.to(i32)
+    idxs = state.n_nodes + torch.cumsum(vi, 0).to(i32) - vi
+    has_lm = (lm_types != 0) & valid
+    hi = has_lm.to(torch.int64)
+    incl = torch.cumsum(hi, 0)
+    before = incl - hi                      # appends before each packet
+    L = state.lm_x.shape[0]
+    slots = torch.arange(L, device=dev)
+    ag = agents.long()
+    agent_ok = (idxs - state.last_closure_node[ag]) >= cfg.min_poses_between
+    # the landmark each packet would append (read where it is the writer)
+    new = dict(x=xs, y=ys, t=lm_types.to(i32), n=idxs,
+               a=agents.to(i32))
+    old = dict(x=state.lm_x, y=state.lm_y, t=state.lm_type,
+               n=state.lm_node, a=state.lm_agent)
+    closed = torch.zeros((M,), dtype=torch.bool, device=dev)
+    mx, my, mnode = (torch.zeros_like(xs), torch.zeros_like(ys),
+                     torch.zeros((M,), dtype=i32, device=dev))
+    rows = max(1, SEQ_CHUNK // L)
+    for a in range(0, M, rows):
+        sl = slice(a, min(M, a + rows))
+        q = _last_append(state.lm_count, before[sl], L, slots)
+        src = torch.searchsorted(incl, torch.clamp_min(q, 0), right=True)
+        src = torch.clamp_max(src, M - 1)
+        mine = q >= 0
+        ring = {f: torch.where(mine, new[f][src], old[f][None, :])
+                for f in new}
+        occupied = slots[None, :] < torch.clamp_max(
+            state.lm_count.to(torch.int64) + before[sl], L)[:, None]
+        d2 = (xs[sl, None] - ring["x"]) ** 2 + (ys[sl, None] - ring["y"]) ** 2
+        match = occupied & (ring["t"] == lm_types[sl, None]) & \
+            ((idxs[sl, None] - ring["n"]) >= cfg.min_poses_between) & \
+            (d2 < cfg.closure_radius_m ** 2) & \
+            (agent_ok[sl] & has_lm[sl])[:, None]
+        if cfg.closure_same_agent_only:
+            match = match & (ring["a"] == agents[sl, None])
+        closed[sl] = match.any(dim=1)
+        f = torch.argmin(torch.where(match, slots[None, :],
+                                     torch.full_like(slots, L)[None, :]),
+                         dim=1)
+        pick = f[:, None]
+        mx[sl] = ring["x"].gather(1, pick)[:, 0]
+        my[sl] = ring["y"].gather(1, pick)[:, 0]
+        mnode[sl] = ring["n"].gather(1, pick)[:, 0]
+    zero = torch.zeros_like(xs)
+    cdx = torch.where(closed, (mx - xs) * cfg.closure_correction, zero)
+    cdy = torch.where(closed, (my - ys) * cfg.closure_correction, zero)
+
+    # per-agent guards and drift (each packet its own agent's)
+    last_cl = state.last_closure_node.index_copy(
+        0, ag, torch.where(closed, idxs, state.last_closure_node[ag]))
+    drift_dx = state.drift_dx.index_copy(
+        0, ag, state.drift_dx[ag] + torch.where(closed, cdx, zero))
+    drift_dy = state.drift_dy.index_copy(
+        0, ag, state.drift_dy[ag] + torch.where(closed, cdy, zero))
+
+    # closure log and landmark ring: appends in packet order (scalar path:
+    # unmeasured edges, no remembered yaw or sweep)
+    log = _ring_appends(state.cl_count, closed, state.cl_node.shape[0])
+    ring_put = _ring_appends(state.lm_count, has_lm, L)
+
+    new_state = ClosureState(
+        lm_x=ring_put(state.lm_x, xs), lm_y=ring_put(state.lm_y, ys),
+        lm_type=ring_put(state.lm_type, lm_types),
+        lm_node=ring_put(state.lm_node, idxs),
+        lm_agent=ring_put(state.lm_agent, agents),
+        lm_count=state.lm_count + hi.sum().to(i32),
+        n_nodes=state.n_nodes + vi.sum().to(i32),
+        last_closure_node=last_cl, drift_dx=drift_dx, drift_dy=drift_dy,
+        cl_lm_node=log(state.cl_lm_node, mnode),
+        cl_node=log(state.cl_node, idxs), cl_dx=log(state.cl_dx, cdx),
+        cl_dy=log(state.cl_dy, cdy), cl_agent=log(state.cl_agent, agents),
+        cl_count=state.cl_count + closed.sum().to(i32),
+        lm_yaw=ring_put(state.lm_yaw, zero), lm_scan=state.lm_scan,
+        cl_mx=log(state.cl_mx, zero), cl_my=log(state.cl_my, zero),
+        cl_mth=log(state.cl_mth, zero), cl_fit=log(state.cl_fit, zero - 1.0),
+        last_pair_node=state.last_pair_node)
+    return new_state, closed, cdx, cdy

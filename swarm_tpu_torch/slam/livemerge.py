@@ -17,9 +17,9 @@ step count on the host), so an off-cadence step runs none of this and a
 merge step slices its chunk without a device sync. The wide recovery pass
 needs one host read of "does any escalated agent need it"
 (`slam.merge_recover_after > 0` only; the preset leaves it off). The
-yaw-rate bias estimator (`merge_bias_ff` / `merge_bias_update`) is off in
-every preset (`merge_bias_alpha = 0`) and is not ported:
-`engine.sim.check_supported` refuses it.
+yaw-rate bias estimator (`merge_bias_ff` every step, `merge_bias_update` at
+a verified event; `slam.merge_bias_alpha > 0`, off in every preset) feeds
+a per-meter yaw rate forward into the raster yaw.
 """
 
 from __future__ import annotations
@@ -433,3 +433,51 @@ def merge_increments(m: WindowMatch, upd, recovered, cfg: SwarmConfig):
     inc_dy = slam.merge_damping * torch.clamp(fdy, -cmx_a, cmx_a)
     inc_dth = yaw_damp * torch.clamp(fdth, -cmr_a, cmr_a)
     return fdx, fdy, fdth, inc_dx, inc_dy, inc_dth
+
+
+def merge_bias_ff(yaw_rate, dist_mark, total_dist, cfg: SwarmConfig):
+    """The feed-forward yaw accrued since each agent's last rate rebase:
+    the estimated per-meter yaw-rate bias times the distance travelled
+    since the mark, that distance bounded by `merge_bias_ff_max_m`. Added
+    to the raster yaw every step. Elementwise, so the fused and sharded
+    engines compute the same values."""
+    if cfg.slam.merge_bias_alpha <= 0.0:
+        return torch.zeros_like(total_dist)
+    led = torch.clamp_max(total_dist - dist_mark,
+                          cfg.slam.merge_bias_ff_max_m)
+    return yaw_rate * led
+
+
+def merge_bias_update(yaw_rate, dist_mark, total_dist, m: WindowMatch, upd,
+                      cfg: SwarmConfig, quant_resid=None):
+    """The per-agent yaw-rate bias update at a verified merge event
+    (swarm_tpu/slam/livemerge.py `merge_bias_update`, where the reasoning
+    is). The observation is the matcher's raw-map rotation re-measurement
+    `m.ddtheta_meas`, debiased by the reported yaw's quantisation residual
+    `quant_resid` and clipped to `merge_bias_level_cap`; a verified event
+    folds `merge_bias_level_damp` of it into the level, and where the
+    agent travelled at least `merge_bias_min_dist` since its mark the rate
+    takes `merge_bias_alpha` of the observed per-meter slope (clipped to
+    +-merge_bias_max) and the mark rebases, the accrued feed-forward folded
+    into the level. Returns deltas (fold, rate_delta, mark_delta) [N], to
+    add to merge_dyaw, merge_yaw_rate and merge_dist_mark."""
+    slam = cfg.slam
+    if slam.merge_bias_alpha <= 0.0:
+        z = torch.zeros_like(yaw_rate)
+        return z, z, z
+    led = total_dist - dist_mark
+    led_ff = torch.clamp_max(led, slam.merge_bias_ff_max_m)
+    dth = m.ddtheta_meas if quant_resid is None else \
+        m.ddtheta_meas + quant_resid
+    dth_c = torch.clamp(dth, -slam.merge_bias_level_cap,
+                        slam.merge_bias_level_cap)
+    level = slam.merge_bias_level_damp * dth_c
+    rate_obs = dth_c / torch.clamp_min(led, slam.merge_bias_min_dist)
+    new_rate = torch.clamp(yaw_rate + slam.merge_bias_alpha * rate_obs,
+                           -slam.merge_bias_max, slam.merge_bias_max)
+    gate = upd & (led >= slam.merge_bias_min_dist)
+    zero = torch.zeros_like(yaw_rate)
+    fold = torch.where(upd, level, zero) + \
+        torch.where(gate, yaw_rate * led_ff, zero)
+    return (fold, torch.where(gate, new_rate - yaw_rate, zero),
+            torch.where(gate, led, zero))

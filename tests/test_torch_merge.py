@@ -287,3 +287,58 @@ def test_merge_window_box_exact():
                                            np.asarray(rooms[1]), cfg_p)):
         assert_exact(p, j)
     assert pl.merge_window_side(cfg_p) == jl.merge_window_side(cfg) == SIDE
+
+
+def test_merge_bias_against_jax(rng):
+    """merge_bias_ff and merge_bias_update (the yaw-rate bias, A1) against
+    the JAX functions on random inputs: distances on both sides of
+    merge_bias_min_dist and merge_bias_ff_max_m, rotations past the level
+    cap, events verified or not. Equal at atol = rtol = 1e-6."""
+    n = 64
+    cfg_j = JSwarmConfig()
+    cfg_j = cfg_j.replace(slam=dataclasses.replace(cfg_j.slam,
+                                                   merge_bias_alpha=0.1))
+    cfg = convert.config_from(cfg_j)
+    rate = rng.uniform(-0.03, 0.03, n).astype(np.float32)
+    mark = rng.uniform(0.0, 5.0, n).astype(np.float32)
+    total = (mark + rng.choice([0.0, 0.1, 0.3, 2.0, 6.0], n)).astype(
+        np.float32)
+    dth = rng.uniform(-0.3, 0.3, n).astype(np.float32)
+    qres = rng.uniform(-0.13, 0.13, n).astype(np.float32)
+    upd = rng.uniform(size=n) > 0.4
+    ff_j = jl.merge_bias_ff(jnp.asarray(rate), jnp.asarray(mark),
+                            jnp.asarray(total), cfg_j)
+    assert_close(pl.merge_bias_ff(t(rate), t(mark), t(total), cfg), ff_j,
+                 rtol=1e-6, atol=1e-6)
+    assert np.abs(np.asarray(ff_j)).max() > 0
+    m_j = jm.WindowMatch(*[jnp.zeros((n,))] * len(jm.WindowMatch._fields))
+    m_j = m_j._replace(ddtheta_meas=jnp.asarray(dth))
+    m_p = pm.WindowMatch(*[torch.zeros((n,))] * len(pm.WindowMatch._fields))
+    m_p = m_p._replace(ddtheta_meas=t(dth))
+    for q in (None, qres):
+        ref = jl.merge_bias_update(
+            jnp.asarray(rate), jnp.asarray(mark), jnp.asarray(total), m_j,
+            jnp.asarray(upd), cfg_j,
+            quant_resid=None if q is None else jnp.asarray(q))
+        got = pl.merge_bias_update(t(rate), t(mark), t(total), m_p, t(upd),
+                                   cfg, quant_resid=None if q is None
+                                   else t(q))
+        for a, b, what in zip(got, ref, ("fold", "rate", "mark")):
+            assert_close(a, b, rtol=1e-6, atol=1e-6, what=what)
+            assert np.abs(np.asarray(b)).max() > 0, what
+    off = convert.config_from(JSwarmConfig())
+    assert not bool(pl.merge_bias_ff(t(rate), t(mark), t(total), off).any())
+    assert all(not bool(x.any()) for x in pl.merge_bias_update(
+        t(rate), t(mark), t(total), m_p, t(upd), off))
+
+
+def test_merge_step_parity_with_the_bias():
+    """One merge step of the deployable preset with the yaw-rate bias on
+    (merge_bias_alpha=0.1), port against JAX (torch_parity
+    `merge_step_parity`) at step 7 of merge_every=8, where agents have
+    travelled merge_bias_min_dist and the rate rebases: the bias state,
+    maps and corrections agree."""
+    from tests.torch_parity import merge_step_parity
+
+    merge_step_parity(room_kernel=False, merge_every=8,
+                      slam=dict(merge_bias_alpha=0.1))

@@ -8,8 +8,10 @@
    through the port's seam); and "tiles" once more with the grouped tier
    (181 beams in 8 groups) and no endpoint ring, where the body scatters
    the endpoints into the extended tile with `logodds_delta`'s tile form
-   (bench.py --beam-groups 8 --exact-endpoints). StepMetrics integers exact, floats at atol =
-   rtol = 1e-5; maps and anchors decision-equal (cells differing by
+   (bench.py --beam-groups 8 --exact-endpoints); and "replicated" with the
+   yaw-rate bias on (merge_bias_alpha=0.1: the feed-forward in the raster
+   yaw, the event's deltas gathered like the merge increments). StepMetrics
+   integers exact, floats at atol = rtol = 1e-5; maps and anchors decision-equal (cells differing by
    > 1e-6 at most 0.01% of the painted cells); poses at 1e-5.
 2. Four gloo ranks, one `torchrun` of `parallel/dryrun.py` (a join limit
    and a collective timeout): "rows" and "replicated" on
@@ -78,11 +80,19 @@ def _jax_mesh(grid_sharding):
     return make_mesh(1)
 
 
-# (decomposition, bench.py flags as presets.deployable's arguments)
-ONE_RANK = {"replicated": ("replicated", {}), "rows": ("rows", {}),
-            "tiles": ("tiles", {}),
+# (decomposition, bench.py flags as presets.deployable's arguments,
+# SlamConfig fields replaced on both sides)
+ONE_RANK = {"replicated": ("replicated", {}, {}), "rows": ("rows", {}, {}),
+            "tiles": ("tiles", {}, {}),
             "tiles-grouped-exact": ("tiles", dict(beam_groups=8,
-                                                  exact_endpoints=True))}
+                                                  exact_endpoints=True), {}),
+            "replicated-bias": ("replicated", {},
+                                dict(merge_bias_alpha=0.1))}
+
+
+def _with_slam(cfg, slam):
+    return cfg.replace(slam=dataclasses.replace(cfg.slam, **slam)) \
+        if slam else cfg
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,9 +100,10 @@ def _jax_run(case):
     """STEPS sharded JAX steps on a 1-device mesh (compiled once per
     case): (initial state, [noise per step], [metrics per step], final
     state), numpy."""
-    grid_sharding, flags = ONE_RANK[case]
+    grid_sharding, flags, slam = ONE_RANK[case]
     cfg, walls, params, rooms = jax_deployable(N, merge_every=MERGE_EVERY,
                                                **flags)
+    cfg = _with_slam(cfg, slam)
     m = _jax_mesh(grid_sharding)
     step = make_sharded_sim_step(
         cfg, walls, params, m, donate=False, grid_sharding=grid_sharding,
@@ -112,10 +123,11 @@ def _jax_run(case):
 
 @pytest.mark.parametrize("case", list(ONE_RANK))
 def test_one_rank_matches_jax_sharded_step(group, case):
-    grid_sharding, flags = ONE_RANK[case]
+    grid_sharding, flags, slam = ONE_RANK[case]
     st0, noises, metrics_j, final_j = _jax_run(case)
     cfg, walls, params, rooms = presets.deployable(
         N, device="cpu", merge_every=MERGE_EVERY, **flags)
+    cfg = _with_slam(cfg, slam)
     lay = mesh.make_layout((1, 1), device="cpu")
     step = sharded.make_sharded_sim_step(
         cfg, walls, params, lay, grid_sharding=grid_sharding,
@@ -135,7 +147,8 @@ def test_one_rank_matches_jax_sharded_step(group, case):
     decision_equal(st.srv.logodds, final_j.srv.logodds, f"{case} map")
     decision_equal(st.srv.anchor, final_j.srv.anchor, f"{case} anchor")
     assert_close(st.pose_true, final_j.pose_true, what="poses")
-    for f in ("merge_dx", "merge_dy", "merge_dyaw"):
+    for f in ("merge_dx", "merge_dy", "merge_dyaw", "merge_yaw_rate",
+              "merge_dist_mark"):
         assert_close(getattr(st.srv, f), getattr(final_j.srv, f), what=f)
     assert_exact(st.srv.merge_fail, final_j.srv.merge_fail)
     assert_exact(st.srv.total_writes, final_j.srv.total_writes)
@@ -338,13 +351,14 @@ def test_static_proofs_raise_as_jax(case):
 def test_unported_sharded_paths_name_their_item(group):
     """The sharded XLA fast tier (use_pallas=False) is not ported; the
     refusal names its ROADMAP item, as do the line raster and the
-    profiling mode. A rank grid must cover the group."""
+    profiling mode, which the sharded body rasters as the line scatter
+    (A9, the sharded XLA tiers). A rank grid must cover the group."""
     cfg, walls, params, rooms = presets.deployable(N, device="cpu")
     lay = mesh.RankLayout(world=1, rank=0, rows=1, cols=1,
                           device=torch.device("cpu"))
     for eng, item in ((dict(use_pallas=False), "A9"),
-                      (dict(raster_mode="line"), "A8"),
-                      (dict(raster_mode="off"), "A8")):
+                      (dict(raster_mode="line"), "A9"),
+                      (dict(raster_mode="off"), "A9")):
         with pytest.raises(NotImplementedError, match=item):
             sharded.make_sharded_sim_step(_with(cfg, eng), walls, params,
                                           lay)

@@ -156,13 +156,9 @@ def test_unported_paths_refuse(world):
             slam=dataclasses.replace(cfg.slam, **(slam or {})),
             grid=dataclasses.replace(cfg.grid, **(grid or {})))
 
-    for bad in (with_(dict(parity_mode=True)),
-                with_(dict(raster_mode="line")),
-                with_(dict(use_pallas=False)),
-                with_(dict(merge_every=16), dict(merge_bias_alpha=0.1)),
-                with_({}, dict(closure_scanmatch=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ps.sim_init(bad, port["params"])
+    # the one fused path still refused: the scan-matched closures (A5)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A5"):
+        ps.sim_init(with_({}, dict(closure_scanmatch=True)), port["params"])
     # the merge matches sweeps: refused without one
     with pytest.raises(ValueError, match="scan_rays"):
         ps.check_supported(with_(dict(merge_every=16, scan_rays=0)))
@@ -203,8 +199,16 @@ def test_unported_paths_refuse(world):
                   raster_4way=True, compute_frontiers=True,
                   merge_every=0), {}),
             ({}, bf16), (dict(kernel_endpoints=False), bf16),
-            (dict(raster_4way=True, scan_rays=0, merge_every=0), bf16)):
+            (dict(raster_4way=True, scan_rays=0, merge_every=0), bf16),
+            # every raster mode of the fused engine: the parity path, the
+            # line raster, the profiling mode, the XLA beam tier (f32 and
+            # bf16), and the yaw-rate bias
+            (dict(parity_mode=True), {}), (dict(raster_mode="line"), {}),
+            (dict(raster_mode="off"), {}), (dict(use_pallas=False), {}),
+            (dict(use_pallas=False), bf16)):
         ps.check_supported(with_(eng, grid=grid))
+    ps.sim_init(with_(dict(merge_every=16), dict(merge_bias_alpha=0.1)),
+                port["params"])
 
 
 # bench.py's single-chip raster flags (plus --agents): presets.deployable's

@@ -101,6 +101,29 @@ def jax_deployable(n: int, merge_every: int = 16, room_kernel=False,
     return cfg, walls, params, rooms
 
 
+def jax_untiled(n: int, raster_mode: str = "line", scan_rays: int = 181,
+                frontiers: bool = False, merge_every: int = 16,
+                grid_dtype: str = "float32", parity: bool = False):
+    """The JAX preset the port's presets.untiled mirrors: bench.py's
+    untiled rows (`--raster line`, `--no-pallas`), built as bench.py
+    builds them (bench.py:105-128): _cfg_and_world(tiled=False,
+    use_pallas=False, ...), the grid dtype, the merge only with a sweep
+    (the beam fields stay at EngineConfig's defaults without Pallas).
+    `parity=True` is `_cfg_and_world(n, parity=True)`'s parity mode."""
+    from __graft_entry__ import _cfg_and_world
+
+    cfg, walls, params, rooms = _cfg_and_world(
+        n, frontiers=frontiers, parity=parity, raster_mode=raster_mode,
+        use_pallas=False, scan_rays=scan_rays, tiled=False)
+    if grid_dtype != "float32":
+        cfg = cfg.replace(grid=dataclasses.replace(
+            cfg.grid, logodds_dtype=grid_dtype))
+    if merge_every > 0 and scan_rays > 0:
+        cfg = cfg.replace(engine=dataclasses.replace(
+            cfg.engine, merge_every=merge_every))
+    return cfg, walls, params, rooms
+
+
 def assert_close(a, b, rtol=1e-5, atol=1e-5, what=""):
     """Port tensor vs JAX array at the stated float tolerance (the XLA CPU
     side contracts a*b + c into an FMA; torch rounds twice)."""
@@ -133,10 +156,12 @@ def decision_equal(got, ref, what, painted=None):
 
 def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4,
                       grid_dtype: str = "float32",
-                      exact_endpoints: bool = False, scan_rays: int = 181):
+                      exact_endpoints: bool = False, scan_rays: int = 181,
+                      slam=None):
     """One step of the deployable preset on a merge step (step 3 at
     merge_every=4), port against JAX from the same state and noise, with
-    bench.py's --grid-dtype, --exact-endpoints and --scan-rays as given.
+    bench.py's --grid-dtype, --exact-endpoints and --scan-rays as given
+    and the SlamConfig fields `slam` replaced on both sides.
 
     The state at step 3 is made by the port (three CPU steps from the JAX
     initial state, the JAX step's own noise) and handed to both sides; the
@@ -156,6 +181,9 @@ def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4,
     cfg, walls_p, params_p, rooms_p = presets.deployable(
         n, device="cpu", merge_every=merge_every, room_kernel=room_kernel,
         **flags)
+    if slam:
+        cfg_j = cfg_j.replace(slam=dataclasses.replace(cfg_j.slam, **slam))
+        cfg = cfg.replace(slam=dataclasses.replace(cfg.slam, **slam))
     assert convert.config_from(cfg_j) == cfg
     st0 = js.sim_init(cfg_j, params)
     st_p, key = convert.to_torch(st0, ps.SimState), st0.key
@@ -185,8 +213,11 @@ def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4,
     decision_equal(nxt_p.srv.logodds, nxt_j.srv.logodds, "map")
     decision_equal(nxt_p.srv.anchor, nxt_j.srv.anchor, "anchor")
     assert int((nxt_p.srv.anchor != 0).sum()) > 0
-    for f in ("merge_dx", "merge_dy", "merge_dyaw"):
+    for f in ("merge_dx", "merge_dy", "merge_dyaw", "merge_yaw_rate",
+              "merge_dist_mark"):
         assert_close(getattr(nxt_p.srv, f), getattr(nxt_j.srv, f), what=f)
+    if slam and slam.get("merge_bias_alpha", 0.0) > 0.0:
+        assert float(np.abs(np.asarray(nxt_j.srv.merge_dist_mark)).max()) > 0
     assert_exact(nxt_p.srv.merge_fail, nxt_j.srv.merge_fail)
     for f in nxt_p.srv.frame._fields:
         assert_close(getattr(nxt_p.srv.frame, f),
