@@ -165,7 +165,38 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      the XLA tier run twice bit-identical;
  21. card against CPU at 8 agents (phase 11's bar) on the line raster, the
      XLA tier (f32, bf16), the parity mode (untiled, dual_bot), the
-     profiling mode and the bias.
+     profiling mode and the bias;
+ 22. offline SLAM: tools/bench_accuracy.py's path through the port's
+     counterpart (swarm_tpu_torch.accuracy) at the tool's width, 64 agents
+     on its 1024^2 world, 500 steps (the tool's 2000 cut to fit the time
+     limit; 2 chunks of 250). First the window kernel's pack16 (the
+     181-beam sweep) and pack16-wrapped (the 4-way fan) forms at that
+     world's shapes, held bit-equal to their plain versions as in phase 2
+     and timed. Then the four online variants (raw, ref_closures,
+     merge_anchored, ref_closures+merge) with the kernel launch counters
+     set to 0 just before and read just after (both fans through those
+     two forms once per step each, the room kernel never), then every
+     offline tier (refined, joint, calibrated, calibrated_robust,
+     calibrated_reloc and the six GN tiers); per tier ATE mean and late,
+     wall IoU and p90, closures, merges, measured and cross edges;
+     steps/s per variant and the seconds of each offline tier. It
+     requires measured closure edges (cl_fit >= 0) in raw and
+     merge_anchored, a verified cross edge, every tier finite. The raw
+     session's graphs (refined: per-agent chains of 500 nodes with their
+     closures, the structured solver; joint: with the cross edges) are
+     then solved again on the CPU from the same logs: positions within
+     1e-3 m and yaws within 1e-3 rad (as angles) of the card's. Then 64
+     more steps of the raw variant on the device timeline: the
+     closure's and the matcher's share of the step. Last, the card
+     against the CPU at 4 agents over 24 steps on the same noise (the
+     accuracy module draws it on the CPU), every variant and tier built
+     with the rendezvous radius widened to 6.5 m (the pair matcher runs) and
+     the fitness gate at 0.3 (some pairs verify, online and offline
+     alike): in raw and merge_anchored, closure nodes and agents exact,
+     at least one measured edge, measurements and fitness within 1e-4;
+     at least one verified cross edge in the joint tier and one merge fix
+     in the anchored tier; the refined, joint, anchored_gn and
+     anchored_joint poses within 1e-3 (m, rad).
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`), then the card's name and power limit; the last
@@ -176,11 +207,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from kernel_ab import device_ms
@@ -2959,6 +2992,274 @@ def phase_reference_modes(dev):
     phase_reference(dev, "bias", world=bias)
 
 
+ACCURACY_AGENTS = 64         # tools/bench_accuracy.py --agents
+ACCURACY_STEPS = 500         # the tool's 2000, cut to fit the time limit
+ACCURACY_CHUNK = 250
+ACCURACY_REF_AGENTS = 4
+ACCURACY_REF_STEPS = 24
+# the card-vs-CPU check's closure settings, in every variant and tier: the
+# pair matcher runs between a room's two agents from step 0, and a gate of
+# 0.3 lets some of those far-apart views through as measured edges within
+# 24 steps
+ACCURACY_REF_SLAM = dict(closure_cross_radius_m=6.5, closure_pair_cooldown=16,
+                         merge_fitness_min=0.3)
+# positions (m) and yaws (rad, as angles): the solvers' bar
+# (tests/test_tridiag.py)
+ACCURACY_POSE_ATOL = 1e-3
+ACCURACY_MEAS_ATOL = 1e-4
+
+
+def _finite_tiers(results):
+    for tier, res in results.items():
+        for k, v in res.items():
+            for x in (v if isinstance(v, list) else [v]):
+                if not math.isfinite(float(x)):
+                    raise AssertionError(f"accuracy {tier}: {k} = {v}")
+
+
+def _pose_diff(sol_d, sol_c, tiers):
+    """The largest |card - CPU| over the tiers' refined poses: (position,
+    m; yaw, rad, as an angle: the solvers wrap yaw into [-pi, pi), so a
+    yaw at the seam may land on either end)."""
+    pos, yaw = 0.0, 0.0
+    for tier in tiers:
+        if sol_d[tier].keys() != sol_c[tier].keys():
+            raise AssertionError(f"accuracy card vs CPU {tier}: agents "
+                                 f"{sorted(sol_d[tier])} vs "
+                                 f"{sorted(sol_c[tier])}")
+        for a, r in sol_c[tier].items():
+            d = sol_d[tier][a]["poses"].astype(np.float64) - r["poses"]
+            pos = max(pos, float(np.abs(d[:, :2]).max()))
+            yaw = max(yaw, float(np.abs(
+                np.remainder(d[:, 2] + np.pi, 2 * np.pi) - np.pi).max()))
+    return pos, yaw
+
+
+def phase_accuracy(card, dev):
+    """Offline SLAM at the accuracy tool's width (phase 22 of the module
+    docstring). Returns (the window kernel's launches per form on the
+    path, its records at the path's shapes per form)."""
+    from swarm_tpu_torch import accuracy, presets
+    from swarm_tpu_torch.slam.joint import joint_refine_session
+    from swarm_tpu_torch.slam.refine import refine_session
+
+    cfg, _, params, rooms = presets.accuracy(ACCURACY_AGENTS, "raw",
+                                             device=dev)
+    k_forms = dict([
+        _window_form(card, dev, "accuracy window pack16 scan", cfg, params,
+                     rooms, SEED + 40, four_way=False, pack8=False,
+                     ring=False),
+        _window_form(card, dev, "accuracy window pack16 4-way", cfg, params,
+                     rooms, SEED + 41, four_way=True, pack8=False,
+                     ring=False)])
+
+    print(f"accuracy: {ACCURACY_AGENTS} agents, {ACCURACY_STEPS} steps "
+          f"(chunks of {ACCURACY_CHUNK}) on {card}")
+    variant_worlds = accuracy.worlds(ACCURACY_AGENTS, dev)
+    _reset_counts()
+    results, logs, sec_v = accuracy.run_variants(
+        variant_worlds, ACCURACY_STEPS, ACCURACY_CHUNK,
+        log=lambda m: print("  " + m, flush=True))
+    n_free, by_form, n_room = _read_counts()
+    print(f"accuracy variants: window kernel launches {by_form}, room "
+          f"kernel {n_room}")
+    want = {"pack16": 4 * ACCURACY_STEPS, "pack16-wrapped":
+            4 * ACCURACY_STEPS}
+    if by_form != want or n_room:
+        raise AssertionError(f"accuracy: launches {by_form} (room {n_room})"
+                             f", want {want}")
+    base = variant_worlds["raw"]
+    solved = {}
+    tiers, sec_t = accuracy.offline_tiers(
+        logs, base, dev, log=lambda m: print("  " + m, flush=True),
+        solved=solved)
+    results.update(tiers)
+    _finite_tiers(results)
+    for name in ("raw", "merge_anchored"):
+        cl = logs[name][1].srv.closure
+        c = min(int(cl.cl_count), cl.cl_node.shape[0])
+        measured = int((cl.cl_fit[:c] >= 0).sum())
+        print(f"accuracy {name}: {c} closure edges, {measured} measured")
+        if measured == 0:
+            raise AssertionError(f"accuracy {name}: no measured closure edge")
+    cross = max(results[t]["inter_edges"] for t in
+                ("joint", "anchored_joint", "calibrated_joint",
+                 "reloc_joint"))
+    if cross == 0:
+        raise AssertionError("accuracy: no verified cross edge")
+    for tier, res in results.items():
+        print(f"accuracy tier {tier}: ATE mean {res['ate_mean_m']} late "
+              f"{res['ate_late_m']} | IoU {res.get('wall_iou')} p90 "
+              f"{res.get('wall_p90')} | closures {res.get('closures')} "
+              f"merges {res.get('merges')} | measured "
+              f"{res.get('measured_edges')} cross {res.get('inter_edges')}")
+    print("accuracy steps/s: " + ", ".join(
+        f"{k} {ACCURACY_STEPS / v:.2f}" for k, v in sec_v.items()))
+    print("accuracy offline seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sec_t.items()))
+    print(json.dumps({"accuracy": {
+        "agents": ACCURACY_AGENTS, "steps": ACCURACY_STEPS, "card": card,
+        "variants": results,
+        "steps_per_s": {k: ACCURACY_STEPS / v for k, v in sec_v.items()},
+        "offline_s": sec_t}}))
+
+    # the raw session's graphs again on the CPU, from the same logs
+    lg, state = logs["raw"]
+    session = accuracy.session_from_log(lg, "sx", "sy", "yq")
+    closures = accuracy.closure_log(state)
+    t0 = time.perf_counter()
+    cpu = {"refined": refine_session(session, closures=closures,
+                                     cfg=base[0], device="cpu"),
+           "joint": joint_refine_session(session, closures=closures,
+                                         cfg=base[0], device="cpu")}
+    t_cpu = time.perf_counter() - t0
+    n_edges = (results["refined"]["closures_used"],
+               results["joint"]["inter_edges"])
+    if min(n_edges) == 0:
+        raise AssertionError(f"accuracy: (closure, cross) edges reaching "
+                             f"the solvers {n_edges}")
+    pos, yaw = _pose_diff(solved, cpu, ("refined", "joint"))
+    print(f"accuracy solvers card vs CPU ({ACCURACY_AGENTS} agents, "
+          f"{ACCURACY_STEPS} steps, {n_edges[0]} closure edges, "
+          f"{n_edges[1]} cross edges): refined / joint poses within "
+          f"{pos:.3g} m, yaw {yaw:.3g} rad (CPU {t_cpu:.2f} s)")
+    if not max(pos, yaw) <= ACCURACY_POSE_ATOL:
+        raise AssertionError(f"accuracy solvers card vs CPU: poses differ "
+                             f"by {pos} m, {yaw} rad")
+    _accuracy_split(dev, state)
+    del logs, base, variant_worlds, solved, cpu
+    phase_accuracy_card_vs_cpu(dev)
+    return by_form, k_forms
+
+
+ACCURACY_SPLIT_STEPS = 64
+
+
+def _accuracy_split(dev, state):
+    """ACCURACY_SPLIT_STEPS more steps of the raw variant from its final
+    state, on the device timeline: the step, the closure (its landmark
+    match, the gates' host read and the matchers) and the matcher alone
+    (`closurematch.match_scan_pairs_batch`), summed over the window."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine import sim
+    from swarm_tpu_torch.slam import closurematch
+
+    cfg, walls, params, rooms = presets.accuracy(ACCURACY_AGENTS, "raw",
+                                                 device=dev)
+    step = sim.make_sim_step(
+        cfg, walls, params, torch.Generator(device=dev).manual_seed(SEED),
+        walls_grouped=rooms[0], room_of_agent=rooms[1])
+    events = {"closure": [], "matcher": []}
+
+    def timed(part, fn):
+        def run(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            events[part].append((e0, e1))
+            return out
+        return run
+
+    originals = ((sim, "closure_add_poses_batch"),
+                 (closurematch, "match_scan_pairs_batch"))
+    saved = [getattr(m, nm) for m, nm in originals]
+    steps = []
+    try:
+        for (m, nm), part in zip(originals, events):
+            setattr(m, nm, timed(part, getattr(m, nm)))
+        for _ in range(ACCURACY_SPLIT_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, _ = step(state)
+            e1.record()
+            steps.append((e0, e1))
+        torch.cuda.synchronize()
+    finally:
+        for (m, nm), fn in zip(originals, saved):
+            setattr(m, nm, fn)
+
+    def total(pairs):
+        return sum(a.elapsed_time(b) for a, b in pairs)
+    t_step, t_cl, t_m = total(steps), total(events["closure"]), \
+        total(events["matcher"])
+    print(f"accuracy raw split over {ACCURACY_SPLIT_STEPS} steps: step "
+          f"{t_step / ACCURACY_SPLIT_STEPS:.4f} ms, closure "
+          f"{t_cl / ACCURACY_SPLIT_STEPS:.4f} ms a step (share "
+          f"{t_cl / t_step:.3f}), matcher {len(events['matcher'])} calls, "
+          f"{t_m / max(len(events['matcher']), 1):.4f} ms a call (share "
+          f"{t_m / t_step:.3f})")
+
+
+def phase_accuracy_card_vs_cpu(dev):
+    """The accuracy path at 4 agents over 24 steps on the card and on the
+    CPU on the same noise, every variant and tier with ACCURACY_REF_SLAM:
+    raw's and merge_anchored's closure rings (nodes and agents exact,
+    measurements and fitness within 1e-4), a cross edge and a merge fix
+    reaching the solvers, the refined, joint and anchored poses within
+    1e-3 (m, rad)."""
+    from swarm_tpu_torch import accuracy
+
+    cpu = torch.device("cpu")
+    out = {}
+    for where in (dev, cpu):
+        variant_worlds = {
+            v: (w[0].replace(slam=dataclasses.replace(
+                w[0].slam, **ACCURACY_REF_SLAM)), *w[1:])
+            for v, w in accuracy.worlds(ACCURACY_REF_AGENTS, where).items()}
+        _, logs, _ = accuracy.run_variants(
+            variant_worlds, ACCURACY_REF_STEPS, ACCURACY_REF_STEPS,
+            log=lambda m: 0)
+        solved = {}
+        tiers, _ = accuracy.offline_tiers(logs, variant_worlds["raw"], where,
+                                          log=lambda m: 0, solved=solved)
+        out[where.type] = (
+            {v: (accuracy.closure_log(logs[v][1]),
+                 logs[v][1].srv.closure.last_pair_node.cpu())
+             for v in ("raw", "merge_anchored")}, solved, tiers)
+    (rings_d, sol_d, _), (rings_c, sol_c, tiers_c) = out[dev.type], out["cpu"]
+    d_meas, d_fit, n_meas = np.zeros((1, 3)), np.zeros(1), 0
+    for v, ((cl_d, lp_d), (cl_c, lp_c)) in (
+            (v, (rings_d[v], rings_c[v])) for v in rings_c):
+        for k, what in ((0, "lm node"), (1, "node"), (2, "agent")):
+            if not (cl_d[k].shape == cl_c[k].shape and
+                    (cl_d[k] == cl_c[k]).all()):
+                raise AssertionError(f"accuracy card vs CPU {v}: closure "
+                                     f"{what} {cl_d[k]} vs {cl_c[k]}")
+        if not torch.equal(lp_d, lp_c):
+            raise AssertionError(f"accuracy card vs CPU {v}: pair cooldown"
+                                 f" {lp_d} vs {lp_c}")
+        d_meas = np.concatenate([d_meas, np.abs(cl_d[3] - cl_c[3])])
+        d_fit = np.concatenate([d_fit, np.abs(cl_d[4] - cl_c[4])])
+        n_meas += int((cl_c[4] >= 0).sum())
+    if not ((d_meas <= ACCURACY_MEAS_ATOL).all() and
+            (d_fit <= ACCURACY_MEAS_ATOL).all() and n_meas > 0):
+        raise AssertionError(f"accuracy card vs CPU: {n_meas} measured "
+                             f"edges, measurements differ {d_meas.max()} "
+                             f"fit {d_fit.max()}")
+    n_cross = tiers_c["joint"]["inter_edges"]
+    n_fix = tiers_c["anchored_gn"]["merge_obs"]
+    if n_cross == 0 or n_fix == 0:
+        raise AssertionError(f"accuracy card vs CPU: {n_cross} cross edges"
+                             f" and {n_fix} merge fixes reach the solvers")
+    tiers = ("refined", "joint", "anchored_gn", "anchored_joint")
+    pos, yaw = _pose_diff(sol_d, sol_c, tiers)
+    if not max(pos, yaw) <= ACCURACY_POSE_ATOL:
+        raise AssertionError(f"accuracy card vs CPU: refined poses differ "
+                             f"by {pos} m, {yaw} rad")
+    cl_c, lp_c = rings_c["raw"]
+    print(f"accuracy card vs CPU ({ACCURACY_REF_AGENTS} agents, "
+          f"{ACCURACY_REF_STEPS} steps): raw {len(cl_c[0])} and "
+          f"merge_anchored {len(rings_c['merge_anchored'][0][0])} closure "
+          f"edges equal ({n_meas} measured; measurement diff "
+          f"{d_meas.max():.3g}, fit {d_fit.max():.3g}), raw pair attempts "
+          f"{int((lp_c >= 0).sum())}; {n_cross} cross edges, {n_fix} merge "
+          f"fixes; {' / '.join(tiers)} poses within {pos:.3g} m, yaw "
+          f"{yaw:.3g} rad")
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -3026,6 +3327,10 @@ def run(card, dev) -> list:
     phase_card_vs_cpu(card, dev)
     phase_reference_modes(dev)
 
+    # offline SLAM: the accuracy tool's path (both fans through the window
+    # kernel's pack16 forms)
+    n_accuracy, k_accuracy = phase_accuracy(card, dev)
+
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),
                      "exact_raster": ("exact_raster.cu", 235)}.get(
@@ -3038,13 +3343,21 @@ def run(card, dev) -> list:
     slice_res = dict(k_slice["pack8-ring-bf16"], max_abs_err=max(
         k_slice["pack8-ring-bf16"]["max_abs_err"],
         k_forms["pack8-ring-bf16"]["max_abs_err"]))
+
+    def worst_of(key):
+        """The exploration path's record (its times at 1024 agents), its
+        error the worse of that path's and the accuracy path's."""
+        return dict(k_forms[key], max_abs_err=max(
+            k_forms[key]["max_abs_err"], k_accuracy[key]["max_abs_err"]))
+
     kernels = [
         kernel("free_raster", "pack8-ring", n_window,
                k_window["pack8-ring"]),
-        kernel("free_raster", "pack16", n_explore["pack16"],
-               k_forms["pack16"]),
-        kernel("free_raster", "pack16-wrapped", n_explore["pack16-wrapped"],
-               k_forms["pack16-wrapped"]),
+        kernel("free_raster", "pack16",
+               n_explore["pack16"] + n_accuracy["pack16"], worst_of("pack16")),
+        kernel("free_raster", "pack16-wrapped",
+               n_explore["pack16-wrapped"] + n_accuracy["pack16-wrapped"],
+               worst_of("pack16-wrapped")),
         kernel("free_raster", "pack8-ring-wrapped",
                n_ultrasonic["pack8-ring-wrapped"],
                k_forms["pack8-ring-wrapped"]),

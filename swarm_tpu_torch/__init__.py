@@ -19,7 +19,12 @@ and the sweep, the exact endpoint scatter, frontiers (`ops/frontier.py`)
 and target assignment (`coord/assign.py`); and the sharded engine on
 `torch.distributed`, one process per device (`parallel/`: the
 "replicated", "rows" and "tiles" decompositions, the window kernel's band
-and tile forms). What is not ported yet is listed in ROADMAP.md.
+and tile forms); and offline SLAM: the scan-matched closures on both
+engines, the pose-graph solvers (`slam/posegraph`, `slam/tridiag`),
+session refinement (`slam/refine`, `slam/joint`), drift calibration
+(`slam/calibrate`), the grid merge (`slam/merge`) and the accuracy tool's
+driver (`python -m swarm_tpu_torch.accuracy` on `presets.accuracy`). What
+is not ported yet is listed in ROADMAP.md.
 """
 
 from swarm_tpu_torch import _device  # noqa: F401  (sets the TF32 policy)

@@ -6,9 +6,12 @@ object with the same field names whose leaves numpy can read (JAX arrays,
 numpy arrays). `to_numpy_like(port, template)` goes back: it rebuilds
 `type(template)` — a JAX NamedTuple — with numpy leaves, taking the fields
 the port does not carry (the JAX PRNG key) from `template`. Covers
-AgentParams, SimState, MapState, ClosureState, ZoneState, FrameState,
-OdomState, EkfState and NavState. A bfloat16 leaf (numpy's `bfloat16`
-extension dtype on the JAX side) crosses as its 16-bit pattern.
+AgentParams, SimState, MapState, ClosureState (the scan-matched closures'
+leaves `lm_scan`, `cl_mx`, `cl_my`, `cl_mth`, `cl_fit` and
+`last_pair_node` included), ZoneState, FrameState, OdomState, EkfState,
+NavState and the pose graph's PoseGraph. A bfloat16 leaf (numpy's
+`bfloat16` extension dtype on the JAX side) crosses as its 16-bit
+pattern.
 `config_from(obj)` rebuilds the port's
 `SwarmConfig` from any config tree with the same fields (a JAX-package
 config), field by field, without importing it.
@@ -29,6 +32,7 @@ from swarm_tpu_torch.models.nav import NavState
 from swarm_tpu_torch.models.odometry import OdomState
 from swarm_tpu_torch.slam.closure import ClosureState
 from swarm_tpu_torch.slam.livemerge import FrameState
+from swarm_tpu_torch.slam.posegraph import PoseGraph
 
 # nested NamedTuple fields of the port's state types
 _NESTED = {
@@ -39,7 +43,7 @@ _NESTED = {
 }
 
 CONVERTIBLE = (AgentParams, SimState, MapState, ClosureState, ZoneState,
-               FrameState, OdomState, EkfState, NavState)
+               FrameState, OdomState, EkfState, NavState, PoseGraph)
 
 
 def to_torch(src, cls, device=None):

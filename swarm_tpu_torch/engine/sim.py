@@ -12,8 +12,10 @@ The log-odds rasters update `state.srv.logodds` IN PLACE: the grid of the
 state passed in is the grid of the state returned (the parity raster
 returns a new int8 grid).
 
-Ported: every configuration the reference's fused engine runs except the
-scan-matched closures (`slam.closure_scanmatch`). The beam rasters
+Ported: every configuration the reference's fused engine runs, the
+scan-matched closures (`slam.closure_scanmatch`: measured closure edges,
+the rendezvous term and the proximity pairs, slam/closure.py) included.
+The beam rasters
 (`raster_mode="beam"`): the per-agent window raster (`free_raster`: pack8
 or pack16 table per beam, or the grouped table with the weak tail where
 `engine.beam_groups` is below a fan's beams; with the endpoint ring or
@@ -303,8 +305,9 @@ def check_supported(cfg: SwarmConfig, sharded: bool = False):
     ValueError for the combinations the reference itself refuses. With
     `sharded` the rows are the sharded engine's
     (parallel/sharded.make_sharded_sim_step). The fused engine runs every
-    raster mode (beam through a kernel or the XLA tier, line, parity, off)
-    and the yaw-rate bias; it refuses only the scan-matched closures."""
+    raster mode (beam through a kernel or the XLA tier, line, parity, off),
+    the yaw-rate bias and the scan-matched closures, and refuses nothing
+    the reference runs."""
     e, s = cfg.engine, cfg.slam
     if sharded:
         # the reference's make_sharded_sim_step refuses these, in these
@@ -331,8 +334,6 @@ def check_supported(cfg: SwarmConfig, sharded: bool = False):
         (not e.use_pallas and sharded,
          "use_pallas=False on the sharded path (the XLA fast tier "
          "free_raster_reference)", "Queue A9, the sharded XLA tiers"),
-        (s.closure_scanmatch, "closure_scanmatch",
-         "Queue A5, offline SLAM"),
     ]
     for off_path, what, item in todo:
         if off_path:
@@ -360,7 +361,10 @@ def sim_init(cfg: SwarmConfig, params: AgentParams) -> SimState:
         grid=torch.full((s, s), cfg.grid.unknown, dtype=torch.int8,
                         device=dev),
         logodds=zf(s, s, dtype=cfg.grid.lo_dtype),
-        closure=closure_init(n, cfg.slam, device=dev),
+        closure=closure_init(
+            n, cfg.slam, scan_rays=(cfg.engine.scan_rays
+                                    if cfg.slam.closure_scanmatch else 0),
+            device=dev),
         zone=zone_init(n, device=dev),
         last_packet_t=zf(n), pkt_counts=zf(n, dtype=torch.int32),
         zone_boxes=torch.tensor([999.0, 999.0, -999.0, -999.0], dtype=f32,
@@ -717,7 +721,7 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     else:
         closure, closed, _, _ = closure_add_poses_batch(
             srv.closure, rx, ry, agents, lm_types, slam, valid=alive,
-            yaws=ryaw)
+            yaws=ryaw, scans=scan_dist, grid=cfg.grid, sens=sens)
 
     online = heartbeat_update(last_packet_t, t, cfg.coord.heartbeat_timeout_s)
 

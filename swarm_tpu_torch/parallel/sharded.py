@@ -39,7 +39,10 @@ gigabyte); the window raster paints into a zeroed delta that is added to
 the grid once, after the decompositions merge (:501-509, :584); it passes
 no `pack8`, so the per-beam table is pack16; `pose_err` compares the
 step's raster pose with the moved true pose (:763). The logged merge-fix
-stream is the fused engine's (ROADMAP C3).
+stream is the fused engine's (ROADMAP C3). With scan-matched closures
+(`slam.closure_scanmatch`) every agent's sweep joins the gather, as the
+reference gathers it (:594-606), and every rank runs the matcher on the
+replicated closure ring.
 
 Entry points: `make_sharded_sim_step` (the step, with the reference's
 static proofs), `shard_state` / `gather_state` (a global `SimState` to this
@@ -560,7 +563,12 @@ def _step_body(state, noise, step_no: int, st: _Static):
 
     # this step's packets from every rank (one gather per dtype)
     est_x = odom.x_est + p.x_offset
+    # measured closures need every agent's sweep on every rank (the
+    # reference's extra all_gather, swarm_tpu/parallel/sharded.py:594-606);
+    # the matcher then runs replicated
+    measured = slam.closure_scanmatch and scan_dist is not None
     a = _gather_rows(dict(
+        (dict(scan=scan_dist) if measured else {}),
         rx=rx, ry=ry, ryaw=ryaw, yaw_q=yaw_q, hx=hx, hy=hy, dist4=dist4,
         est_x=est_x, est_y=odom.y_est, est_yaw=odom.yaw_est,
         merge_fit=merge_fit, adv_x=adv_x, adv_y=adv_y, cdx=cdx, cdy=cdy,
@@ -574,7 +582,10 @@ def _step_body(state, noise, step_no: int, st: _Static):
 
     agents_all = torch.arange(n, dtype=i32, device=dev)
     closure, closed_a, _, _ = closure_add_poses_batch(
-        srv.closure, rx_a, ry_a, agents_all, a["lm"], slam, valid=alive_a)
+        srv.closure, rx_a, ry_a, agents_all, a["lm"], slam, valid=alive_a,
+        yaws=a["ryaw"] if measured else None,
+        scans=a["scan"] if measured else None, grid=cfg.grid,
+        sens=cfg.sensors)
     zone = zone_observe_rows(
         srv.zone, torch.cat([rx_a[:, None], a["hx"]], dim=1),
         torch.cat([ry_a[:, None], a["hy"]], dim=1),

@@ -31,6 +31,11 @@ own raster defaults (`raster_4way=True`, `kernel_endpoints=False`,
 Its variants are wall-following (`frontiers=False`) and frontier targets
 (`frontiers=True`, run with `enable_targets=True`).
 
+`accuracy` is tools/bench_accuracy.py's configuration: the coverage
+world and EngineConfig's raster defaults without frontiers, and one of the
+tool's four variants (`raw`, `ref_closures`, `merge_anchored`,
+`ref_closures+merge`) on top.
+
 `untiled`, `swarm` and `dual_bot` are the untiled worlds: the bedroom
 (`BEDROOM_WALLS`) tiled into a grid of rooms 2 m apart (`make_multi_room`,
 grid origin (-3, -4)), or the bedroom alone. `untiled` is bench.py's
@@ -45,6 +50,7 @@ what `deployable` returns (`dual_bot`'s rooms are (None, None)).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -137,6 +143,53 @@ def coverage(n_agents: int, frontiers: bool = True, device=None):
     off, frontiers at the 3 s cadence when `frontiers`. Returns what
     `deployable` returns. At 64 agents: a 1024^2 grid; at 1024: 4096^2."""
     return _tiled_world(n_agents, device, frontiers, 181, False)
+
+
+ACCURACY_VARIANTS = ("raw", "ref_closures", "merge_anchored",
+                     "ref_closures+merge")
+
+
+def accuracy(n_agents: int, variant: str, device=None, pair_budget: int = 8,
+             distinct: float = 0.0, log_distinct: float = 0.0):
+    """tools/bench_accuracy.py's world + config for one of its variants
+    (`ACCURACY_VARIANTS`): `_cfg_and_world(n, frontiers=False,
+    parity=False, raster_mode="beam", use_pallas=True, scan_rays=181,
+    tiled=True)` (the tool asks for the accelerator tier on the
+    accelerator, :259-262; both fans run through the window kernel's
+    pack16 forms, then the endpoint scatter), with the variant's SLAM and
+    engine replacements copied from the tool (:267-316):
+      raw — no pose corrections, scan-matched closure edges at a
+        per-agent revisit gap (100 * n nodes), the rendezvous radius
+        1.2 m, a +-28-cell closure search and `pair_budget` proximity
+        pairs per step; no merge;
+      ref_closures — the reference's damped landmark snap (0.5), no merge;
+      merge_anchored — the raw variant's closure detection plus the
+        anchored merge every 16 steps, with the tracker's distinctness
+        margin `distinct` and the logged fixes' `log_distinct`;
+      ref_closures+merge — the snap and the merge.
+    Returns what `deployable` returns. At 64 agents: a 1024^2 grid, 32
+    rooms at 4 to a row."""
+    if variant not in ACCURACY_VARIANTS:
+        raise ValueError(f"unknown accuracy variant {variant!r}")
+    cfg, walls, params, rooms = _tiled_world(n_agents, device, False, 181,
+                                             False)
+    measured = dict(closure_correction=0.0,
+                    min_poses_between=100 * n_agents,
+                    closure_scanmatch=True, closure_cross_radius_m=1.2,
+                    closure_match_search=28,
+                    closure_pair_budget=pair_budget)
+    slam, merge_every = {
+        "raw": (measured, 0),
+        "ref_closures": (dict(closure_correction=0.5), 0),
+        "merge_anchored": (dict(measured,
+                                merge_distinct_margin=distinct,
+                                merge_distinct_log_margin=log_distinct), 16),
+        "ref_closures+merge": (dict(closure_correction=0.5), 16),
+    }[variant]
+    cfg = cfg.replace(
+        slam=dataclasses.replace(cfg.slam, **slam),
+        engine=dataclasses.replace(cfg.engine, merge_every=merge_every))
+    return cfg, walls, params, rooms
 
 
 def _sharded_engine(merge_every: int):

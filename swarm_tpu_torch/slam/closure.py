@@ -13,9 +13,19 @@ change what a later packet sees (each packet's closure guard is its own
 agent's, and agents are distinct), and the appends do not depend on the
 matches, so the ring before packet j is known in closed form: each slot
 holds the last of the earlier appends that landed on it, or its old
-landmark. The scan-matched closure measurement and the proximity pairs
-(`SlamConfig.closure_scanmatch`) are not ported yet; the engine refuses
-configs that turn them on.
+landmark.
+
+With `SlamConfig.closure_scanmatch` the batch form remembers each stored
+landmark's yaw and sweep, measures every fired closure by scan matching
+(slam/closurematch.py), adds the rendezvous term (another agent's landmark
+within `closure_cross_radius_m`: detection only, never a snap) and the
+proximity pairs (up to `closure_pair_budget` closest co-located agents'
+current sweeps matched against each other, verified edges logged). The
+reference skips each matcher with a `lax.cond` on "any closure" and "any
+pair"; eager torch needs those two flags on the host, so a step with scan
+matching reads them once, together (ROADMAP C27). The sequential form
+(parity mode) takes no sweep, as the reference's parity step passes none:
+there the flag only sizes `lm_scan`.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from typing import NamedTuple
 import torch
 
 from swarm_tpu_torch.config import SlamConfig
+
+NEG_NODE = -(1 << 30)
 
 
 class ClosureState(NamedTuple):
@@ -75,7 +87,7 @@ def closure_init(n_agents: int, cfg: SlamConfig = SlamConfig(),
         lm_yaw=zf(L), lm_scan=zf(L, R),
         cl_mx=zf(C), cl_my=zf(C), cl_mth=zf(C),
         cl_fit=torch.full((C,), -1.0, dtype=torch.float32, device=device),
-        last_pair_node=fi((n_agents,), -(1 << 30)))
+        last_pair_node=fi((n_agents,), NEG_NODE))
 
 
 def _ring_put(buf, slot, vals, keep):
@@ -92,16 +104,16 @@ def _ring_put(buf, slot, vals, keep):
 
 def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
                             cfg: SlamConfig = SlamConfig(), valid=None,
-                            yaws=None):
+                            yaws=None, scans=None, grid=None, sens=None):
     """Throughput-mode closure for one step's packets [M] (distinct agents).
     Returns (new_state, closed [M] bool, cdx [M], cdy [M]).
 
+    With `cfg.closure_scanmatch` and scans [M, R] given (grid and sens
+    then required), stored landmarks remember yaw and sweep, fired
+    closures are measured and the proximity pairs run (module docstring).
+
     Rows with valid False leave the per-agent guards alone. (The reference
     scatters them onto agent 0 with its old values — ROADMAP Queue C7.)"""
-    if cfg.closure_scanmatch:
-        raise NotImplementedError(
-            "scan-matched closures are not ported yet (ROADMAP Queue A, "
-            "offline SLAM)")
     M = xs.shape[0]
     dev = xs.device
     if valid is None:
@@ -127,8 +139,21 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
         (agent_ok & has_lm)[:, None]
     if cfg.closure_same_agent_only:
         match = match & (state.lm_agent[None, :] == agents[:, None])
+    snap = None
+    if cfg.closure_cross_radius_m > 0 and cfg.closure_scanmatch:
+        # rendezvous: another agent's landmark within the cross radius, no
+        # type equality, no time gap; lower priority than the intra term,
+        # and it never snaps (swarm_tpu/slam/closure.py:254-275)
+        other = state.lm_agent[None, :] != agents[:, None]
+        near_x = d2 < cfg.closure_cross_radius_m ** 2
+        cross = occupied[None, :] & other & near_x & \
+            (agent_ok & has_lm)[:, None]
+        snap = match.any(dim=1)
+        match = torch.where(snap[:, None], match, cross)
 
     closed = match.any(dim=1)
+    if snap is None:
+        snap = closed
     first = torch.argmin(torch.where(match, slots[None, :],
                                      torch.full_like(match, L,
                                                      dtype=torch.int32)),
@@ -136,8 +161,8 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
     mx = state.lm_x[first]
     my = state.lm_y[first]
     zero = torch.zeros_like(xs)
-    cdx = torch.where(closed, (mx - xs) * cfg.closure_correction, zero)
-    cdy = torch.where(closed, (my - ys) * cfg.closure_correction, zero)
+    cdx = torch.where(snap, (mx - xs) * cfg.closure_correction, zero)
+    cdy = torch.where(snap, (my - ys) * cfg.closure_correction, zero)
 
     last_cl = _ring_put(state.last_closure_node, agents, idxs, closed)
     drift_dx = _ring_put(state.drift_dx, agents, state.drift_dx[ag] + cdx,
@@ -156,11 +181,90 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
     cl_dy = _ring_put(state.cl_dy, cslot, cdy, closed)
     cl_agent = _ring_put(state.cl_agent, cslot, agents, closed)
     cl_count = state.cl_count + ci.sum().to(torch.int32)
-    # unmeasured edges (scan matching off): measurement 0, fitness -1
-    cl_mx = _ring_put(state.cl_mx, cslot, zero, closed)
-    cl_my = _ring_put(state.cl_my, cslot, zero, closed)
-    cl_mth = _ring_put(state.cl_mth, cslot, zero, closed)
-    cl_fit = _ring_put(state.cl_fit, cslot, zero - 1.0, closed)
+
+    measure_on = cfg.closure_scanmatch and scans is not None
+    if measure_on and (grid is None or sens is None):
+        raise ValueError("closure_scanmatch with scans needs grid and sens "
+                         "to measure the closures")
+    pair_on = (measure_on and cfg.closure_pair_budget > 0
+               and cfg.closure_cross_radius_m > 0)
+    last_pair = state.last_pair_node
+    if pair_on:
+        pi, pj, att2 = _pair_candidates(xs, ys, agents, idxs, valid,
+                                        last_pair, cfg)
+    # the reference's two lax.cond gates, read from the host together
+    run_match, run_pair = (torch.stack([
+        closed.any(), att2.any() if pair_on else closed.new_zeros(())
+    ]).tolist() if measure_on else (False, False))
+
+    # scan-matched edge measurement of the <= closure_match_budget closed
+    # packets (stable argsort puts them first); unmeasured edges log
+    # measurement 0 and fitness -1
+    mx_v, my_v, mth_v, fit_v = zero, zero, zero, zero - 1.0
+    if run_match:
+        from swarm_tpu_torch.slam.closurematch import match_scan_pairs_batch
+        K = min(M, max(1, cfg.closure_match_budget))
+        sel = torch.argsort((~closed).to(torch.uint8), stable=True)[:K]
+        f_sel = torch.clamp_max(first, L - 1)[sel]
+        m, meas = match_scan_pairs_batch(
+            scans[sel], (xs[sel], ys[sel], yaws[sel]), state.lm_scan[f_sel],
+            (state.lm_x[f_sel], state.lm_y[f_sel], state.lm_yaw[f_sel]),
+            cfg, grid, sens)
+        ok = m.ok & closed[sel]
+
+        def put(fill, v):
+            return torch.full_like(xs, fill).index_copy(
+                0, sel, torch.where(ok, v, torch.full_like(v, fill)))
+        mx_v = put(0.0, meas[:, 0])
+        my_v = put(0.0, meas[:, 1])
+        mth_v = put(0.0, meas[:, 2])
+        fit_v = put(-1.0, m.fitness)
+    cl_mx = _ring_put(state.cl_mx, cslot, mx_v, closed)
+    cl_my = _ring_put(state.cl_my, cslot, my_v, closed)
+    cl_mth = _ring_put(state.cl_mth, cslot, mth_v, closed)
+    cl_fit = _ring_put(state.cl_fit, cslot, fit_v, closed)
+
+    if pair_on:
+        # proximity pairs: agent j's current sweep is the window, agent i's
+        # is matched into it; verified edges append after this step's
+        # regular edges, in pair order (swarm_tpu/slam/closure.py:357-420)
+        k2 = pi.shape[0]
+        ok2 = torch.zeros((k2,), dtype=torch.bool, device=dev)
+        z2 = torch.zeros((k2,), dtype=xs.dtype, device=dev)
+        pmx = pmy = pmth = pfit = z2
+        if run_pair:
+            from swarm_tpu_torch.slam.closurematch import \
+                match_scan_pairs_batch
+            m2, meas2 = match_scan_pairs_batch(
+                scans[pi], (xs[pi], ys[pi], yaws[pi]),
+                scans[pj], (xs[pj], ys[pj], yaws[pj]), cfg, grid, sens)
+            ok2 = m2.ok & m2.distinct & att2
+            pmx, pmy, pmth, pfit = meas2[:, 0], meas2[:, 1], meas2[:, 2], \
+                m2.fitness
+        p_i = ok2.to(torch.int32)
+        pslot = torch.remainder(cl_count + torch.cumsum(p_i, 0) - p_i, C)
+        cl_lm_node = _ring_put(cl_lm_node, pslot, idxs[pj], ok2)
+        cl_node = _ring_put(cl_node, pslot, idxs[pi], ok2)
+        cl_dx = _ring_put(cl_dx, pslot, z2, ok2)
+        cl_dy = _ring_put(cl_dy, pslot, z2, ok2)
+        cl_agent = _ring_put(cl_agent, pslot, agents[pi], ok2)
+        cl_mx = _ring_put(cl_mx, pslot, pmx, ok2)
+        cl_my = _ring_put(cl_my, pslot, pmy, ok2)
+        cl_mth = _ring_put(cl_mth, pslot, pmth, ok2)
+        cl_fit = _ring_put(cl_fit, pslot, torch.where(ok2, pfit, z2 - 1.0),
+                           ok2)
+        cl_count = cl_count + p_i.sum().to(torch.int32)
+        # the cooldown consumes on ATTEMPT; a scatter-max keeps the newest
+        # (the reference's `.at[psl].max(pn, mode="drop")`, its dropped
+        # rows on a spare row)
+        n_ag = last_pair.shape[0]
+        att = torch.cat([att2, att2])
+        pa = torch.cat([agents[pi], agents[pj]]).to(torch.int64)
+        pn = torch.cat([idxs[pi], idxs[pj]]).to(last_pair.dtype)
+        psl = torch.where(att, pa, torch.full_like(pa, n_ag))
+        pn = torch.where(att, pn, torch.full_like(pn, NEG_NODE))
+        spare = torch.cat([last_pair, last_pair.new_full((1,), NEG_NODE)])
+        last_pair = spare.scatter_reduce(0, psl, pn, "amax")[:n_ag]
 
     # landmark appends AFTER matching, packet order
     hi = has_lm.to(torch.int32)
@@ -172,6 +276,9 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
     lm_a = _ring_put(state.lm_agent, lslot, agents, has_lm)
     lm_yaw = _ring_put(state.lm_yaw, lslot,
                        zero if yaws is None else yaws, has_lm)
+    lm_scan = state.lm_scan
+    if scans is not None and cfg.closure_scanmatch:
+        lm_scan = _ring_put(lm_scan, lslot, scans, has_lm)
     lm_count = state.lm_count + hi.sum().to(torch.int32)
 
     new = ClosureState(
@@ -180,10 +287,34 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
         last_closure_node=last_cl, drift_dx=drift_dx, drift_dy=drift_dy,
         cl_lm_node=cl_lm_node, cl_node=cl_node, cl_dx=cl_dx, cl_dy=cl_dy,
         cl_agent=cl_agent, cl_count=cl_count,
-        lm_yaw=lm_yaw, lm_scan=state.lm_scan,
+        lm_yaw=lm_yaw, lm_scan=lm_scan,
         cl_mx=cl_mx, cl_my=cl_my, cl_mth=cl_mth, cl_fit=cl_fit,
-        last_pair_node=state.last_pair_node)
+        last_pair_node=last_pair)
     return new, closed, cdx, cdy
+
+
+def _pair_candidates(xs, ys, agents, idxs, valid, last_pair,
+                     cfg: SlamConfig):
+    """The K2 closest pairs (i < j) of live, cooled-down agents within the
+    cross radius: (pi [K2], pj [K2], att2 [K2] bool). The reference's
+    `top_k` over the flat [M*M] negative squared distances takes the
+    lower flat index first among equal values, and so does the stable
+    descending sort here; -inf pads when fewer pairs qualify (att2
+    False)."""
+    M = xs.shape[0]
+    k2 = min(cfg.closure_pair_budget, max(1, M // 2))
+    d2p = (xs[:, None] - xs[None, :]) ** 2 + (ys[:, None] - ys[None, :]) ** 2
+    cool = (idxs - last_pair[agents.long()]) >= cfg.closure_pair_cooldown
+    ar = torch.arange(M, device=xs.device)
+    cand = valid[:, None] & valid[None, :] & cool[:, None] & \
+        cool[None, :] & (ar[:, None] < ar[None, :]) & \
+        (d2p < cfg.closure_cross_radius_m ** 2)
+    neg = torch.where(cand, -d2p, torch.full_like(d2p, float("-inf")))
+    top_v, top_i = torch.sort(neg.reshape(-1), descending=True,
+                              stable=True)
+    top_v, top_i = top_v[:k2], top_i[:k2]
+    return (torch.div(top_i, M, rounding_mode="floor"), top_i % M,
+            top_v > float("-inf"))
 
 
 # packet rows x landmark slots matched at once by closure_add_poses_seq
@@ -227,11 +358,10 @@ def closure_add_poses_seq(state: ClosureState, xs, ys, agents, lm_types,
     Packet j sees the ring as the earlier packets left it: a slot last
     written by an earlier packet of the batch holds that packet's
     landmark, and slot s counts as occupied when s < min(lm_count_j, L).
-    Rows are matched SEQ_CHUNK row-slot pairs at a time."""
-    if cfg.closure_scanmatch:
-        raise NotImplementedError(
-            "scan-matched closures are not ported yet (ROADMAP Queue A, "
-            "offline SLAM)")
+    Rows are matched SEQ_CHUNK row-slot pairs at a time. With
+    `cfg.closure_scanmatch` the edges stay unmeasured and no sweep is
+    stored: the reference's parity step passes `closure_add_pose` no scan
+    (swarm_tpu/engine/sim.py:652-657)."""
     M = xs.shape[0]
     dev = xs.device
     if valid is None:

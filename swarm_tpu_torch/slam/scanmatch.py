@@ -238,3 +238,173 @@ def match_scan_window(off_x, off_y, valid, window_mass, agent_cell_xy,
         ddtheta_meas=ddtheta_meas,
         distinct=distinct,
         distinct_gap=gap)
+
+
+# --------------------------------------------------------------------------
+# grid-to-grid matching (swarm_tpu/slam/scanmatch.py:28-197): the offline
+# merge's aligner (slam/merge.py), not on the engine's path
+
+
+class MatchResult(NamedTuple):
+    """Transform from a local map into the global one (field meanings as
+    in the reference's MatchResult); [] per field, [N] batched."""
+    dx: torch.Tensor        # metres
+    dy: torch.Tensor
+    dtheta: torch.Tensor    # radians
+    score: torch.Tensor     # raw correlation peak
+    fitness: torch.Tensor   # matched fraction of occupied mass
+    ok: torch.Tensor        # bool — fitness gate (ref: >= 0.6)
+
+
+def _top_k_stable(x, k: int):
+    """`jax.lax.top_k` of a 1-D tensor: the k largest values, the lower
+    index first among equal values (a stable descending sort;
+    `torch.topk` promises no order among ties)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def _rotated_mass_stack(local_occ, thetas, k_points: int):
+    """Every rotation hypothesis of a sparse occupancy-mass image [S, S]:
+    the top `k_points` cells (ties to the lower flat index, as `top_k`),
+    their coordinates rotated about the centre and bilinear-splatted as a
+    one-hot matmul -> [A, S, S]."""
+    s = local_occ.shape[0]
+    c = (s - 1) / 2.0
+    dtype = local_occ.dtype
+    k_points = min(k_points, local_occ.numel())
+    vals, idx = _top_k_stable(local_occ.reshape(-1), k_points)
+    py = torch.div(idx, s, rounding_mode="floor").to(dtype)
+    px = (idx % s).to(dtype)
+    ct = torch.cos(thetas)[:, None]
+    st = torch.sin(thetas)[:, None]
+    x = c + (px - c) * ct - (py - c) * st                    # [A, P]
+    y = c + (px - c) * st + (py - c) * ct
+    x0 = torch.floor(x).to(torch.int32)
+    y0 = torch.floor(y).to(torch.int32)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    ii = torch.arange(s, dtype=torch.int32, device=x.device)
+    y0, x0 = y0[..., None], x0[..., None]
+    yv = ((ii == y0) * (1.0 - fy) + (ii == y0 + 1) * fy) * vals[:, None]
+    xv = (ii == x0) * (1.0 - fx) + (ii == x0 + 1) * fx
+    return torch.matmul(yv.to(dtype).transpose(-1, -2), xv.to(dtype))
+
+
+def _rotate_grid(occ, theta, cfg=None):
+    """Rotate an occupancy-mass image [S, S] about its centre by theta,
+    bilinear (a gather; out-of-image taps read 0). `cfg` is unused, as in
+    the reference."""
+    s = occ.shape[0]
+    return _bilinear_sample(occ, *_rotated_coords(s, theta, 0.0, 0.0,
+                                                  occ.dtype), 0.0)
+
+
+def _rotated_coords(s: int, theta, dx_cells, dy_cells, dtype):
+    """Source coordinates (sx, sy) [S, S] of the warp output(p) =
+    src(R(-theta) (p - c - t) + c), c the image centre."""
+    c = (s - 1) / 2.0
+    dev = theta.device if isinstance(theta, torch.Tensor) else None
+    ar = torch.arange(s, dtype=dtype, device=dev)
+    yy, xx = torch.meshgrid(ar, ar, indexing="ij")
+    px = xx - c - dx_cells
+    py = yy - c - dy_cells
+    th = torch.as_tensor(theta, dtype=dtype, device=dev)
+    ct, st = torch.cos(-th), torch.sin(-th)
+    return c + px * ct - py * st, c + px * st + py * ct
+
+
+def _bilinear_sample(img, sx, sy, fill: float):
+    """Bilinear read of img [S, S] at float coords; taps outside the image
+    read `fill`."""
+    s = img.shape[0]
+    x0 = torch.floor(sx).to(torch.int64)
+    y0 = torch.floor(sy).to(torch.int64)
+    fx = sx - x0
+    fy = sy - y0
+
+    def at(yi, xi):
+        ok = (xi >= 0) & (xi < s) & (yi >= 0) & (yi < s)
+        v = img[torch.clamp(yi, 0, s - 1), torch.clamp(xi, 0, s - 1)]
+        return torch.where(ok, v, torch.full_like(v, fill))
+
+    return (at(y0, x0) * (1 - fx) * (1 - fy) +
+            at(y0, x0 + 1) * fx * (1 - fy) +
+            at(y0 + 1, x0) * (1 - fx) * fy +
+            at(y0 + 1, x0 + 1) * fx * fy)
+
+
+def match_grids(local_occ, global_occ, cfg=None, slam=None,
+                fitness_min: float = 0.6,
+                icp_threshold_m: float = 1.0) -> MatchResult:
+    """The rigid transform aligning `local_occ` [S, S] into `global_occ`
+    [S, S] (occupancy mass in [0, 1]): every rotation of
+    `slam.scanmatch_angles` over +-`slam.scanmatch_angle_range` scored at
+    every translation of +-`slam.scanmatch_window_cells` by one `conv2d`
+    (the rotations as its output channels), the first maximum, parabolic
+    sub-cell refinement, and ICP's inlier fraction against the global map
+    dilated by `icp_threshold_m` as the fitness. Returns the transform
+    FROM local TO global (p' = R(dtheta) (p - c) + c + (dx, dy))."""
+    from swarm_tpu_torch.config import GridConfig, SlamConfig
+    cfg = GridConfig() if cfg is None else cfg
+    slam = SlamConfig() if slam is None else slam
+    w = slam.scanmatch_window_cells
+    side = 2 * w + 1
+    f32 = torch.float32
+    dev = local_occ.device
+    local_occ = local_occ.to(f32)
+    global_occ = global_occ.to(f32)
+    thetas = linspace_f32(-slam.scanmatch_angle_range,
+                          slam.scanmatch_angle_range, slam.scanmatch_angles,
+                          dev)
+    rot = _rotated_mass_stack(local_occ, thetas, slam.scanmatch_points)
+    g = F.pad(global_occ, (w, w, w, w))
+    scores = F.conv2d(g[None, None], rot[:, None])[0]    # [A, 2w+1, 2w+1]
+
+    flat = torch.argmax(scores.reshape(-1))
+    ai = torch.div(flat, side * side, rounding_mode="floor")
+    rest = flat % (side * side)
+    di = torch.div(rest, side, rounding_mode="floor")
+    dj = rest % side
+    score = scores.reshape(-1)[flat]
+    off_j = _refine_free(dj, scores[ai, di, :])
+    off_i = _refine_free(di, scores[ai, :, dj])
+    dy_cells = di.to(f32) - w + off_i
+    dx_cells = dj.to(f32) - w + off_j
+
+    th_cells = max(1, int(round(icp_threshold_m / cfg.resolution)))
+    dil = _dilate(global_occ[None], th_cells)[0]
+    dil_p = F.pad(dil, (w, w, w, w))
+    s = global_occ.shape[0]
+    window = _crop(dil_p, di[None], dj[None], s)[0]
+    inliers = (rot[ai] * window).sum()
+    mass = rot[ai].sum()
+    fitness = torch.where(mass > 0, inliers / torch.clamp_min(mass, 1e-6),
+                          torch.zeros_like(mass))
+    fitness = torch.clamp_max(fitness, 1.0)
+    return MatchResult(
+        dx=dx_cells * cfg.resolution, dy=dy_cells * cfg.resolution,
+        dtheta=thetas[ai], score=score, fitness=fitness,
+        ok=(fitness >= fitness_min) & (mass > 0))
+
+
+def _refine_free(idx, line):
+    """`match_grids`' parabolic offset around idx [] of line [L]: no
+    boundary test (the reference's own refine there clips its taps)."""
+    n = line.shape[-1]
+    c = line[idx]
+    lo = line[torch.clamp(idx - 1, 0, n - 1)]
+    hi = line[torch.clamp(idx + 1, 0, n - 1)]
+    denom = lo - 2 * c + hi
+    off = torch.where(torch.abs(denom) > 1e-6, 0.5 * (lo - hi) / denom,
+                      torch.zeros_like(denom))
+    return torch.clamp(off, -0.5, 0.5)
+
+
+def match_grids_batch(local_occs, global_occ, cfg=None, slam=None,
+                      fitness_min: float = 0.6) -> MatchResult:
+    """`match_grids` of N local maps [N, S, S] against one global map,
+    one call each (the reference vmaps it); [N] leaves."""
+    out = [match_grids(lo, global_occ, cfg, slam, fitness_min)
+           for lo in local_occs]
+    return MatchResult(*(torch.stack(f) for f in zip(*out)))

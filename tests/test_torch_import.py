@@ -1,8 +1,9 @@
-"""The port imports torch and never jax, and nothing of the JAX package:
-importing every module of `swarm_tpu_torch` (in a fresh interpreter) must
-load neither jax nor any `swarm_tpu` module, and no source of the port,
-of chip_smoke.py or of kernel_ab.py (whose profiler timing chip_smoke.py
-uses) imports either or names torch.compile."""
+"""The port imports torch and never jax, and nothing of the JAX package or
+of its tools: importing every module of `swarm_tpu_torch` (in a fresh
+interpreter) must load neither jax nor any `swarm_tpu` or `tools` module,
+and no source of the port, of chip_smoke.py or of kernel_ab.py (whose
+profiler timing chip_smoke.py uses) imports any of them or names
+torch.compile."""
 
 import ast
 import subprocess
@@ -15,7 +16,7 @@ _PROBE = """
 import importlib, pkgutil, sys
 def banned():
     return {m for m in sys.modules
-            if m.split(".")[0] in ("jax", "swarm_tpu")}
+            if m.split(".")[0] in ("jax", "swarm_tpu", "tools")}
 before = banned()
 import swarm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(swarm_tpu_torch.__path__,
@@ -53,6 +54,7 @@ def test_no_jax_import_and_no_torch_compile_in_sources():
             else:
                 names = []
             for name in names:
-                assert name.split(".")[0] not in ("jax", "swarm_tpu"), \
+                assert name.split(".")[0] not in (
+                    "jax", "swarm_tpu", "tools", "__graft_entry__"), \
                     (path, name)
         assert "torch.compile" not in path.read_text(), path

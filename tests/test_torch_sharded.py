@@ -10,9 +10,12 @@
    the endpoints into the extended tile with `logodds_delta`'s tile form
    (bench.py --beam-groups 8 --exact-endpoints); and "replicated" with the
    yaw-rate bias on (merge_bias_alpha=0.1: the feed-forward in the raster
-   yaw, the event's deltas gathered like the merge increments). StepMetrics
+   yaw, the event's deltas gathered like the merge increments); and
+   "replicated" with the scan-matched closures (the sweeps gathered to
+   every rank, pairs attempted from step 0). StepMetrics
    integers exact, floats at atol = rtol = 1e-5; maps and anchors decision-equal (cells differing by
-   > 1e-6 at most 0.01% of the painted cells); poses at 1e-5.
+   > 1e-6 at most 0.01% of the painted cells); poses at 1e-5; every
+   closure-ring leaf (integers exact, floats within 1e-4).
 2. Four gloo ranks, one `torchrun` of `parallel/dryrun.py` (a join limit
    and a collective timeout): "rows" and "replicated" on
    `presets.vertical_rooms(4)`, "tiles" (2x2) and "replicated" on
@@ -80,6 +83,14 @@ def _jax_mesh(grid_sharding):
     return make_mesh(1)
 
 
+# the scan-matched closures with the rendezvous radius wide enough that
+# the two agents of a room (5.8 m apart at home) pair from step 0, and a
+# 48 + 2 x 8 closure window (XLA's CPU compile of the tool's 128 + 2 x 28
+# takes minutes)
+SCANMATCH = dict(closure_scanmatch=True, closure_cross_radius_m=6.5,
+                 closure_pair_budget=8, closure_pair_cooldown=16,
+                 closure_match_window=48, closure_match_search=8)
+
 # (decomposition, bench.py flags as presets.deployable's arguments,
 # SlamConfig fields replaced on both sides)
 ONE_RANK = {"replicated": ("replicated", {}, {}), "rows": ("rows", {}, {}),
@@ -87,7 +98,8 @@ ONE_RANK = {"replicated": ("replicated", {}, {}), "rows": ("rows", {}, {}),
             "tiles-grouped-exact": ("tiles", dict(beam_groups=8,
                                                   exact_endpoints=True), {}),
             "replicated-bias": ("replicated", {},
-                                dict(merge_bias_alpha=0.1))}
+                                dict(merge_bias_alpha=0.1)),
+            "replicated-scanmatch": ("replicated", {}, SCANMATCH)}
 
 
 def _with_slam(cfg, slam):
@@ -152,6 +164,15 @@ def test_one_rank_matches_jax_sharded_step(group, case):
         assert_close(getattr(st.srv, f), getattr(final_j.srv, f), what=f)
     assert_exact(st.srv.merge_fail, final_j.srv.merge_fail)
     assert_exact(st.srv.total_writes, final_j.srv.total_writes)
+    for f in st.srv.closure._fields:
+        a, b = getattr(st.srv.closure, f), getattr(final_j.srv.closure, f)
+        if a.dtype.is_floating_point:
+            assert_close(a, b, rtol=1e-4, atol=1e-4, what=f"closure {f}")
+        else:
+            assert_exact(a, b, what=f"closure {f}")
+    if slam.get("closure_scanmatch"):
+        assert tuple(st.srv.closure.lm_scan.shape)[1] == R
+        assert bool((st.srv.closure.last_pair_node >= 0).all())
     # the gathered state is the rank's state on one rank
     full = sharded.gather_state(st, lay, grid_sharding)
     assert torch.equal(full.srv.logodds, st.srv.logodds)
@@ -352,7 +373,8 @@ def test_unported_sharded_paths_name_their_item(group):
     """The sharded XLA fast tier (use_pallas=False) is not ported; the
     refusal names its ROADMAP item, as do the line raster and the
     profiling mode, which the sharded body rasters as the line scatter
-    (A9, the sharded XLA tiers). A rank grid must cover the group."""
+    (A9, the sharded XLA tiers). The scan-matched closures (A5) run. A
+    rank grid must cover the group."""
     cfg, walls, params, rooms = presets.deployable(N, device="cpu")
     lay = mesh.RankLayout(world=1, rank=0, rows=1, cols=1,
                           device=torch.device("cpu"))
@@ -362,6 +384,10 @@ def test_unported_sharded_paths_name_their_item(group):
         with pytest.raises(NotImplementedError, match=item):
             sharded.make_sharded_sim_step(_with(cfg, eng), walls, params,
                                           lay)
+    sharded.make_sharded_sim_step(
+        cfg.replace(slam=dataclasses.replace(cfg.slam,
+                                             closure_scanmatch=True)),
+        walls, params, lay)
     with pytest.raises(ValueError, match="does not cover"):
         mesh.make_layout((2, 2), device="cpu")
 

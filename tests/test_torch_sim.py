@@ -156,9 +156,13 @@ def test_unported_paths_refuse(world):
             slam=dataclasses.replace(cfg.slam, **(slam or {})),
             grid=dataclasses.replace(cfg.grid, **(grid or {})))
 
-    # the one fused path still refused: the scan-matched closures (A5)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A5"):
-        ps.sim_init(with_({}, dict(closure_scanmatch=True)), port["params"])
+    # the scan-matched closures (A5) run now: the closure ring is sized
+    # for the sweeps, as the reference sizes it
+    st = ps.sim_init(with_({}, dict(closure_scanmatch=True)), port["params"])
+    assert tuple(st.srv.closure.lm_scan.shape) == (
+        cfg.slam.landmark_capacity, cfg.engine.scan_rays)
+    assert tuple(ps.sim_init(cfg, port["params"]).srv.closure.lm_scan.shape
+                 ) == (cfg.slam.landmark_capacity, 1)
     # the merge matches sweeps: refused without one
     with pytest.raises(ValueError, match="scan_rays"):
         ps.check_supported(with_(dict(merge_every=16, scan_rays=0)))

@@ -14,11 +14,24 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from swarm_tpu_torch.engine.sim import StepNoise
 from swarm_tpu_torch.models.odometry import DriftNoise
 from swarm_tpu_torch.models.sensors import SensorNoise
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """One torch thread for the importing test module, the old count back
+    after it: the tier-1 run puts 6 workers on the CPU, and small ops on a
+    thread pool each then spin against each other (a 6 s test took 120 s).
+    Import it into a test module to use it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t(x, dtype=None):
@@ -99,6 +112,35 @@ def jax_deployable(n: int, merge_every: int = 16, room_kernel=False,
         cfg = cfg.replace(engine=dataclasses.replace(
             cfg.engine, merge_every=merge_every))
     return cfg, walls, params, rooms
+
+
+def jax_accuracy(n: int, variant: str, pair_budget: int = 8,
+                 distinct: float = 0.0, log_distinct: float = 0.0):
+    """tools/bench_accuracy.py's configuration of one variant, built as the
+    tool builds it on an accelerator (:259-316: `_cfg_and_world(n,
+    frontiers=False, parity=False, raster_mode="beam", use_pallas=True,
+    scan_rays=181, tiled=True)`, then the variant's replacements): the JAX
+    side of the port's `presets.accuracy`."""
+    from __graft_entry__ import _cfg_and_world
+
+    cfg, walls, params, rooms = _cfg_and_world(
+        n, frontiers=False, parity=False, raster_mode="beam",
+        use_pallas=True, scan_rays=181, tiled=True)
+    measured = dict(closure_correction=0.0, min_poses_between=100 * n,
+                    closure_scanmatch=True, closure_cross_radius_m=1.2,
+                    closure_match_search=28, closure_pair_budget=pair_budget)
+    slam, merge_every = {
+        "raw": (measured, 0),
+        "ref_closures": (dict(closure_correction=0.5), 0),
+        "merge_anchored": (dict(measured, merge_distinct_margin=distinct,
+                                merge_distinct_log_margin=log_distinct), 16),
+        "ref_closures+merge": (dict(closure_correction=0.5), 16),
+    }[variant]
+    return cfg.replace(
+        slam=dataclasses.replace(cfg.slam, **slam),
+        engine=dataclasses.replace(cfg.engine,
+                                   merge_every=merge_every)), walls, params, \
+        rooms
 
 
 def jax_untiled(n: int, raster_mode: str = "line", scan_rays: int = 181,
