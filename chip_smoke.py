@@ -196,7 +196,45 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      at least one measured edge, measurements and fitness within 1e-4;
      at least one verified cross edge in the joint tier and one merge fix
      in the anchored tier; the refined, joint, anchored_gn and
-     anchored_joint poses within 1e-3 (m, rad).
+     anchored_joint poses within 1e-3 (m, rad);
+ 23. the mapping server's replay (engine/replay.py; run_session's scripted
+     sequence without the PNG render): generate_dual_session(seed=42) with
+     its sensor casts on the card (held against the CPU's: the scripted
+     arrays exact, dist4 within 1e-5 m, landmark and v2v flips counted),
+     write_session / load_session through a temporary directory,
+     packet_stream_from_telemetry, replay_session (the closed form: one
+     host read per closure window): closures, corrected poses and writes
+     equal to the same functions' CPU run, the grid bit-equal to it (or
+     differing only in cells that rays traced apart by an ulp of cos or
+     sin touch, ROADMAP C26, counted) and bit-equal to the port's native
+     oracle (`update_ray` on the same corrected rays in order); packets/s
+     and the closure windows; refine_session (poses within 1e-3 of the
+     CPU's) and reraster_session (its grid against the CPU's as above);
+     then tools/bench_serve.py's swarm (64 agents, its packet ring for
+     20,480 packets) replayed as it is and with landmarks drawn from the
+     dual session's (ids 2 and 5 on 19.6% of the packets): packets/s,
+     closure windows, and each against a CPU replay of the same stream as
+     above (closures, closed flags, grid); then each with closure
+     windows of 64 to 4096 packets in place of replay.WINDOW (256), every
+     result unchanged;
+ 24. serving: ingest_frame at 1024 agents, 64 frames of 2048 packets
+     (tools/bench_serve.py's --max-packets) packed by the port's
+     pack_quasar_v2_batch (the wire's agent byte carries (a % 255) + 1,
+     the agent index rides beside it; landmarks drawn from the dual
+     session's) and parsed by its native
+     parse_telemetry_buffer: frames/s and packets/s of the ingest, of the
+     codec on the host and of both with the copies; the grid against a
+     CPU run of the same frames as in phase 23, closures equal, all 1024
+     agents online, every packet counted;
+ 25. the pose-graph solvers on a one-rank NCCL group (parallel/solve.py;
+     BASELINE.json configs[4]): make_sharded_solver over 1024 graphs of
+     64 nodes, dense and structured, batched against one graph after
+     another on the first 16 (poses within 1e-4) and against the CPU's
+     batch on all 1024 (1e-3, yaws as angles; ROADMAP C31), the summed
+     final cost from the all-reduce; make_trajectory_sharded_gn on a
+     4096-node chain against structured_gn (1e-3), its cost falling
+     below a fifth. Phases 23-25 launch no raster kernel (the counters
+     set to 0 before each and read after).
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`), then the card's name and power limit; the last
@@ -212,6 +250,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -3260,6 +3299,599 @@ def phase_accuracy_card_vs_cpu(dev):
           f"{yaw:.3g} rad")
 
 
+# ---------------------------------------------------------------------------
+# The mapping server (engine/replay.py), the packet formats and native codec,
+# the synthetic session, and the rank-sharded pose-graph solvers
+# (parallel/solve.py). No raster kernel lies on these paths.
+# ---------------------------------------------------------------------------
+
+REPLAY_SEED = 42             # generate_dual_session's default seed
+SWARM_STREAM_AGENTS = 64     # tools/bench_serve.py --agents default
+SWARM_STREAM_PACKETS = 20480  # five turns of bench_serve's 4096-packet ring
+WINDOW_SWEEP = (64, 256, 512, 1024, 4096)  # closure windows timed
+SERVE_AGENTS = 1024
+SERVE_FRAME = 2048           # tools/bench_serve.py --max-packets default
+SERVE_FRAMES = 64
+SERVE_STRIDE = 64            # drain-buffer row, bytes
+SOLVE_GRAPHS = 1024          # BASELINE.json configs[4]: 1024 agents
+SOLVE_NODES = 64
+SOLVE_LOOP = 16              # graphs also solved one after another
+SOLVE_ITERS = 10
+CHAIN_NODES = 4096           # the scale of tests/test_tridiag.py:85-92
+CHAIN_ITERS = 5
+# the solvers' card-vs-CPU bar (positions m, yaws rad as angles; phase
+# 22's bar, ROADMAP C31) and the batched-vs-loop bar on the card
+SOLVE_CPU_ATOL = 1e-3
+SOLVE_LOOP_ATOL = 1e-4
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wall(fn, dev):
+    """(fn(), its wall seconds with the device synchronised on both
+    sides)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _no_kernel(name):
+    """None of the three raster kernels launched since `_reset_counts`."""
+    n = _kernel_launches()
+    if any(n.values()):
+        raise AssertionError(f"{name}: raster kernels launched {n}")
+    return n
+
+
+def _traced(rx, ry, hits, hit_valid, cfg):
+    """The traced cells of the replay rays (4 per packet, in order), on
+    the CPU: (flat, free, occ) [4T, 32]."""
+    from swarm_tpu_torch.ops.raster import RayBatch, _traced_cells
+
+    c = [v.detach().cpu() for v in (rx, ry, hits, hit_valid)]
+    rays = RayBatch(ox=c[0].repeat_interleave(4),
+                    oy=c[1].repeat_interleave(4),
+                    hx=c[2][..., 0].reshape(-1), hy=c[2][..., 1].reshape(-1),
+                    hit_valid=c[3].reshape(-1),
+                    active=torch.ones(c[3].numel(), dtype=torch.bool))
+    return _traced_cells(rays, cfg.grid, 32)
+
+
+def _ray_cells_apart(out_a, out_b, cfg):
+    """Cells that rays traced differently by two runs touch (ROADMAP C26:
+    an ulp of cos or sin moves an endpoint across a cell edge): ([S*S]
+    bool, the rays traced apart [4T] bool)."""
+    a = _traced(out_a.rx, out_a.ry, out_a.hits, out_a.hit_valid, cfg)
+    b = _traced(out_b.rx, out_b.ry, out_b.hits, out_b.hit_valid, cfg)
+    apart = ((a[0] != b[0]) | (a[1] != b[1]) | (a[2] != b[2])).any(dim=1)
+    mask = torch.zeros(cfg.grid.size ** 2, dtype=torch.bool)
+    for flat, free, occ in (a, b):
+        on = (free | occ) & apart[:, None]
+        mask[flat[on].long()] = True
+    return mask, apart
+
+
+def _grids_agree(name, g_a, g_b, mask, apart):
+    """Two runs' grids bit-equal, or differing only in cells that rays
+    traced differently touch; the counts printed."""
+    diff = (g_a.detach().cpu() != g_b.detach().cpu()).reshape(-1)
+    print(f"{name}: {int(diff.sum())} of {diff.numel()} cells differ, "
+          f"{int(apart.sum())} of {apart.numel()} rays traced apart")
+    if bool((diff & ~mask).any()):
+        raise AssertionError(f"{name}: {int((diff & ~mask).sum())} cells "
+                             "differ off every ray traced apart")
+
+
+def _same_closures(name, st_a, st_b):
+    n = int(st_a.closure.cl_count)
+    if n != int(st_b.closure.cl_count):
+        raise AssertionError(f"{name}: {n} closures vs "
+                             f"{int(st_b.closure.cl_count)}")
+    for f in ("cl_node", "cl_lm_node", "cl_agent", "cl_dx", "cl_dy"):
+        a = getattr(st_a.closure, f)[:n].cpu()
+        if not torch.equal(a, getattr(st_b.closure, f)[:n].cpu()):
+            raise AssertionError(f"{name}: closure log {f} differs")
+    return n
+
+
+def _oracle_grid(out, cfg):
+    """The port's native oracle: `update_ray` on the replay's corrected
+    rays, one after another in packet order."""
+    from swarm_tpu_torch import native
+
+    g = cfg.grid
+    grid = np.full((g.size, g.size), g.unknown, np.int8)
+    rx, ry = out.rx.cpu().numpy(), out.ry.cpu().numpy()
+    hits, hv = out.hits.cpu().numpy(), out.hit_valid.cpu().numpy()
+    for i in range(rx.shape[0]):
+        for k in range(4):
+            native.update_ray(grid, g.resolution, g.origin_x, g.origin_y,
+                              rx[i], ry[i], hits[i, k, 0], hits[i, k, 1],
+                              bool(hv[i, k]))
+    return grid
+
+
+def _session_landmarks():
+    """The landmark column of generate_dual_session(REPLAY_SEED) on the
+    CPU: the sensor model's sightings over the scripted session (ids 2 and
+    5 on 137 of its 698 packets). The swarm streams and the serving frames
+    that carry landmarks draw theirs from it, ids and share alike."""
+    from swarm_tpu_torch.sim.scenario import generate_dual_session
+
+    return np.asarray(generate_dual_session(
+        REPLAY_SEED, device=torch.device("cpu")).landmark, np.int32)
+
+
+def _swarm_stream(n_agents, n_packets, dev, lm_pool, seed):
+    """tools/bench_serve.py's packet ring (`_packet_ring`: agent k % N
+    walking a noisy circle, four ranges in [0.1, 1.1) m), `n_packets`
+    long, stamped 0.05 / N s apart; each packet's landmark drawn from
+    `lm_pool` (the ring itself sends none: a pool of one 0)."""
+    from swarm_tpu_torch.engine.replay import PacketStream
+
+    rng = np.random.default_rng(seed)
+    k = np.arange(n_packets)
+    a = k % n_agents
+    t = k * 0.05
+    lm = rng.choice(lm_pool, n_packets)
+
+    def col(v, dt):
+        return torch.as_tensor(np.asarray(v, dt), device=dev)
+    return PacketStream(
+        t=col(1.0 + k * (0.05 / n_agents), np.float32), agent=col(a, np.int32),
+        x=col(2.0 + np.cos(t + a) * 1.5, np.float32),
+        y=col(1.5 + np.sin(t + a) * 1.0, np.float32),
+        yaw=col((t + a) % 6.28 - 3.14, np.float32), encoder=col(k, np.int32),
+        v2v=col(np.zeros(n_packets), np.int32),
+        dist=col(rng.uniform(0.1, 1.1, (n_packets, 4)), np.float32),
+        landmark=col(lm, np.int32),
+        valid=torch.ones(n_packets, dtype=torch.bool, device=dev))
+
+
+def _replay_timed(stream, cfg, dev, reps=3, warm=True):
+    """replay_session, a warm-up run (with `warm`) then the median of
+    `reps` timed runs: (state, outputs, ReplayStats, seconds)."""
+    from swarm_tpu_torch.engine.replay import replay_session
+
+    if warm:
+        replay_session(stream, cfg, stats=True)
+    runs = [_wall(lambda: replay_session(stream, cfg, stats=True), dev)
+            for _ in range(reps)]
+    (st, out, stats), _ = runs[0]
+    return st, out, stats, _median([s for _, s in runs])
+
+
+def _window_sweep(name, card, stream, cfg, dev, st, out):
+    """replay_session with each closure window of WINDOW_SWEEP in place of
+    replay.WINDOW, one timed run each: packets/s and windows. Every run's
+    closures, closed flags and grid equal `st` and `out` (where a window
+    ends changes no result)."""
+    from swarm_tpu_torch.engine import replay
+
+    n = stream.t.shape[0]
+    keep = replay.WINDOW
+    rates = []
+    try:
+        for w in WINDOW_SWEEP:
+            replay.WINDOW = w
+            (st_w, out_w, stats_w), sec_w = _wall(
+                lambda: replay.replay_session(stream, cfg, stats=True), dev)
+            _same_closures(f"{name} window {w}", st_w, st)
+            if not (torch.equal(out_w.closed, out.closed) and
+                    torch.equal(st_w.grid, st.grid)):
+                raise AssertionError(f"{name}: window {w} changed the "
+                                     "replay")
+            rates.append(f"{w}: {n / sec_w:.1f} ({stats_w.windows} windows)")
+    finally:
+        replay.WINDOW = keep
+    print(f"{name} replay window sizes [{card}] (packets/s; replay.WINDOW "
+          f"{keep}): " + ", ".join(rates))
+
+
+def phase_replay(card, dev):
+    """The mapping server's replay (phase 23 of the module docstring):
+    run_session's scripted sequence without the render, then the swarm
+    streams. Returns {stream: (packets, seconds, ReplayStats)}."""
+    import tempfile
+
+    from swarm_tpu_torch.config import SwarmConfig
+    from swarm_tpu_torch.engine.replay import replay_session
+    from swarm_tpu_torch.proto.csvio import (load_session,
+                                             packet_stream_from_telemetry,
+                                             write_session)
+    from swarm_tpu_torch.sim.scenario import generate_dual_session
+    from swarm_tpu_torch.slam.refine import refine_session, reraster_session
+
+    cpu = torch.device("cpu")
+    cfg = SwarmConfig(n_agents=2)
+    _reset_counts()                          # this path starts here
+    (sess, gen_s) = _wall(lambda: generate_dual_session(REPLAY_SEED,
+                                                        device=dev), dev)
+    sess_c = generate_dual_session(REPLAY_SEED, device=cpu)
+    for f in ("t", "agent", "x", "y", "yaw_q", "encoder", "true_pose"):
+        if not np.array_equal(getattr(sess, f), getattr(sess_c, f)):
+            raise AssertionError(f"dual session: {f} card != CPU")
+    d4 = float(np.abs(sess.dist4 - sess_c.dist4).max())
+    flips = {f: int((getattr(sess, f) != getattr(sess_c, f)).sum())
+             for f in ("landmark", "v2v")}
+    if d4 > 1e-5:
+        raise AssertionError(f"dual session: dist4 card vs CPU {d4} m")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_session(tmp, sess.t, sess.agent, sess.x, sess.y, sess.yaw_q,
+                      sess.encoder, sess.v2v, sess.dist4, sess.landmark)
+        session = load_session(tmp)
+    stream = packet_stream_from_telemetry(session, device=dev)
+    st, out, stats, sec = _replay_timed(stream, cfg, dev)
+    st_c, out_c = replay_session(packet_stream_from_telemetry(
+        session, device=cpu), cfg)
+    n_pk = int(stream.t.shape[0])
+    mask, apart = _ray_cells_apart(out, out_c, cfg)
+    _grids_agree(f"dual replay card vs CPU [{card}]", st.grid, st_c.grid,
+                 mask, apart)
+    n_cl = _same_closures("dual replay card vs CPU", st, st_c)
+    same_rays = ~apart.reshape(-1, 4).any(dim=1)
+    if not torch.equal(out.closed.cpu(), out_c.closed) or \
+            not torch.equal(out.rx.cpu(), out_c.rx) or \
+            not torch.equal(out.ry.cpu(), out_c.ry) or \
+            not torch.equal(out.writes.cpu()[same_rays],
+                            out_c.writes[same_rays]):
+        raise AssertionError("dual replay: closures, corrected poses or "
+                             "writes differ card vs CPU")
+    oracle = _oracle_grid(out, cfg)
+    n_or = int((st.grid.cpu().numpy() != oracle).sum())
+    g = cfg.grid
+    free = int((st.grid == g.free).sum())
+    occ = int((st.grid == g.occupied).sum())
+    print(f"dual session [{card}]: generated in {gen_s:.4f} s (dist4 card "
+          f"vs CPU {d4:.3g} m, flips {flips}), {n_pk} packets replayed in "
+          f"{sec:.6f} s ({n_pk / sec:.1f} packets/s), {stats.windows} "
+          f"closure windows (host reads), {n_cl} closures, FREE {free}, "
+          f"OCCUPIED {occ}; native oracle: {n_or} cells differ")
+    if n_or or n_cl == 0 or free <= 2000 or occ <= 100:
+        raise AssertionError("dual replay: oracle or map")
+
+    # refine, then re-raster from the refined poses
+    (refined, ref_s) = _wall(lambda: refine_session(session, cfg=cfg,
+                                                    device=dev), dev)
+    refined_c = refine_session(session, cfg=cfg, device=cpu)
+    pos, yaw = _pose_diff({"r": refined}, {"r": refined_c}, ["r"])
+    (grid_r, stream_r), rr_s = _wall(lambda: reraster_session(
+        session, refined, cfg, device=dev), dev)
+    grid_rc, stream_rc = reraster_session(session, refined, cfg, device=cpu)
+    st_r, out_r = replay_session(stream_r, cfg)
+    st_rc, out_rc = replay_session(stream_rc, cfg)
+    if not (np.array_equal(st_r.grid.cpu().numpy(), grid_r) and
+            np.array_equal(st_rc.grid.numpy(), grid_rc)):
+        raise AssertionError("reraster_session is not its replay")
+    mask, apart = _ray_cells_apart(out_r, out_rc, cfg)
+    _grids_agree(f"reraster card vs CPU [{card}]", st_r.grid, st_rc.grid,
+                 mask, apart)
+    print(f"refine_session [{card}]: {ref_s:.4f} s, poses card vs CPU "
+          f"{pos:.3g} m / {yaw:.3g} rad; reraster_session {rr_s:.4f} s, "
+          f"OCCUPIED {int((grid_r == g.occupied).sum())}")
+    if pos > ACCURACY_POSE_ATOL or yaw > ACCURACY_POSE_ATOL or \
+            not np.isfinite(grid_r).all():
+        raise AssertionError("refine: card vs CPU")
+
+    # the swarm streams: bench_serve's ring as it is (no landmark), and
+    # with the dual session's landmarks (closures on most windows)
+    done = {"dual": (n_pk, sec, stats)}
+    cfg = SwarmConfig(n_agents=SWARM_STREAM_AGENTS)
+    pools = (("swarm", np.zeros(1, np.int32)),
+             ("swarm+landmarks", _session_landmarks()))
+    for name, pool in pools:
+        s = _swarm_stream(SWARM_STREAM_AGENTS, SWARM_STREAM_PACKETS, dev,
+                          pool, SEED + 60)
+        # the stream without landmarks warms the one with them up
+        st, out, stats, sec = _replay_timed(s, cfg, dev, reps=1,
+                                            warm=name == "swarm")
+        if not bool(torch.isfinite(out.rx).all()) or \
+                int(st.pkt_counts.sum()) != SWARM_STREAM_PACKETS:
+            raise AssertionError(f"{name} replay")
+        st_c, out_c = replay_session(_swarm_stream(
+            SWARM_STREAM_AGENTS, SWARM_STREAM_PACKETS, cpu, pool,
+            SEED + 60), cfg)
+        mask, apart = _ray_cells_apart(out, out_c, cfg)
+        _grids_agree(f"{name} replay card vs CPU [{card}]", st.grid,
+                     st_c.grid, mask, apart)
+        _same_closures(f"{name} replay card vs CPU", st, st_c)
+        if not torch.equal(out.closed.cpu(), out_c.closed):
+            raise AssertionError(f"{name} replay: closures fire on other "
+                                 "packets card vs CPU")
+        _window_sweep(name, card, s, cfg, dev, st, out)
+        print(f"{name} replay [{card}]: {SWARM_STREAM_AGENTS} agents, "
+              f"{SWARM_STREAM_PACKETS} packets in {sec:.6f} s "
+              f"({SWARM_STREAM_PACKETS / sec:.1f} packets/s), "
+              f"{stats.windows} closure windows (host reads), "
+              f"{stats.closures} closures, "
+              f"{int(st.total_writes[0]) * (1 << 30) + int(st.total_writes[1])}"
+              f" cell writes")
+        done[name] = (SWARM_STREAM_PACKETS, sec, stats)
+    print(f"replay raster kernels {_no_kernel('replay')}")
+    return done
+
+
+def _serve_wire(n_agents, frame, n_frames, seed):
+    """bench_serve's ring over `n_agents` (packet k from agent k % N on
+    its noisy circle), packed by the port's `pack_quasar_v2_batch` into
+    drain-style buffers [frame, SERVE_STRIDE] (one datagram a row), each
+    packet's landmark drawn from the dual session's (`_session_landmarks`).
+    The v2 wire's agent field is one byte, so it carries (a % 255) + 1;
+    the agent index a rides beside it. [n_frames] (buffer, lengths, agent
+    indices)."""
+    from swarm_tpu_torch.proto.packets import PACKET_SIZE_V2, \
+        pack_quasar_v2_batch
+
+    rng = np.random.default_rng(seed)
+    pool = _session_landmarks()
+    out = []
+    for f in range(n_frames):
+        k = f * frame + np.arange(frame)
+        a = k % n_agents
+        t = k * 0.05
+        wire = pack_quasar_v2_batch(
+            (a % 255) + 1,
+            2.0 + np.cos(t + a) * 1.5, 1.5 + np.sin(t + a) * 1.0,
+            (t + a) % 6.28 - 3.14, k, np.zeros(frame),
+            rng.uniform(0.1, 1.1, (frame, 4)), rng.choice(pool, frame))
+        buf = np.zeros((frame, SERVE_STRIDE), np.uint8)
+        buf[:, :PACKET_SIZE_V2] = np.frombuffer(wire, np.uint8).reshape(
+            frame, PACKET_SIZE_V2)
+        out.append((buf, np.full(frame, PACKET_SIZE_V2, np.int32), a))
+    return out
+
+
+def _frame_stream(cols, agents, f, dev):
+    """One parsed frame as a PacketStream on `dev`, stamped by the
+    server's clock (a frame every 33 ms) as the live server stamps
+    arrivals. The agents are the indices that ride beside the wire (its
+    agent byte holds at most 255 ids)."""
+    from swarm_tpu_torch.engine.replay import PacketStream
+
+    b = agents.shape[0]
+    t = 1.0 + f * 0.033 + np.arange(b) * (0.033 / b)
+
+    def col(v, dt):
+        return torch.as_tensor(np.asarray(v, dt), device=dev)
+    return PacketStream(
+        t=col(t, np.float32), agent=col(agents, np.int32),
+        x=col(cols["x"], np.float32), y=col(cols["y"], np.float32),
+        yaw=col(cols["yaw"], np.float32), encoder=col(cols["encoder"],
+                                                      np.int32),
+        v2v=col(cols["v2v"], np.int32), dist=col(cols["dist4"], np.float32),
+        landmark=col(cols["landmark"], np.int32),
+        valid=torch.ones(b, dtype=torch.bool, device=dev))
+
+
+def phase_serve(card, dev):
+    """Serving (phase 24 of the module docstring): `ingest_frame` at
+    SERVE_AGENTS agents, SERVE_FRAMES frames of SERVE_FRAME packets packed
+    by the port's `pack_quasar_v2_batch` and parsed by its native
+    `parse_telemetry_buffer`. Returns (frames, packets, seconds)."""
+    from swarm_tpu_torch import native
+    from swarm_tpu_torch.config import SwarmConfig
+    from swarm_tpu_torch.engine.replay import ingest_frame, server_init
+
+    cfg = SwarmConfig(n_agents=SERVE_AGENTS)
+    wire = _serve_wire(SERVE_AGENTS, SERVE_FRAME, SERVE_FRAMES, SEED + 70)
+    t0 = time.perf_counter()
+    parsed = [native.parse_telemetry_buffer(buf, lens, SERVE_FRAME)
+              for buf, lens, _ in wire]
+    codec_s = time.perf_counter() - t0
+    if any(p["n_good"] != SERVE_FRAME or (p["kind"] != 2).any() or
+           (p["agent"] != w[2] % 255 + 1).any()
+           for p, w in zip(parsed, wire)):
+        raise AssertionError("serve: the native codec rejected packets")
+    frames = {d: [_frame_stream(p, w[2], f, d)
+                  for f, (p, w) in enumerate(zip(parsed, wire))]
+              for d in (dev, torch.device("cpu"))}
+
+    def serve(d):
+        st = server_init(cfg, t0=1.0, device=d)
+        off = torch.zeros(SERVE_AGENTS, device=d)
+        outs = []
+        for fr in frames[d]:
+            st, out = ingest_frame(st, fr, cfg, off)
+            outs.append(out)
+        return st, outs
+
+    serve(dev)                               # warm-up
+    _reset_counts()                          # this path starts here
+    (st, outs), sec = _wall(lambda: serve(dev), dev)
+    n_kernels = _no_kernel("serve")
+
+    def end_to_end():
+        st2 = server_init(cfg, t0=1.0, device=dev)
+        off = torch.zeros(SERVE_AGENTS, device=dev)
+        for f, (buf, lens, agents) in enumerate(wire):
+            cols = native.parse_telemetry_buffer(buf, lens, SERVE_FRAME)
+            st2, _ = ingest_frame(st2, _frame_stream(cols, agents, f, dev),
+                                  cfg, off)
+        return st2
+    st_e, sec_e = _wall(end_to_end, dev)
+    st_c, outs_c = serve(torch.device("cpu"))
+
+    def frames_cat(src):
+        return types.SimpleNamespace(**{
+            f: torch.cat([getattr(o, f) for o in src]).cpu()
+            for f in ("rx", "ry", "hits", "hit_valid")})
+    mask, apart = _ray_cells_apart(frames_cat(outs), frames_cat(outs_c), cfg)
+    _grids_agree(f"serve card vs CPU [{card}]", st.grid, st_c.grid, mask,
+                 apart)
+    if not torch.equal(st_e.grid, st.grid):
+        raise AssertionError("serve: the codec loop's grid differs")
+    n_cl = _same_closures("serve card vs CPU", st, st_c)
+    online = outs[-1].online[0]
+    n_pk = SERVE_FRAMES * SERVE_FRAME
+    print(f"serve [{card}]: {SERVE_AGENTS} agents, {SERVE_FRAMES} frames "
+          f"of {SERVE_FRAME} packets: ingest_frame {sec:.6f} s "
+          f"({SERVE_FRAMES / sec:.2f} frames/s, {n_pk / sec:.1f} "
+          f"packets/s); native codec {codec_s:.6f} s "
+          f"({n_pk / codec_s:.1f} packets/s on the host); codec + copy + "
+          f"ingest {sec_e:.6f} s ({n_pk / sec_e:.1f} packets/s); {n_cl} "
+          f"closures; online {int(online.sum())}/{SERVE_AGENTS}; raster "
+          f"kernels {n_kernels}")
+    if not bool(online.all()) or int(st.pkt_counts.min()) != \
+            n_pk // SERVE_AGENTS or n_cl == 0:
+        raise AssertionError("serve: agents offline, packets lost or no "
+                             "closure")
+    return SERVE_FRAMES, n_pk, sec
+
+
+def _loop_graphs(n, m, dev, seed):
+    """n noisy square loops of m nodes, each with one closure from its
+    last node to its first (tests/test_slam_upgrades.py's
+    noisy_loop_trajectory, as tests/test_sharded_solve.py batches them):
+    one batch of PoseGraph on `dev`."""
+    from swarm_tpu_torch.slam.posegraph import PoseGraph, graph_from_trajectory
+
+    rng = np.random.default_rng(seed)
+    side = m // 4
+    th = np.repeat(np.arange(4) * (np.pi / 2), side)
+    th = np.remainder(th + np.pi, 2 * np.pi) - np.pi
+    step = 0.2 * np.stack([np.cos(th), np.sin(th)], -1)
+    true_xy = np.concatenate([np.zeros((1, 2)), np.cumsum(step, 0)[:-1]])
+    graphs = []
+    for _ in range(n):
+        dth = np.diff(th) + rng.normal(0, 0.03, m - 1)
+        th_n = np.concatenate([th[:1], th[0] + np.cumsum(dth)])
+        th_n = np.remainder(th_n + np.pi, 2 * np.pi) - np.pi
+        dist = np.hypot(*np.diff(true_xy, axis=0).T)
+        xy = np.concatenate([true_xy[:1], true_xy[0] + np.cumsum(
+            dist[:, None] * np.stack([np.cos(th_n[1:]), np.sin(th_n[1:])],
+                                     -1) + rng.normal(0, 0.006, (m - 1, 2)),
+            0)])
+        poses = torch.from_numpy(np.concatenate([xy, th_n[:, None]], -1)
+                                 .astype(np.float32))
+        graphs.append(graph_from_trajectory(
+            poses, m, torch.tensor([m - 1]), torch.tensor([0]),
+            torch.zeros((1, 3)), 1, closure_weight=(50.0,) * 3))
+    return PoseGraph(*(torch.stack(f).to(dev) for f in zip(*graphs)))
+
+
+def _chain_graph(m, dev, seed):
+    """tests/test_tridiag.py's noisy circular loop of m nodes with 6 of 8
+    closures (`_noisy_loop_graph(rng, 4096, closure_cap=8,
+    n_closures=6)`), on `dev`."""
+    from swarm_tpu_torch.slam.posegraph import graph_from_trajectory
+
+    rng = np.random.default_rng(seed)
+    s = np.linspace(0, 4 * np.pi, m)
+    truth = np.stack([np.cos(s), np.sin(s), s + np.pi / 2], -1)
+    noisy = (truth + 0.05 * rng.normal(size=truth.shape)).astype(np.float32)
+    noisy[0] = truth[0]
+    ci = np.zeros(8, np.int32)
+    cj = np.zeros(8, np.int32)
+    ci[:6] = rng.integers(m // 2, m - 1, 6)
+    cj[:6] = rng.integers(1, m // 4, 6)
+    return graph_from_trajectory(
+        torch.from_numpy(noisy).to(dev), m, torch.from_numpy(ci).to(dev),
+        torch.from_numpy(cj).to(dev), torch.zeros((8, 3), device=dev), 6)
+
+
+def _graph_pose_diff(a, b):
+    """Largest |a - b| over batched poses: (positions, yaws as angles)."""
+    d = a.detach().cpu().double() - b.detach().cpu().double()
+    yaw = torch.remainder(d[..., 2] + math.pi, 2 * math.pi) - math.pi
+    return float(d[..., :2].abs().max()), float(yaw.abs().max())
+
+
+def phase_solve(card, dev):
+    """The pose-graph solvers (phase 25 of the module docstring). Returns
+    {solver: seconds}."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from swarm_tpu_torch.parallel import mesh
+    from swarm_tpu_torch.parallel.solve import (make_sharded_solver,
+                                                make_trajectory_sharded_gn,
+                                                shard_graphs)
+    from swarm_tpu_torch.slam.posegraph import (PoseGraph, gauss_newton,
+                                                optimize_graphs_batch)
+    from swarm_tpu_torch.slam.tridiag import structured_gn, structured_gn_batch
+
+    mesh.init(f"tcp://127.0.0.1:{mesh.free_port()}", 1, 0,
+              timedelta(seconds=SHARDED_TIMEOUT_S), device=dev)
+    if dev.type == "cuda" and dist.get_backend() != "nccl":
+        raise AssertionError("the card's process group is not NCCL")
+    times = {}
+    try:
+        lay = mesh.make_layout(device=dev)
+        graphs = _loop_graphs(SOLVE_GRAPHS, SOLVE_NODES, torch.device("cpu"),
+                              SEED + 80)
+        mine = shard_graphs(graphs, lay)
+        head = PoseGraph(*(f[:SOLVE_LOOP] for f in mine))
+        _reset_counts()                      # this path starts here
+        for name, kw, one, batch_cpu in (
+                ("dense", {}, gauss_newton, optimize_graphs_batch),
+                ("structured", {"structured": True,
+                                "n_chain": SOLVE_NODES - 1},
+                 lambda g, iterations: structured_gn(
+                     g, SOLVE_NODES - 1, iterations),
+                 lambda g, iterations: structured_gn_batch(
+                     g, SOLVE_NODES - 1, iterations))):
+            solver = make_sharded_solver(lay, iterations=SOLVE_ITERS, **kw)
+            solver(head)                     # warm-up
+            (out, costs, total), sec = _wall(lambda: solver(mine), dev)
+            (out16, _, _), sec16 = _wall(lambda: solver(head), dev)
+            loop, sec_loop = _wall(lambda: [one(PoseGraph(
+                *(f[i] for f in head)), iterations=SOLVE_ITERS)[0].poses
+                for i in range(SOLVE_LOOP)], dev)
+            loop_d = _graph_pose_diff(out.poses[:SOLVE_LOOP],
+                                      torch.stack(loop))
+            b16_d = _graph_pose_diff(out16.poses, out.poses[:SOLVE_LOOP])
+            ref, cost_c = batch_cpu(graphs, iterations=SOLVE_ITERS)
+            cpu_d = _graph_pose_diff(out.poses, ref.poses)
+            fin = costs[:, -1].cpu()
+            ok = bool(torch.isfinite(out.poses).all()) and \
+                bool((fin < costs[:, 0].cpu()).all())
+            print(f"solve {name} [{card}]: {SOLVE_GRAPHS} graphs of "
+                  f"{SOLVE_NODES} nodes, {SOLVE_ITERS} iterations on one "
+                  f"{dist.get_backend()} rank: batched {sec:.6f} s; the "
+                  f"first {SOLVE_LOOP} batched {sec16:.6f} s against one "
+                  f"after another {sec_loop:.6f} s; batch vs loop "
+                  f"{loop_d[0]:.3g} m / {loop_d[1]:.3g} rad, card vs CPU "
+                  f"{cpu_d[0]:.3g} m / {cpu_d[1]:.3g} rad, summed final "
+                  f"cost {float(total):.6g} (CPU "
+                  f"{float(cost_c[:, -1].sum()):.6g})")
+            if not ok or max(loop_d) > SOLVE_LOOP_ATOL or \
+                    max(b16_d) > SOLVE_LOOP_ATOL or \
+                    max(cpu_d) > SOLVE_CPU_ATOL or \
+                    abs(float(total) - float(fin.sum())) > \
+                    1e-5 * abs(float(fin.sum())):
+                raise AssertionError(f"solve {name}")
+            times[name] = (sec, sec16, sec_loop)
+
+        chain = _chain_graph(CHAIN_NODES, dev, SEED + 81)
+        traj = make_trajectory_sharded_gn(lay, n_chain=CHAIN_NODES - 1,
+                                          iterations=CHAIN_ITERS)
+        traj(chain)                          # warm-up
+        (g_t, c_t), sec_t = _wall(lambda: traj(chain), dev)
+        (g_s, c_s), sec_s = _wall(lambda: structured_gn(
+            chain, CHAIN_NODES - 1, CHAIN_ITERS), dev)
+        d = _graph_pose_diff(g_t.poses, g_s.poses)
+        print(f"trajectory solve [{card}]: {CHAIN_NODES}-node chain, "
+              f"{CHAIN_ITERS} iterations on one rank {sec_t:.6f} s, "
+              f"structured_gn {sec_s:.6f} s; poses apart {d[0]:.3g} m / "
+              f"{d[1]:.3g} rad; cost {float(c_t[0]):.6g} -> "
+              f"{float(c_t[-1]):.6g}")
+        if max(d) > SOLVE_CPU_ATOL or \
+                not float(c_t[-1]) < 0.2 * float(c_t[0]) or \
+                not bool(torch.isfinite(g_t.poses).all()):
+            raise AssertionError("trajectory solve")
+        times["trajectory"] = (sec_t, sec_s)
+        print(f"solve raster kernels {_no_kernel('solve')}")
+    finally:
+        dist.destroy_process_group()
+    return times
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -3330,6 +3962,12 @@ def run(card, dev) -> list:
     # offline SLAM: the accuracy tool's path (both fans through the window
     # kernel's pack16 forms)
     n_accuracy, k_accuracy = phase_accuracy(card, dev)
+
+    # the mapping server, the packet formats and the solvers (no raster
+    # kernel on these paths)
+    phase_replay(card, dev)
+    phase_serve(card, dev)
+    phase_solve(card, dev)
 
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),

@@ -26,6 +26,7 @@ import torch
 
 from swarm_tpu_torch import config as pcfg
 from swarm_tpu_torch.coord.zones import ZoneState
+from swarm_tpu_torch.engine.replay import PacketStream, ServerState
 from swarm_tpu_torch.engine.sim import AgentParams, MapState, SimState
 from swarm_tpu_torch.models.ekf import EkfState
 from swarm_tpu_torch.models.nav import NavState
@@ -40,10 +41,12 @@ _NESTED = {
                "srv": MapState},
     MapState: {"closure": ClosureState, "zone": ZoneState,
                "frame": FrameState},
+    ServerState: {"closure": ClosureState, "zone": ZoneState},
 }
 
 CONVERTIBLE = (AgentParams, SimState, MapState, ClosureState, ZoneState,
-               FrameState, OdomState, EkfState, NavState, PoseGraph)
+               FrameState, OdomState, EkfState, NavState, PoseGraph,
+               ServerState, PacketStream)
 
 
 def to_torch(src, cls, device=None):

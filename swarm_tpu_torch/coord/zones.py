@@ -1,12 +1,15 @@
 """Territory zones: per-agent running AABBs of mapped area
-(swarm_tpu/coord/zones.py `zone_init`, `zone_observe_rows`,
-`zones_for_agents`)."""
+(swarm_tpu/coord/zones.py `zone_init`, `zone_observe`,
+`zone_observe_batch`, `zone_observe_rows`, `zones_for_agents`)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+# the reference's lifted (inactive) zone box (dual_bot_mapper.py:681)
+LIFT = (999.0, 999.0, -999.0, -999.0)
 
 
 class ZoneState(NamedTuple):
@@ -24,6 +27,51 @@ def zone_init(n_agents: int, device=None) -> ZoneState:
     return ZoneState(min_x=big, min_y=big.clone(), max_x=-big, max_y=-big,
                      has_any=torch.zeros((n_agents,), dtype=torch.bool,
                                          device=device))
+
+
+def zone_observe(z: ZoneState, agent, xs, ys, valid) -> ZoneState:
+    """Fold one agent's points (xs, ys, valid [...]) into its running
+    AABB; `agent` is an int or a 0-d tensor."""
+    inf = torch.full_like(xs, float("inf"))
+    a = torch.as_tensor(agent, device=xs.device).long().reshape(1)
+
+    def fold(buf, v, op):
+        return buf.index_copy(0, a, op(buf[a], v.reshape(1)))
+    return ZoneState(
+        min_x=fold(z.min_x, torch.where(valid, xs, inf).amin(),
+                   torch.minimum),
+        min_y=fold(z.min_y, torch.where(valid, ys, inf).amin(),
+                   torch.minimum),
+        max_x=fold(z.max_x, torch.where(valid, xs, -inf).amax(),
+                   torch.maximum),
+        max_y=fold(z.max_y, torch.where(valid, ys, -inf).amax(),
+                   torch.maximum),
+        has_any=fold(z.has_any, valid.any(), torch.logical_or))
+
+
+def zone_observe_batch(z: ZoneState, agents, xs, ys, valid) -> ZoneState:
+    """Segment-reduce many agents' points at once; agents [...] int, rows
+    that are not valid add nothing."""
+    n = z.min_x.shape[0]
+    a = torch.where(valid, agents, torch.zeros_like(agents)).reshape(-1) \
+        .long()
+    inf = torch.full_like(xs, float("inf")).reshape(-1)
+    xs, ys, valid = xs.reshape(-1), ys.reshape(-1), valid.reshape(-1)
+
+    def seg(vals, fill, how):
+        return torch.full((n,), fill, dtype=vals.dtype,
+                          device=vals.device).scatter_reduce(
+            0, a, vals, how)
+    return ZoneState(
+        min_x=torch.minimum(z.min_x, seg(torch.where(valid, xs, inf),
+                                         float("inf"), "amin")),
+        min_y=torch.minimum(z.min_y, seg(torch.where(valid, ys, inf),
+                                         float("inf"), "amin")),
+        max_x=torch.maximum(z.max_x, seg(torch.where(valid, xs, -inf),
+                                         float("-inf"), "amax")),
+        max_y=torch.maximum(z.max_y, seg(torch.where(valid, ys, -inf),
+                                         float("-inf"), "amax")),
+        has_any=z.has_any | (seg(valid.to(torch.uint8), 0, "amax") > 0))
 
 
 def zone_observe_rows(z: ZoneState, xs, ys, valid) -> ZoneState:
@@ -56,7 +104,6 @@ def zones_for_agents(z: ZoneState, agent_xy, online):
     active = eligible.any(dim=1)
     boxes = torch.stack([z.min_x[other], z.min_y[other],
                          z.max_x[other], z.max_y[other]], dim=-1)
-    lift = torch.tensor([999.0, 999.0, -999.0, -999.0], dtype=boxes.dtype,
-                        device=boxes.device)
+    lift = torch.tensor(LIFT, dtype=boxes.dtype, device=boxes.device)
     boxes = torch.where(active[:, None], boxes, lift[None, :])
     return boxes, active

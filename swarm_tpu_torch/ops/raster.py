@@ -181,6 +181,13 @@ def parity_raster(grid, rays: RayBatch, cfg: GridConfig = GridConfig(),
     reference's flat index may alias a cell inside it) go to a spare cell
     past the grid. Returns (grid, writes)."""
     flat, free, occ = _traced_cells(rays, cfg, k_max)
+    return parity_apply(grid, flat, free, occ, cfg), free.sum() + occ.sum()
+
+
+def parity_apply(grid, flat, free, occ, cfg: GridConfig):
+    """`parity_raster`'s update from traced cells (`_traced_cells`: flat
+    [R, K] cell indices, free and occ [R, K] masks), ray r's writes
+    ordered after every earlier ray's. Returns the new grid."""
     ncells = cfg.size * cfg.size
     seq = torch.arange(flat.shape[0], dtype=torch.int32,
                        device=flat.device)[:, None].expand(flat.shape)
@@ -200,7 +207,7 @@ def parity_raster(grid, rays: RayBatch, cfg: GridConfig = GridConfig(),
                        torch.tensor(cfg.free, dtype=torch.int8,
                                     device=flat.device))
     new = torch.where(touched, code, grid.reshape(-1))
-    return new.reshape(grid.shape), free.sum() + occ.sum()
+    return new.reshape(grid.shape)
 
 
 def logodds_raster(logodds, rays: RayBatch, cfg: GridConfig = GridConfig(),

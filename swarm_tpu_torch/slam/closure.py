@@ -13,7 +13,9 @@ change what a later packet sees (each packet's closure guard is its own
 agent's, and agents are distinct), and the appends do not depend on the
 matches, so the ring before packet j is known in closed form: each slot
 holds the last of the earlier appends that landed on it, or its old
-landmark.
+landmark. Its two halves, `seq_match` (the tests) and `seq_apply` (the
+state after them), also serve the replay (engine/replay.py), whose
+windows repeat agents.
 
 With `SlamConfig.closure_scanmatch` the batch form remembers each stored
 landmark's yaw and sweep, measures every fired closure by scan matching
@@ -347,21 +349,25 @@ def _ring_appends(count0, keep, cap: int):
     return put
 
 
-def closure_add_poses_seq(state: ClosureState, xs, ys, agents, lm_types,
-                          cfg: SlamConfig = SlamConfig(), valid=None):
-    """The reference's sequential closure, `closure_add_pose` applied to
-    the packets [M] one after another (the parity step's `lax.scan`,
-    swarm_tpu/engine/sim.py:652-659), for packets of distinct agents.
-    Returns (new_state, closed [M] bool, cdx [M], cdy [M]); every field
-    equals the scan's.
+class SeqMatch(NamedTuple):
+    """What `seq_match` finds for packets [M]: node index, landmark flag,
+    closure, the matched landmark's node and the correction."""
+    idxs: torch.Tensor      # [M] int32
+    has_lm: torch.Tensor    # [M] bool
+    closed: torch.Tensor    # [M] bool
+    mnode: torch.Tensor     # [M] int32
+    cdx: torch.Tensor       # [M]
+    cdy: torch.Tensor       # [M]
 
-    Packet j sees the ring as the earlier packets left it: a slot last
-    written by an earlier packet of the batch holds that packet's
-    landmark, and slot s counts as occupied when s < min(lm_count_j, L).
-    Rows are matched SEQ_CHUNK row-slot pairs at a time. With
-    `cfg.closure_scanmatch` the edges stay unmeasured and no sweep is
-    stored: the reference's parity step passes `closure_add_pose` no scan
-    (swarm_tpu/engine/sim.py:652-657)."""
+
+def seq_match(state: ClosureState, xs, ys, agents, lm_types,
+              cfg: SlamConfig = SlamConfig(), valid=None) -> SeqMatch:
+    """The closure test of the reference's sequential `closure_add_pose`
+    for packets [M], each against the ring as the packets before it left
+    it, and each agent's guard and drift as `state` holds them. A closure
+    changes only its agent's guard and drift, so the result is exact for
+    every packet before the first one whose agent closed earlier in the
+    batch; for packets of distinct agents, for all of them."""
     M = xs.shape[0]
     dev = xs.device
     if valid is None:
@@ -375,8 +381,8 @@ def closure_add_poses_seq(state: ClosureState, xs, ys, agents, lm_types,
     before = incl - hi                      # appends before each packet
     L = state.lm_x.shape[0]
     slots = torch.arange(L, device=dev)
-    ag = agents.long()
-    agent_ok = (idxs - state.last_closure_node[ag]) >= cfg.min_poses_between
+    agent_ok = (idxs - state.last_closure_node[agents.long()]) >= \
+        cfg.min_poses_between
     # the landmark each packet would append (read where it is the writer)
     new = dict(x=xs, y=ys, t=lm_types.to(i32), n=idxs,
                a=agents.to(i32))
@@ -414,34 +420,66 @@ def closure_add_poses_seq(state: ClosureState, xs, ys, agents, lm_types,
     zero = torch.zeros_like(xs)
     cdx = torch.where(closed, (mx - xs) * cfg.closure_correction, zero)
     cdy = torch.where(closed, (my - ys) * cfg.closure_correction, zero)
+    return SeqMatch(idxs=idxs, has_lm=has_lm, closed=closed, mnode=mnode,
+                    cdx=cdx, cdy=cdy)
 
-    # per-agent guards and drift (each packet its own agent's)
-    last_cl = state.last_closure_node.index_copy(
-        0, ag, torch.where(closed, idxs, state.last_closure_node[ag]))
-    drift_dx = state.drift_dx.index_copy(
-        0, ag, state.drift_dx[ag] + torch.where(closed, cdx, zero))
-    drift_dy = state.drift_dy.index_copy(
-        0, ag, state.drift_dy[ag] + torch.where(closed, cdy, zero))
 
-    # closure log and landmark ring: appends in packet order (scalar path:
-    # unmeasured edges, no remembered yaw or sweep)
+def seq_apply(state: ClosureState, m: SeqMatch, xs, ys, agents, lm_types,
+              valid) -> ClosureState:
+    """The state after packets [M] whose tests `seq_match` made: guards
+    and drift of the closing packets' agents, the closure log and the
+    landmark ring appended in packet order (scalar path: unmeasured
+    edges, no remembered yaw or sweep). Agents may repeat where no packet
+    follows a closure of its own agent."""
+    i32 = torch.int32
+    ag = agents.long()
+    closed = m.closed
+    zero = torch.zeros_like(xs)
+    last_cl = state.last_closure_node.scatter_reduce(
+        0, ag, torch.where(closed, m.idxs,
+                           torch.full_like(m.idxs, NEG_NODE)), "amax")
+    drift_dx = state.drift_dx.index_add(0, ag, torch.where(closed, m.cdx,
+                                                           zero))
+    drift_dy = state.drift_dy.index_add(0, ag, torch.where(closed, m.cdy,
+                                                           zero))
+    L = state.lm_x.shape[0]
     log = _ring_appends(state.cl_count, closed, state.cl_node.shape[0])
-    ring_put = _ring_appends(state.lm_count, has_lm, L)
-
-    new_state = ClosureState(
+    ring_put = _ring_appends(state.lm_count, m.has_lm, L)
+    return ClosureState(
         lm_x=ring_put(state.lm_x, xs), lm_y=ring_put(state.lm_y, ys),
         lm_type=ring_put(state.lm_type, lm_types),
-        lm_node=ring_put(state.lm_node, idxs),
+        lm_node=ring_put(state.lm_node, m.idxs),
         lm_agent=ring_put(state.lm_agent, agents),
-        lm_count=state.lm_count + hi.sum().to(i32),
-        n_nodes=state.n_nodes + vi.sum().to(i32),
+        lm_count=state.lm_count + m.has_lm.sum().to(i32),
+        n_nodes=state.n_nodes + valid.sum().to(i32),
         last_closure_node=last_cl, drift_dx=drift_dx, drift_dy=drift_dy,
-        cl_lm_node=log(state.cl_lm_node, mnode),
-        cl_node=log(state.cl_node, idxs), cl_dx=log(state.cl_dx, cdx),
-        cl_dy=log(state.cl_dy, cdy), cl_agent=log(state.cl_agent, agents),
+        cl_lm_node=log(state.cl_lm_node, m.mnode),
+        cl_node=log(state.cl_node, m.idxs), cl_dx=log(state.cl_dx, m.cdx),
+        cl_dy=log(state.cl_dy, m.cdy), cl_agent=log(state.cl_agent, agents),
         cl_count=state.cl_count + closed.sum().to(i32),
         lm_yaw=ring_put(state.lm_yaw, zero), lm_scan=state.lm_scan,
         cl_mx=log(state.cl_mx, zero), cl_my=log(state.cl_my, zero),
         cl_mth=log(state.cl_mth, zero), cl_fit=log(state.cl_fit, zero - 1.0),
         last_pair_node=state.last_pair_node)
-    return new_state, closed, cdx, cdy
+
+
+def closure_add_poses_seq(state: ClosureState, xs, ys, agents, lm_types,
+                          cfg: SlamConfig = SlamConfig(), valid=None):
+    """The reference's sequential closure, `closure_add_pose` applied to
+    the packets [M] one after another (the parity step's `lax.scan`,
+    swarm_tpu/engine/sim.py:652-659), for packets of distinct agents.
+    Returns (new_state, closed [M] bool, cdx [M], cdy [M]); every field
+    equals the scan's.
+
+    Packet j sees the ring as the earlier packets left it: a slot last
+    written by an earlier packet of the batch holds that packet's
+    landmark, and slot s counts as occupied when s < min(lm_count_j, L).
+    Rows are matched SEQ_CHUNK row-slot pairs at a time. With
+    `cfg.closure_scanmatch` the edges stay unmeasured and no sweep is
+    stored: the reference's parity step passes `closure_add_pose` no scan
+    (swarm_tpu/engine/sim.py:652-657)."""
+    if valid is None:
+        valid = torch.ones(xs.shape, dtype=torch.bool, device=xs.device)
+    m = seq_match(state, xs, ys, agents, lm_types, cfg, valid)
+    new_state = seq_apply(state, m, xs, ys, agents, lm_types, valid)
+    return new_state, m.closed, m.cdx, m.cdy

@@ -12,8 +12,9 @@ Host code is numpy, float64 where the session is; the solves are float32
 on the device, as in JAX with x64 off. Agents are solved one after
 another, as in the reference.
 
-`reraster_session` replays a packet stream through the reference's
-`engine/replay`, which is not ported (ROADMAP A6).
+`reraster_session` re-projects every packet from the optimised poses
+through `engine/replay.replay_session` (landmarks cleared, so nothing
+closes twice) into a fresh tri-state grid.
 """
 
 from __future__ import annotations
@@ -193,10 +194,35 @@ def refine_session(session: Dict, closures: Optional[Tuple] = None,
     return out
 
 
-def reraster_session(session, refined, cfg: SwarmConfig = SwarmConfig()):
-    """The reference re-projects every packet from the optimised poses by
-    replaying the packet stream (swarm_tpu/slam/refine.py:230-256 through
-    engine/replay), which the port does not have yet."""
-    raise NotImplementedError(
-        "reraster_session replays the packet stream through engine/replay, "
-        "which is not ported yet (ROADMAP Queue A6, serving and replay)")
+def reraster_session(session, refined, cfg: SwarmConfig = SwarmConfig(),
+                     device=None):
+    """Re-project every packet's rays from the OPTIMISED poses and build a
+    fresh parity grid on `device` (the card when None) — the refined map.
+    Returns (grid [S, S] int8 numpy, the replayed PacketStream)."""
+    from swarm_tpu_torch.engine.replay import PacketStream, replay_session
+
+    dev = default_device(device)
+    n = len(session["t"])
+    x = np.array(session["x"], np.float32)
+    y = np.array(session["y"], np.float32)
+    yaw = np.radians(session["yaw_deg"]).astype(np.float32)
+    for r in refined.values():
+        x[r["idx"]] = r["poses"][:, 0]
+        y[r["idx"]] = r["poses"][:, 1]
+        yaw[r["idx"]] = r["poses"][:, 2]
+
+    def col(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+    stream = PacketStream(
+        t=col(session["t"], np.float32),
+        agent=col(session["agent"] - 1, np.int32), x=col(x), y=col(y),
+        yaw=col(yaw), encoder=col(session["encoder"], np.int32),
+        v2v=col(session["v2v"], np.int32),
+        dist=col(session["dist_cm"] / 100.0, np.float32),
+        landmark=torch.zeros((n,), dtype=torch.int32, device=dev),
+        valid=torch.ones((n,), dtype=torch.bool, device=dev))
+    state, _ = replay_session(
+        stream, cfg, offsets=torch.zeros((cfg.n_agents,),
+                                         dtype=torch.float32, device=dev))
+    return state.grid.cpu().numpy(), stream

@@ -10,7 +10,9 @@ couple consecutive poses) plus a low-rank update from the closure edges:
     one chain solve with 3C + 1 right-hand sides and one dense (3C, 3C)
     solve (`solve_chain_plus_closures`).
 `structured_gn` rejects a step whose cost is not finite or rises past 2.5x
-and escalates the damping 10x, as the reference does.
+and escalates the damping 10x, as the reference does. The solver runs on a
+batch of graphs (a leading [B] axis, the reference's `jax.vmap`), each with
+its own damping and step guard; a single graph is a batch of one.
 
 A singular block or capacitance matrix gives NaN, as JAX's `inv` and
 `solve` give non-finite values there: `inv_ex` and `solve_ex` report the
@@ -23,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from swarm_tpu_torch.slam.posegraph import (PoseGraph, _blk, _gradient,
-                                            _residuals_and_jac, unary_terms)
+                                            _residuals_and_jac, batched,
+                                            unary_terms, unbatched)
 from swarm_tpu_torch.utils.angles import wrap_pi
 
 
@@ -44,41 +47,48 @@ def _solve(a, b):
 
 
 def _pad_pow2(x, m_pad: int, fill):
-    pad = m_pad - x.shape[0]
+    """x [..., m, a, b] padded along the block axis to m_pad with `fill`."""
+    pad = m_pad - x.shape[-3]
     if pad == 0:
         return x
-    return torch.cat([x, fill.expand((pad,) + x.shape[1:])])
+    return torch.cat([x, fill.expand(x.shape[:-3] + (pad,) + x.shape[-2:])],
+                     dim=-3)
+
+
+def _shift(x):
+    """x [..., s, a, b] moved one block down, a zero block first: entry t
+    holds block t - 1."""
+    return torch.cat([torch.zeros_like(x[..., :1, :, :]), x[..., :-1, :, :]],
+                     dim=-3)
 
 
 def block_tridiag_solve(D, O, F):
     """Solve the symmetric block-tridiagonal system T X = F by cyclic
-    reduction. D [M, 3, 3] diagonal blocks, O [M-1, 3, 3] super-diagonal
-    blocks (sub-diagonal = O^T), F [M, 3, K]. Returns X [M, 3, K]. M is
+    reduction. D [..., M, 3, 3] diagonal blocks, O [..., M-1, 3, 3]
+    super-diagonal blocks (sub-diagonal = O^T), F [..., M, 3, K]. Returns X
+    [..., M, 3, K]; leading batch axes are independent systems. M is
     padded to a power of two with identity blocks (decoupled x = 0)."""
-    m = D.shape[0]
-    k = F.shape[-1]
+    m = D.shape[-3]
     dtype, dev = D.dtype, D.device
     m_pad = 1 << max(1, (m - 1).bit_length())
-    z33 = torch.zeros((1, 3, 3), dtype=dtype, device=dev)
+    z33 = torch.zeros((3, 3), dtype=dtype, device=dev)
+    zb = torch.zeros_like(O[..., :1, :, :])
     D = _pad_pow2(D, m_pad, torch.eye(3, dtype=dtype, device=dev))
-    L = _pad_pow2(torch.cat([z33, O.transpose(-1, -2)]), m_pad, z33[0])
-    U = _pad_pow2(torch.cat([O, z33]), m_pad, z33[0])
-    F = _pad_pow2(F, m_pad, torch.zeros((3, k), dtype=dtype, device=dev))
+    L = _pad_pow2(torch.cat([zb, O.transpose(-1, -2)], dim=-3), m_pad, z33)
+    U = _pad_pow2(torch.cat([O, zb], dim=-3), m_pad, z33)
+    F = _pad_pow2(F, m_pad, F.new_zeros(F.shape[-2:]))
 
     levels = []
-    while D.shape[0] > 1:
-        De, Do = D[0::2], D[1::2]
-        Le, Lo = L[0::2], L[1::2]
-        Ue, Uo = U[0::2], U[1::2]
-        Fe, Fo = F[0::2], F[1::2]
+    while D.shape[-3] > 1:
+        De, Do = D[..., 0::2, :, :], D[..., 1::2, :, :]
+        Le, Lo = L[..., 0::2, :, :], L[..., 1::2, :, :]
+        Ue, Uo = U[..., 0::2, :, :], U[..., 1::2, :, :]
+        Fe, Fo = F[..., 0::2, :, :], F[..., 1::2, :, :]
         levels.append((Do, Lo, Uo, Fo))
         Do_inv = _inv(Do)
         # neighbours of even index 2t: odd 2t-1 = odds[t-1], odd 2t+1 =
         # odds[t]
-        Dm_inv = torch.cat([torch.zeros_like(Do_inv[:1]), Do_inv[:-1]])
-        Lm = torch.cat([torch.zeros_like(Lo[:1]), Lo[:-1]])
-        Um = torch.cat([torch.zeros_like(Uo[:1]), Uo[:-1]])
-        Fm = torch.cat([torch.zeros_like(Fo[:1]), Fo[:-1]])
+        Dm_inv, Lm, Um, Fm = (_shift(v) for v in (Do_inv, Lo, Uo, Fo))
         a = Le @ Dm_inv
         c = Ue @ Do_inv
         D = De - a @ Um - c @ Lo
@@ -86,30 +96,31 @@ def block_tridiag_solve(D, O, F):
         U = -(c @ Uo)
         F = Fe - a @ Fm - c @ Fo
 
-    x = _solve(D[0], F[0])[None]
+    x = _solve(D, F)
     for Do, Lo, Uo, Fo in reversed(levels):
-        x_next = torch.cat([x[1:], torch.zeros_like(x[:1])])
+        x_next = torch.cat([x[..., 1:, :, :], torch.zeros_like(
+            x[..., :1, :, :])], dim=-3)
         rhs = Fo - Lo @ x - Uo @ x_next
         x_odd = _solve(Do, rhs)
-        s = x.shape[0]
-        x = torch.stack([x, x_odd], dim=1).reshape(2 * s, 3, x.shape[-1])
-    return x[:m]
+        x = torch.stack([x, x_odd], dim=-3).flatten(-4, -3)
+    return x[..., :m, :, :]
 
 
 def solve_chain_plus_closures(D, O, b, U=None, s_inv=None):
     """Solve (T + U S U^T) dx = -b: T block-tridiagonal (D, O), closures the
-    low-rank term (U [M, 3, 3C] scattered closure Jacobians, s_inv [3C]
-    inverse weights). Returns dx [M, 3]."""
+    low-rank term (U [..., M, 3, 3C] scattered closure Jacobians, s_inv
+    [..., 3C] inverse weights). Returns dx [..., M, 3]."""
     if U is None:
-        return block_tridiag_solve(D, O, -b[:, :, None])[..., 0]
-    rhs = torch.cat([-b[:, :, None], U], dim=-1)
-    Y = block_tridiag_solve(D, O, rhs)                   # [M, 3, 1+3C]
+        return block_tridiag_solve(D, O, -b[..., None])[..., 0]
+    rhs = torch.cat([-b[..., None], U], dim=-1)
+    Y = block_tridiag_solve(D, O, rhs)                   # [..., M, 3, 1+3C]
     y_b, Y_u = Y[..., 0], Y[..., 1:]
-    cap = torch.diag(s_inv) + torch.einsum("mak,mac->kc", U, Y_u)
-    cap = 0.5 * (cap + cap.T)
-    uty_b = torch.einsum("mak,ma->k", U, y_b)
-    corr = _solve(cap, uty_b[:, None])[:, 0]
-    return y_b - torch.einsum("mak,k->ma", Y_u, corr)
+    cap = torch.diag_embed(s_inv) + torch.einsum("...mak,...mac->...kc",
+                                                 U, Y_u)
+    cap = 0.5 * (cap + cap.transpose(-1, -2))
+    uty_b = torch.einsum("...mak,...ma->...k", U, y_b)
+    corr = _solve(cap, uty_b[..., None])[..., 0]
+    return y_b - torch.einsum("...mak,...k->...ma", Y_u, corr)
 
 
 def structured_gn(g: PoseGraph, n_chain: int, iterations: int = 10,
@@ -123,38 +134,83 @@ def structured_gn(g: PoseGraph, n_chain: int, iterations: int = 10,
     with `anchor_weight` (default node 0). unary: optional absolute pose
     factors (`posegraph.unary_terms`), folded into the diagonal blocks.
     Returns (graph with the optimised poses, costs [iterations])."""
-    m = g.poses.shape[0]
+    if unary is not None:
+        unary = tuple(u[None] for u in unary)
+    out, costs = _structured_gn_batch(batched(g), n_chain, iterations,
+                                      damping, anchor_weight, anchor_nodes,
+                                      unary)
+    return unbatched(out), costs[0]
+
+
+def _chain_system(Ji, Jj, wc, m: int):
+    """The chain edges' block-tridiagonal (D [B, M, 3, 3], O [B, M-1, 3,
+    3]) from their Jacobians [B, M-1, 3, 3] and weights [B, M-1, 3]."""
+    D = torch.zeros(Ji.shape[:-3] + (m, 3, 3), dtype=Ji.dtype,
+                    device=Ji.device)
+    D[..., :-1, :, :] += _blk(Ji, Ji, wc)
+    D[..., 1:, :, :] += _blk(Jj, Jj, wc)
+    return D, _blk(Ji, Jj, wc)
+
+
+def _closure_factor(Ji, Jj, ci, cj, live, m: int):
+    """The closures' low-rank factor U [B, M, 3, 3C]: each closure's
+    Jacobian blocks, transposed, at its two nodes; a component that is not
+    live (an invalid closure, a zero weight) is a zero column."""
+    nb, c = ci.shape
+    dev = Ji.device
+    cm = live[..., None, :]
+    zero = torch.zeros((), dtype=Ji.dtype, device=dev)
+    JiT = torch.where(cm, Ji.transpose(-1, -2), zero)
+    JjT = torch.where(cm, Jj.transpose(-1, -2), zero)
+    U = torch.zeros((nb, m, 3, c, 3), dtype=Ji.dtype, device=dev)
+    k3 = torch.arange(3, device=dev)
+    bi = torch.arange(nb, device=dev)[:, None, None, None]
+    ar_c = torch.arange(c, device=dev)[None, :, None, None]
+    idx_a, idx_b = k3[None, None, :, None], k3[None, None, None, :]
+    U.index_put_((bi, ci[..., None, None], idx_a, ar_c, idx_b), JiT,
+                 accumulate=True)
+    U.index_put_((bi, cj[..., None, None], idx_a, ar_c, idx_b), JjT,
+                 accumulate=True)
+    return U.reshape(nb, m, 3, 3 * c)
+
+
+def _structured_gn_batch(g: PoseGraph, n_chain: int, iterations: int,
+                         damping: float, anchor_weight: float = 1e6,
+                         anchor_nodes=None, unary=None):
+    """`structured_gn` over a batch of graphs [B, ...] as one program: each
+    graph keeps its own damping, its own step guard and its own NaN."""
+    nb, m = g.poses.shape[:2]
     assert n_chain == m - 1, "chain edges must be the first m-1 edges"
-    c = g.ei.shape[0] - n_chain
+    c = g.ei.shape[-1] - n_chain
     dtype, dev = g.poses.dtype, g.poses.device
-    wmask_all = torch.where(g.e_valid[:, None], g.weight,
+    wmask_all = torch.where(g.e_valid[..., None], g.weight,
                             torch.zeros_like(g.weight))
     eye = torch.eye(3, dtype=dtype, device=dev)
     anchors = (torch.zeros((1,), dtype=torch.int64, device=dev)
                if anchor_nodes is None
                else torch.as_tensor(anchor_nodes, device=dev).long())
-    ci, cj = g.ei[n_chain:].long(), g.ej[n_chain:].long()
+    pin = torch.zeros((m,), dtype=dtype, device=dev).index_add(
+        0, anchors, torch.full(anchors.shape, anchor_weight, dtype=dtype,
+                               device=dev))
+    ci, cj = g.ei[:, n_chain:].long(), g.ej[:, n_chain:].long()
 
     def cost_at(poses):
         r, _, _ = _residuals_and_jac(g._replace(poses=poses))
-        cost = (wmask_all * r * r).sum()
+        cost = (wmask_all * r * r).sum(dim=(-2, -1))
         if unary is not None:
             cost = cost + unary_terms(poses, unary)[2]
         return cost
 
     if c > 0:
-        cw = wmask_all[n_chain:]                               # [C, 3]
-        cval = g.e_valid[n_chain:]
+        cw = wmask_all[:, n_chain:]                            # [B, C, 3]
         # a valid closure's zero-weight component contributes nothing:
         # zero U column, unit s_inv
-        live = cval[:, None] & (cw > 0)
+        live = g.e_valid[:, n_chain:, None] & (cw > 0)
         s_inv = torch.where(live, 1.0 / torch.clamp_min(cw, 1e-12),
-                            torch.ones_like(cw)).reshape(-1)
-        ar_c = torch.arange(c, device=dev)[:, None, None]
-        k3 = torch.arange(3, device=dev)
+                            torch.ones_like(cw)).reshape(nb, -1)
 
     poses = g.poses
-    lam = torch.tensor(damping, dtype=dtype, device=dev)
+    lam = torch.full((nb,), damping, dtype=dtype, device=dev)
     costs = []
     for _ in range(iterations):
         gg = g._replace(poses=poses)
@@ -166,54 +222,35 @@ def structured_gn(g: PoseGraph, n_chain: int, iterations: int = 10,
             b_add, d_add, u_cost = unary_terms(poses, unary)
             b = b + b_add
 
-        wc = wmask_all[:n_chain]
-        Jic, Jjc = Ji[:n_chain], Jj[:n_chain]
-        D = torch.zeros((m, 3, 3), dtype=dtype, device=dev)
-        D[:-1] += _blk(Jic, Jic, wc)
-        D[1:] += _blk(Jjc, Jjc, wc)
-        O = _blk(Jic, Jjc, wc)
-        diag = (torch.ones((m,), dtype=dtype, device=dev) * lam).index_add(
-            0, anchors, torch.full(anchors.shape, anchor_weight,
-                                   dtype=dtype, device=dev))
-        D = D + diag[:, None, None] * eye
+        D, O = _chain_system(Ji[:, :n_chain], Jj[:, :n_chain],
+                             wmask_all[:, :n_chain], m)
+        diag = torch.ones((nb, m), dtype=dtype, device=dev) * \
+            lam[:, None] + pin
+        D = D + diag[..., None, None] * eye
         if unary is not None:
-            D = D + d_add[:, :, None] * eye
+            D = D + d_add[..., None] * eye
 
         if c > 0:
-            cm = live[:, None, :]
-            JiT = torch.where(cm, Ji[n_chain:].transpose(-1, -2),
-                              torch.zeros((), dtype=dtype, device=dev))
-            JjT = torch.where(cm, Jj[n_chain:].transpose(-1, -2),
-                              torch.zeros((), dtype=dtype, device=dev))
-            U = torch.zeros((m, 3, c, 3), dtype=dtype, device=dev)
-            idx_a = k3[None, :, None]
-            idx_b = k3[None, None, :]
-            U.index_put_((ci[:, None, None], idx_a, ar_c, idx_b), JiT,
-                         accumulate=True)
-            U.index_put_((cj[:, None, None], idx_a, ar_c, idx_b), JjT,
-                         accumulate=True)
-            dx = solve_chain_plus_closures(D, O, b, U.reshape(m, 3, 3 * c),
-                                           s_inv)
+            U = _closure_factor(Ji[:, n_chain:], Jj[:, n_chain:], ci, cj,
+                                live, m)
+            dx = solve_chain_plus_closures(D, O, b, U, s_inv)
         else:
             dx = solve_chain_plus_closures(D, O, b)
 
         new = poses + dx
-        new = torch.cat([new[:, :2], wrap_pi(new[:, 2:])], dim=1)
-        cost_old = (wr * r).sum() + u_cost
+        new = torch.cat([new[..., :2], wrap_pi(new[..., 2:])], dim=-1)
+        cost_old = (wr * r).sum(dim=(-2, -1)) + u_cost
         cost_new = cost_at(new)
         ok = torch.isfinite(cost_new) & (cost_new <= cost_old * 2.5 + 1e-6)
-        poses = torch.where(ok, new, poses)
+        poses = torch.where(ok[:, None, None], new, poses)
         lam = torch.where(ok, torch.full_like(lam, damping), lam * 10.0)
         costs.append(cost_old)
-    return g._replace(poses=poses), torch.stack(costs)
+    return g._replace(poses=poses), torch.stack(costs, dim=-1)
 
 
 def structured_gn_batch(graphs: PoseGraph, n_chain: int,
                         iterations: int = 10, damping: float = 1e-3):
-    """`structured_gn` over a batch of graphs (leading axis on every leaf),
-    one graph after another. Returns (graphs, costs [B, iterations])."""
-    outs = [structured_gn(PoseGraph(*(f[i] for f in graphs)), n_chain,
-                          iterations, damping)
-            for i in range(graphs.poses.shape[0])]
-    return (PoseGraph(*(torch.stack(f) for f in zip(*(o[0] for o in outs)))),
-            torch.stack([o[1] for o in outs]))
+    """`structured_gn` over a batch of graphs (leading axis on every leaf)
+    as one batched program, as the reference's `jax.vmap` is. Returns
+    (graphs, costs [B, iterations])."""
+    return _structured_gn_batch(graphs, n_chain, iterations, damping)

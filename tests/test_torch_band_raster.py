@@ -35,6 +35,7 @@ from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import beam_raster_cuda as pc
 from swarm_tpu_torch.ops import raster as pr
 from tests.torch_parity import assert_exact, decision_equal, t
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 SIZE = 512
 GRID = GridConfig(size=SIZE, origin_x=0.0, origin_y=0.0)

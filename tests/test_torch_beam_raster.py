@@ -14,6 +14,7 @@ Bound: cells differing by more than 1e-6 are at most 0.01% of the painted
 cells; counts agree to rtol 1e-5.
 """
 
+import functools
 import math
 import re
 from pathlib import Path
@@ -30,6 +31,7 @@ from swarm_tpu.ops import beam_raster_pallas as jp
 from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import beam_raster_cuda as pc
 from tests.torch_parity import assert_close, assert_exact, decision_equal, t
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 
@@ -198,6 +200,18 @@ def _specs(n_beams):
     return jb.BeamSpec.scan(n_beams), pb.BeamSpec.scan(n_beams)
 
 
+@functools.lru_cache(maxsize=None)
+def _jit_pallas(n_beams, pack8):
+    """`free_raster_pallas` in interpret mode under jit, as the engine runs
+    it (XLA folds its divisions by constants into multiplications, which
+    the port follows), built once per form: its cases share the compile
+    wherever their shapes agree."""
+    spec_j, _ = _specs(n_beams)
+    return jax.jit(lambda *a: jp.free_raster_pallas(
+        *a[:5], spec_j, GRID, n_groups=n_beams, reach=26, trusted=a[5],
+        interpret=True, pack8=pack8))
+
+
 @pytest.mark.parametrize("case", ["spread", "edges", "overlap"])
 @pytest.mark.parametrize("form", list(FORMS))
 def test_forms_match_pallas(rng, form, case):
@@ -207,7 +221,7 @@ def test_forms_match_pallas(rng, form, case):
     pre-filled near +-clamp. Headings include 0, pi and -2.5 rad, where
     the wrapped fan's bin is negative before its floor-mod."""
     n_beams, pack8, ring = FORMS[form]
-    spec_j, spec_p = _specs(n_beams)
+    _, spec_p = _specs(n_beams)
     if case == "overlap":
         pos = np.array([200.0, 260.0]) + rng.uniform(-4, 4, (6, 2))
         grid = rng.choice([-9.9, 9.7, -9.6, 9.95],
@@ -219,11 +233,7 @@ def test_forms_match_pallas(rng, form, case):
     yaw[:3] = [0.0, np.pi, -2.5]
     act = np.ones(len(pos), bool)
     act[3] = False
-    # under jit, as the engine runs it (XLA folds its divisions by
-    # constants into multiplications, which the port follows)
-    ref, rc = jax.jit(lambda *a: jp.free_raster_pallas(
-        *a[:5], spec_j, GRID, n_groups=n_beams, reach=26, trusted=a[5],
-        interpret=True, pack8=pack8))(
+    ref, rc = _jit_pallas(n_beams, pack8)(
         jnp.asarray(grid), jnp.asarray(xy), jnp.asarray(yaw),
         jnp.asarray(dist), jnp.asarray(act),
         jnp.asarray(trusted) if ring else None)
@@ -244,14 +254,12 @@ def test_wrapped_fan_sectors():
     (the right beam and the lower half of the back beam) are painted only
     within ~0.6 cells of the agent; the port does the same (ROADMAP Queue
     C)."""
-    spec_j, spec_p = _specs(4)
+    _, spec_p = _specs(4)
     xy = np.array([[10.0, 10.0]], np.float32)        # cell centre 200, 200
     for yaw in (0.0, 0.7):
         args = (np.array([yaw], np.float32), np.full((1, 4), 1.0, np.float32),
                 np.ones(1, bool), np.ones((1, 4), bool))
-        ref, _ = jax.jit(lambda *a: jp.free_raster_pallas(
-            *a[:5], spec_j, GRID, n_groups=4, reach=26, trusted=a[5],
-            interpret=True, pack8=True))(
+        ref, _ = _jit_pallas(4, True)(
             jnp.zeros((512, 512)), jnp.asarray(xy),
             *(jnp.asarray(a) for a in args))
         got, _ = pc.free_raster(torch.zeros(512, 512), t(xy),

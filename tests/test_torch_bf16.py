@@ -38,6 +38,7 @@ from swarm_tpu_torch.ops import raster as pr
 from swarm_tpu_torch.slam.livemerge import occupancy_mass
 from tests.torch_parity import (assert_exact, decision_equal, f32,
                                 merge_step_parity, t)
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 BF16 = torch.bfloat16

@@ -36,6 +36,7 @@ from swarm_tpu_torch.config import GridConfig as PGrid
 from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import exact_raster_cuda as pe
 from tests.torch_parity import decision_equal, t
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 PGRID = convert.config_from(GRID, PGrid)

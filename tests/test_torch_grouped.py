@@ -43,6 +43,7 @@ from swarm_tpu_torch.ops import beam_raster_cuda as pc
 from swarm_tpu_torch.ops import room_raster_cuda as pr
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 f32, jax_deployable, jax_step_noise, t)
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 PGRID = convert.config_from(GRID, PGrid)

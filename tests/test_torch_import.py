@@ -10,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from tests.torch_parity import torch_one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
@@ -58,3 +60,28 @@ def test_no_jax_import_and_no_torch_compile_in_sources():
                     "jax", "swarm_tpu", "tools", "__graft_entry__"), \
                     (path, name)
         assert "torch.compile" not in path.read_text(), path
+
+
+def test_native_loader_names_no_path_of_the_jax_package():
+    """The port's ctypes loader builds and loads its own library from its
+    own sources: no string in its code (docstrings aside) names
+    `swarm_tpu/` (the JAX package's `native/liboracle.so` included), and
+    every path it uses lies inside `swarm_tpu_torch/`."""
+    path = ROOT / "swarm_tpu_torch" / "native" / "__init__.py"
+    tree = ast.parse(path.read_text())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and ast.get_docstring(n) is not None}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            assert "swarm_tpu/" not in node.value, node.value
+            assert "swarm_tpu" + "\\" not in node.value, node.value
+    out = subprocess.run(
+        [sys.executable, "-c", "from swarm_tpu_torch import native as n; "
+         "print(n._SO); print(n._SRC); print(n._SRC_CODEC)"],
+        cwd=ROOT, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    port = (ROOT / "swarm_tpu_torch").resolve()
+    for p in out.stdout.split():
+        assert Path(p).resolve().is_relative_to(port), p

@@ -22,6 +22,7 @@ from swarm_tpu.config import (EkfConfig, NavConfig, NoiseConfig,
 from tests.torch_parity import (assert_close, assert_exact,
                                 drift_noise_from_keys, jax_deployable,
                                 sensor_noise_from_keys, t)
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 16
 

@@ -47,6 +47,7 @@ from swarm_tpu_torch.ops import raster as praster
 from swarm_tpu_torch.slam import closure as pcl
 from tests.torch_parity import (assert_close, assert_exact, jax_step_noise,
                                 jax_untiled, step_keys, t)
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 GRID = GridConfig()                       # the reference's 200^2 at (-5, -5)

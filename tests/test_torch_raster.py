@@ -33,6 +33,7 @@ from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import bresenham as pbr
 from swarm_tpu_torch.ops import raster as pr
 from tests.torch_parity import assert_close, assert_exact, t
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GJ = GridConfig(size=128, origin_x=-1.0, origin_y=-2.0)
 GP = convert.config_from(GJ, PGrid)

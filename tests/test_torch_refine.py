@@ -16,6 +16,8 @@ tests/test_torch_closurematch.py). Chains of 48 nodes (the dense solver)
 and one of 300 (above 256 nodes: the structured solver).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -194,8 +196,23 @@ def test_refine_structured_branch():
 
 
 def test_reraster_session_names_a6(loops):
-    with pytest.raises(NotImplementedError, match="A6"):
-        pre.reraster_session(loops[0], {}, CFG_P)
+    """`reraster_session` raised naming A6 until the replay was ported;
+    now it runs and its grid equals JAX's on the refined loops session
+    (the session given the sensor columns a replay reads)."""
+    session = dict(loops[0])
+    p = len(session["t"])
+    rng = np.random.default_rng(9)
+    session.update(dist_cm=rng.uniform(10.0, 160.0, (p, 4)).astype(
+        np.float32), encoder=np.zeros(p, np.int32), v2v=np.zeros(p, np.int32))
+    cfg_j = dataclasses.replace(CFG_J, n_agents=3)
+    cfg_p = convert.config_from(cfg_j)
+    refined = pre.refine_session(session, cfg=cfg_p, device="cpu")
+    ref, _ = jre.reraster_session(session, refined, cfg_j)
+    got, stream = pre.reraster_session(session, refined, cfg_p,
+                                       device="cpu")
+    assert_exact(got, ref, what="reraster grid")
+    assert (got != cfg_p.grid.unknown).sum() > 500
+    assert int(stream.landmark.abs().sum()) == 0
 
 
 def _drifted(n, t, seed=3, false_frac=0.0):

@@ -55,6 +55,7 @@ from swarm_tpu_torch.engine import sim as ps
 from swarm_tpu_torch.parallel import dryrun, mesh, sharded
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 jax_deployable, jax_step_noise, step_keys)
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 R = 181

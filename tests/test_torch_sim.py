@@ -33,6 +33,7 @@ from swarm_tpu_torch.ops.raster import tri_state_view as p_tri_state_view
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 jax_deployable, jax_step_noise,
                                 merge_step_parity, step_keys)
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 R = 181

@@ -49,6 +49,7 @@ from swarm_tpu_torch.ops import beam_raster as pbr
 from swarm_tpu_torch.ops import raster as praster
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 f32, jax_step_noise, jax_untiled, t)
+from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 R = 181
