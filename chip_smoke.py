@@ -233,8 +233,30 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      batch on all 1024 (1e-3, yaws as angles; ROADMAP C31), the summed
      final cost from the all-reduce; make_trajectory_sharded_gn on a
      4096-node chain against structured_gn (1e-3), its cost falling
-     below a fifth. Phases 23-25 launch no raster kernel (the counters
-     set to 0 before each and read after).
+     below a fifth;
+ 26. the live server's real loop on loopback (server/live.py through
+     swarm_tpu_torch.bench_serve: its 4096-packet ring from the native
+     sendmmsg blaster, burst 64, 500 us apart; the recvmmsg drain, the
+     native codec, the throughput ingest on the card, fps uncapped,
+     frames of up to 2048 packets) at 64 and at 255 agents (the wire's
+     most), LIVE_SECONDS each: packets/s, frames, applied/offered; every
+     applied frame's columns and stamp recorded and applied again by a
+     CPU server: closures equal, the grid bit-equal or differing only in
+     cells of rays traced apart (as in phase 23), every agent heard;
+ 27. the parity ingest: the dual session's 698 datagrams over loopback,
+     20 to a frame (the reference's budget), drained with the native
+     codec and applied packet by packet on the card, each frame stamped
+     with its last packet's time; the frames again on the CPU, as in 26;
+ 28. run_session in its three presets into a temporary directory:
+     dual_bot (200 steps) and swarm (64 agents, 100 steps) on the card,
+     dual_bot_scripted on the card and on the CPU (session files equal,
+     metrics equal but for the timing); each map.png (the standard-
+     library PNG writer) read back by the script's own reader;
+ 29. checkpoint / resume through run_session: 100 steps with
+     --checkpoint, 100 with --resume, every leaf bit-equal to phase 28's
+     200 straight steps (the noise generator's state rides in the
+     checkpoint). Phases 23-29 launch no raster kernel (the counters set
+     to 0 before each and read after).
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`), then the card's name and power limit; the last
@@ -3892,6 +3914,287 @@ def phase_solve(card, dev):
     return times
 
 
+LIVE_SECONDS = 4.0           # each bench_serve run on loopback
+LIVE_AGENTS = (64, 255)      # bench_serve's default; the wire's most
+LIVE_FRAME = 20              # the reference's datagrams per frame (:816)
+SESSION_STEPS = 200          # run_session --steps (the verify recipe's)
+SESSION_SWARM_AGENTS = 64
+SESSION_SWARM_STEPS = 100
+CHECKPOINT_STEPS = 100       # run, checkpoint, resume: 2 x 100 = 200
+
+
+def _recording_server():
+    """A LiveServer that keeps every applied frame (stamp, agents,
+    columns) and its outputs, so that the same frames can be applied again
+    elsewhere."""
+    from swarm_tpu_torch.server.live import LiveServer
+
+    class Recording(LiveServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.frames, self.outs = [], []
+
+        def ingest_columns(self, agents0, cols, now=None):
+            now = self.now() if now is None else now
+            self.frames.append((now, np.array(agents0), dict(cols)))
+            super().ingest_columns(agents0, cols, now)
+
+        def _apply(self, batch):
+            st, out = super()._apply(batch)
+            self.outs.append(out)
+            return st, out
+    return Recording
+
+
+def _outs_cat(outs):
+    return types.SimpleNamespace(**{
+        f: torch.cat([getattr(o, f).reshape((-1,) + getattr(o, f).shape[1:])
+                      for o in outs]).cpu()
+        for f in ("rx", "ry", "hits", "hit_valid")})
+
+
+def _replayed_on_cpu(srv):
+    """`srv`'s recorded frames applied again by a CPU server of the same
+    configuration; returns it (closed)."""
+    cpu = _recording_server()(srv.cfg, port=0, device="cpu",
+                              ingest_mode=srv.ingest_mode,
+                              native_codec=srv.native_codec,
+                              separation=float(srv.offsets[1].item())
+                              if srv.n > 1 else 0.0)
+    for now, agents, cols in srv.frames:
+        cpu.ingest_columns(agents, cols, now)
+    cpu.close()
+    return cpu
+
+
+def _hold_server(name, srv, cpu):
+    """The card server against its frames re-applied on the CPU: the same
+    packets, closures equal, the grid bit-equal or differing only in cells
+    of rays traced apart (as in phase 23)."""
+    if cpu.pkt_total != srv.pkt_total:
+        raise AssertionError(f"{name}: {srv.pkt_total} packets vs "
+                             f"{cpu.pkt_total} on the CPU")
+    mask, apart = _ray_cells_apart(_outs_cat(srv.outs), _outs_cat(cpu.outs),
+                                   srv.cfg)
+    _grids_agree(name, srv.state.grid, cpu.state.grid, mask, apart)
+    return _same_closures(name, srv.state, cpu.state)
+
+
+def phase_live(card, dev):
+    """The live server's real loop on loopback (phase 26): bench_serve's
+    ring through UDP, the recvmmsg drain, the native codec and the
+    throughput ingest on the card, at each of LIVE_AGENTS agents for
+    LIVE_SECONDS; every applied frame re-applied on the CPU. Returns
+    {agents: bench_serve's record}."""
+    import contextlib
+    import io
+
+    from swarm_tpu_torch import bench_serve
+
+    out = {}
+    for n in LIVE_AGENTS:
+        _reset_counts()                      # this path starts here
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rec, srv = bench_serve.serve(n, LIVE_SECONDS, device=dev,
+                                         server_cls=_recording_server())
+        n_kernels = _no_kernel(f"live {n}")
+        d = rec["detail"]
+        beats = log.getvalue().count("[HEARTBEAT]")
+        print(f"live server [{card}]: {n} agents, throughput ingest, "
+              f"native codec, {d['duration_s']} s: {rec['value']} "
+              f"packets/s, {len(srv.frames)} frames, {d['packets_applied']}"
+              f" of {d['packets_sent']} packets applied (applied/offered "
+              f"{d['applied_over_offered']}), {beats} heartbeat lines, "
+              f"raster kernels {n_kernels}")
+        print(json.dumps(rec))
+        cpu = _replayed_on_cpu(srv)
+        n_cl = _hold_server(f"live {n} card vs CPU [{card}]", srv, cpu)
+        online = int(srv.state.pkt_counts.gt(0).sum())
+        print(f"live {n}: {n_cl} closures on both sides, {online}/{n} "
+              "agents heard")
+        if len(srv.frames) < 2 or online != n or not d["packets_sent"]:
+            raise AssertionError(f"live {n}: {len(srv.frames)} frames, "
+                                 f"{online} agents heard")
+        out[n] = rec
+    return out
+
+
+def phase_live_parity(card, dev):
+    """The parity ingest (phase 27): the dual session's datagrams over
+    loopback, LIVE_FRAME to a frame, drained with the native codec and
+    applied packet by packet (`ingest_packet`) on the card, each frame
+    stamped with its last packet's time; then the same frames on the
+    CPU."""
+    import socket
+
+    from swarm_tpu_torch.config import SwarmConfig
+    from swarm_tpu_torch.proto.packets import pack_quasar_v2_batch
+    from swarm_tpu_torch.sim.scenario import generate_dual_session
+
+    r = generate_dual_session(REPLAY_SEED, device="cpu")
+    wire = pack_quasar_v2_batch(r.agent, r.x, r.y, r.yaw_q, r.encoder,
+                                r.v2v, r.dist4, r.landmark)
+    size = len(wire) // len(r.t)
+    srv = _recording_server()(SwarmConfig(n_agents=2), port=0, device=dev,
+                              ingest_mode="parity")
+    clock = types.SimpleNamespace(value=0.0)
+    srv.now = lambda: clock.value
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    _reset_counts()                          # this path starts here
+    apply_s = 0.0
+    try:
+        for i in range(0, len(r.t), LIVE_FRAME):
+            k = min(LIVE_FRAME, len(r.t) - i)
+            for j in range(i, i + k):
+                tx.sendto(wire[j * size:(j + 1) * size],
+                          ("127.0.0.1", srv.port))
+            agents, cols, got = [], [], 0
+            deadline = time.time() + 5.0
+            while got < k:
+                a, c = srv.drain_columns()
+                if len(a):
+                    agents.append(a)
+                    cols.append(c)
+                    got += len(a)
+                elif time.time() > deadline:
+                    raise AssertionError(f"parity ingest: {got} of {k} "
+                                         "datagrams arrived")
+            clock.value = float(r.t[i + k - 1])
+            _, sec = _wall(lambda: srv.ingest_columns(
+                np.concatenate(agents),
+                {f: np.concatenate([c[f] for c in cols]) for f in cols[0]}),
+                dev)
+            apply_s += sec
+    finally:
+        tx.close()
+    n_kernels = _no_kernel("live parity")
+    srv.close()
+    cpu = _replayed_on_cpu(srv)
+    n_cl = _hold_server(f"live parity card vs CPU [{card}]", srv, cpu)
+    print(f"live parity ingest [{card}]: {srv.pkt_total} packets in "
+          f"{len(srv.frames)} frames, {apply_s:.6f} s of frame application "
+          f"({srv.pkt_total / apply_s:.1f} packets/s), {n_cl} closures, "
+          f"raster kernels {n_kernels}")
+    if srv.pkt_total != len(r.t) or n_cl == 0:
+        raise AssertionError("live parity: packets lost or no closure")
+
+
+def _read_png(path):
+    """[H, W, 3] uint8 of an 8-bit RGB PNG with filter 0 on every row (what
+    render.raster2d.encode_png writes)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(tag + body) != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            raise AssertionError(f"{path}: chunk {tag} CRC")
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+            if body[8:10] != b"\x08\x02":
+                raise AssertionError(f"{path}: not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_run_session(card, dev):
+    """run_session in its three presets into a temporary directory (phase
+    28): dual_bot and swarm on the card, dual_bot_scripted on the card and
+    on the CPU (the session files equal, the metrics equal but for the
+    timing); each map.png read back with the module's own PNG reader.
+    Returns the dual_bot run's final state."""
+    import tempfile
+
+    from swarm_tpu_torch.cli.run_session import main as run_session
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
+    runs = {}
+    for name, argv in (
+            ("dual_bot", ["--preset", "dual_bot", "--steps",
+                          str(SESSION_STEPS)]),
+            ("swarm", ["--preset", "swarm", "--agents",
+                       str(SESSION_SWARM_AGENTS), "--steps",
+                       str(SESSION_SWARM_STEPS)]),
+            ("dual_bot_scripted", ["--preset", "dual_bot_scripted"]),
+            ("dual_bot_scripted cpu", ["--preset", "dual_bot_scripted",
+                                       "--device", "cpu"])):
+        out = os.path.join(tmp, name.replace(" ", "_"))
+        if "cpu" not in name:
+            argv = argv + ["--device", str(dev)]
+        _reset_counts()                      # this path starts here
+        (final, metrics), sec = _wall(lambda: run_session(
+            argv + ["--out", out]), dev)
+        n_kernels = _no_kernel(f"run_session {name}")
+        img = _read_png(os.path.join(out, "map.png"))
+        runs[name] = (out, final, metrics)
+        print(f"run_session {name} [{card}]: {sec:.3f} s, map.png "
+              f"{img.shape[1]}x{img.shape[0]}, files "
+              f"{sorted(os.listdir(out))}, raster kernels {n_kernels}")
+        if img.shape[0] != img.shape[1] or not img.any():
+            raise AssertionError(f"run_session {name}: map.png {img.shape}")
+    d, s = runs["dual_bot"][2], runs["swarm"][2]
+    if d["packets"] != 2 * SESSION_STEPS or d["online_at_end"] != 2 or \
+            s["packets"] != SESSION_SWARM_AGENTS * SESSION_SWARM_STEPS or \
+            d["total_cell_writes"] <= 0 or s["total_cell_writes"] <= 0:
+        raise AssertionError(f"run_session: metrics {d} {s}")
+    (oc, _, mc), (oh, _, mh) = runs["dual_bot_scripted"], \
+        runs["dual_bot_scripted cpu"]
+    for fn in ("telemetry.csv", "pointcloud.csv", "slam_closures.csv",
+               "pointcloud_merged.csv"):
+        with open(os.path.join(oc, fn), "rb") as a, \
+                open(os.path.join(oh, fn), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"run_session scripted: {fn} card != "
+                                     "CPU")
+    same = {k: (mc[k], mh[k]) for k in mc if k != "replay_elapsed_s"}
+    if any(a != b for a, b in same.values()) or mc["closures"] == 0:
+        raise AssertionError(f"run_session scripted: metrics {same}")
+    print(f"run_session scripted card vs CPU: the session files equal, "
+          f"metrics {mc}")
+    return runs["dual_bot"][1], tmp
+
+
+def phase_checkpoint(card, dev, full, tmp):
+    """Checkpoint / resume on the card (phase 29): run_session dual_bot for
+    CHECKPOINT_STEPS steps with --checkpoint, then --resume for as many
+    more: every leaf of the final state bit-equal to phase 28's
+    uninterrupted SESSION_STEPS-step run (same seed)."""
+    from swarm_tpu_torch.cli.run_session import main as run_session
+    from swarm_tpu_torch.engine.checkpoint import _paths
+
+    ck = os.path.join(tmp, "dual_bot.npz")
+    common = ["--preset", "dual_bot", "--device", str(dev), "--steps",
+              str(CHECKPOINT_STEPS)]
+    _reset_counts()                          # this path starts here
+    run_session(common + ["--out", os.path.join(tmp, "half"),
+                          "--checkpoint", ck])
+    done, _ = run_session(common + ["--out", os.path.join(tmp, "resumed"),
+                                    "--resume", ck])
+    n_kernels = _no_kernel("checkpoint")
+    bad = [k for (k, a), (_, b) in zip(_paths(done), _paths(full))
+           if not torch.equal(a, b)]
+    print(f"checkpoint [{card}]: {CHECKPOINT_STEPS} + {CHECKPOINT_STEPS} "
+          f"steps resumed vs {SESSION_STEPS} straight: "
+          f"{len(_paths(full)) - len(bad)} of {len(_paths(full))} leaves "
+          f"bit-equal, checkpoint {os.path.getsize(ck)} bytes, raster "
+          f"kernels {n_kernels}")
+    if bad or int(done.step) != SESSION_STEPS:
+        raise AssertionError(f"checkpoint: leaves differ {bad}")
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -3968,6 +4271,12 @@ def run(card, dev) -> list:
     phase_replay(card, dev)
     phase_serve(card, dev)
     phase_solve(card, dev)
+
+    # the live server, the session CLI and checkpoints (no raster kernel)
+    phase_live(card, dev)
+    phase_live_parity(card, dev)
+    full, tmp = phase_run_session(card, dev)
+    phase_checkpoint(card, dev, full, tmp)
 
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),

@@ -23,8 +23,13 @@ and tile forms); and offline SLAM: the scan-matched closures on both
 engines, the pose-graph solvers (`slam/posegraph`, `slam/tridiag`),
 session refinement (`slam/refine`, `slam/joint`), drift calibration
 (`slam/calibrate`), the grid merge (`slam/merge`) and the accuracy tool's
-driver (`python -m swarm_tpu_torch.accuracy` on `presets.accuracy`). What
-is not ported yet is listed in ROADMAP.md.
+driver (`python -m swarm_tpu_torch.accuracy` on `presets.accuracy`); and
+the mapping server: the replay engine (`engine/replay`), the packet
+formats and native codec, the live UDP server (`server/live`) with its
+view, the scan bridge, checkpoints (`engine/checkpoint`), the renderer
+(`render/`), the session CLI (`cli/`) and the serving and codec
+benchmarks (`bench_serve`, `bench_codec`). What is not ported yet is
+listed in ROADMAP.md.
 """
 
 from swarm_tpu_torch import _device  # noqa: F401  (sets the TF32 policy)

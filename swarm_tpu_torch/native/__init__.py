@@ -1,6 +1,7 @@
 """ctypes bindings for the port's native C++ library: the scalar CPU
-oracle (EKF, Bresenham, `update_ray`, the closure check) and the batch
-codec of the wire protocol (swarm_tpu/native).
+oracle (EKF, Bresenham, `update_ray`, the closure check), the batch
+codec of the wire protocol, and the recvmmsg / sendmmsg loops of the live
+server and its benchmark (swarm_tpu/native).
 
 The sources are the port's own copies (`src/oracle.cpp`, `src/codec.cpp`).
 `get_lib` builds them with `g++ -O2` at first use into
@@ -82,11 +83,19 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_float, f32p, f32p]
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
         lib.codec_is_little_endian.restype = ctypes.c_int
         lib.parse_telemetry_batch.restype = ctypes.c_int
         lib.parse_telemetry_batch.argtypes = [
             u8p, i32p, i32p, ctypes.c_int,
             i32p, i32p, f32p, f32p, f32p, i32p, i32p, f32p, i32p, f32p]
+        lib.drain_udp.restype = ctypes.c_int
+        lib.drain_udp.argtypes = [ctypes.c_int, u8p, ctypes.c_int,
+                                  ctypes.c_int, i32p, u32p, i32p]
+        lib.blast_udp.restype = ctypes.c_longlong
+        lib.blast_udp.argtypes = [ctypes.c_int, u8p, ctypes.c_int,
+                                  ctypes.c_int, i32p, ctypes.c_int,
+                                  ctypes.c_int]
         _lib = lib
         return _lib
 
@@ -256,3 +265,44 @@ def parse_telemetry_buffer(buf: np.ndarray, lens: np.ndarray, n: int):
     else:
         out["n_good"] = 0
     return out
+
+
+def drain_udp_socket(fd: int, max_msgs: int = 1024, stride: int = 2048):
+    """Drain a non-blocking UDP socket with recvmmsg(2), one syscall per
+    <= 256 datagrams (src/codec.cpp `drain_udp`). Returns (buf
+    [max_msgs, stride] uint8, lens [n], ip4 [n] uint32 in host order,
+    port [n], n)."""
+    lib = get_lib()
+    buf = np.empty((max_msgs, stride), np.uint8)
+    lens = np.empty(max_msgs, np.int32)
+    ip4 = np.empty(max_msgs, np.uint32)
+    port = np.empty(max_msgs, np.int32)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    n = lib.drain_udp(fd, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                      stride, max_msgs, lens.ctypes.data_as(i32),
+                      ip4.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                      port.ctypes.data_as(i32))
+    return buf, lens[:n], ip4[:n], port[:n], n
+
+
+def blast_udp_ring(port: int, packets, stop_flag: ctypes.c_int32,
+                   burst: int = 64, sleep_us: int = 0) -> int:
+    """Cycle a ring of equal-length packets into 127.0.0.1:`port` with
+    sendmmsg(2), `burst` at a time with `sleep_us` between bursts, until
+    `stop_flag.value` becomes nonzero (src/codec.cpp `blast_udp`).
+    Returns the packets handed to the kernel. Blocks: run it in a thread
+    (ctypes releases the GIL for the call). Raises OSError when the
+    sending socket cannot be opened or connected."""
+    lib = get_lib()
+    pkt_len = len(packets[0])
+    if any(len(p) != pkt_len for p in packets):
+        raise ValueError("blast ring packets must be of equal length")
+    ring = np.frombuffer(b"".join(packets), np.uint8)
+    sent = int(lib.blast_udp(
+        int(port), ring.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        pkt_len, len(packets),
+        ctypes.cast(ctypes.byref(stop_flag), ctypes.POINTER(ctypes.c_int32)),
+        int(burst), int(sleep_us)))
+    if sent < 0:
+        raise OSError(f"blast_udp: socket or connect to port {port} failed")
+    return sent

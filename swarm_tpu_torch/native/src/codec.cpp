@@ -123,10 +123,6 @@ int parse_telemetry_batch(const uint8_t* buf, const int32_t* off,
 
 extern "C" {
 
-// drain_udp and blast_udp are built but not bound in native/__init__.py:
-// nothing in the package calls them until the live server (ROADMAP A6b)
-// does, and their Python wrappers come with it.
-
 // Drain a non-blocking UDP socket with recvmmsg(2): one syscall per
 // <=256 datagrams instead of one recvfrom per datagram (the Python
 // recv loop bounded the throughput serving mode at ~40k pkt/s).
@@ -164,13 +160,14 @@ int drain_udp(int fd, uint8_t* buf, int stride, int max_msgs,
     return total;
 }
 
-// Paced sendmmsg blaster for the serving benchmark (tools/bench_serve.py):
-// cycles a pre-packed packet ring ([n_ring, pkt_len] row-major) into
-// 127.0.0.1:port in `burst`-packet batches, sleeping sleep_us between
-// batches, until *stop != 0. Returns packets handed to the kernel
-// (UDP may still drop at the receiver's rcvbuf — the benchmark reports
-// applied vs sent separately). Rationale: the Python sendto loop costs
-// ~5-10 us/packet of interpreter time; on a single-core benchmark host
+// Paced sendmmsg blaster for the serving benchmark
+// (swarm_tpu_torch/bench_serve.py): cycles a pre-packed packet ring
+// ([n_ring, pkt_len] row-major) into 127.0.0.1:port in `burst`-packet
+// batches, sleeping sleep_us between batches, until *stop != 0. Returns
+// packets handed to the kernel (UDP may still drop at the receiver's
+// rcvbuf — the benchmark reports applied vs sent separately).
+// Rationale: the Python sendto loop costs ~5-10 us/packet of interpreter
+// time; on a single-core benchmark host
 // that halves the CPU left for the server under test, so the
 // measurement reflected the harness, not the server. sendmmsg is
 // ~1 us/packet and the sleep yields the core between bursts.

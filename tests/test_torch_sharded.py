@@ -183,14 +183,15 @@ def _torchrun(nproc, *args, target=("-m", "swarm_tpu_torch.parallel.dryrun",
                                       "--device", "cpu"),
               timeout=SPAWN_LIMIT):
     """`target` (by default `parallel/dryrun.py`) on `nproc` gloo ranks,
-    joined within `timeout` seconds; returns its standard output."""
+    joined within `timeout` seconds; returns its standard output.
+    `--standalone`: the launcher binds its own rendezvous port and holds
+    it, so no other process can take it between choosing and binding."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run",
-         f"--nproc-per-node={nproc}", "--master-addr=127.0.0.1",
-         f"--master-port={mesh.free_port()}", *target,
+         f"--nproc-per-node={nproc}", "--standalone", *target,
          "--timeout", str(TIMEOUT.total_seconds()), *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stderr[-4000:]

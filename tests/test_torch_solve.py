@@ -32,7 +32,6 @@ from swarm_tpu.parallel.solve import make_trajectory_sharded_gn as j_traj
 from swarm_tpu.parallel.solve import shard_graphs as j_shard
 from swarm_tpu.slam import posegraph as jpg
 from swarm_tpu.slam import tridiag as jtd
-from swarm_tpu_torch.parallel import mesh
 from swarm_tpu_torch.slam import posegraph as ppg
 from swarm_tpu_torch.slam import tridiag as ptd
 from tests.test_slam_upgrades import noisy_loop_trajectory
@@ -46,6 +45,7 @@ COST_RTOL = 1e-3
 RANKS = 4
 N_GRAPHS, M_NODES = 8, 32
 CHAIN_NODES = 129
+SPAWN_LIMIT = 300          # seconds for the 4-rank launch to join
 
 
 def _square(seed, m=M_NODES, n_poses=None):
@@ -188,19 +188,23 @@ out["chain/poses"] = g.poses.numpy()
 out["chain/costs"] = costs.numpy()
 np.savez(a.out + f".{lay.rank}.npz", **out)
 print(f"solve ok rank {lay.rank}")
+# tear the group down before the interpreter exits, as the other rank
+# scripts do (tests/test_torch_sharded.py, parallel/dryrun.py)
+torch.distributed.destroy_process_group()
 """
 
 
-def _torchrun(nproc, script, *args, timeout=240):
-    """`script` on `nproc` gloo ranks (tests/test_torch_sharded.py's
-    pattern); returns its standard output."""
+def _torchrun(nproc, script, *args, timeout=SPAWN_LIMIT):
+    """`script` on `nproc` gloo ranks, joined within `timeout` seconds;
+    returns its standard output. `--standalone`: the launcher binds its
+    own rendezvous port and holds it, so no other process can take it
+    between choosing and binding."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run",
-         f"--nproc-per-node={nproc}", "--master-addr=127.0.0.1",
-         f"--master-port={mesh.free_port()}", str(script),
+         f"--nproc-per-node={nproc}", "--standalone", str(script),
          "--timeout", "120", *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stderr[-4000:]
