@@ -256,7 +256,34 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      --checkpoint, 100 with --resume, every leaf bit-equal to phase 28's
      200 straight steps (the noise generator's state rides in the
      checkpoint). Phases 23-29 launch no raster kernel (the counters set
-     to 0 before each and read after).
+     to 0 before each and read after);
+ 30. the sharded engine's XLA fast tier (presets.deployable(1024) with
+     use_pallas=False: free_raster_reference per fan on a fresh window
+     plus the exact endpoint delta) on a one-rank NCCL group in
+     "replicated", "rows" and "tiles": the counters set to 0, one warm-up
+     step and 33 timed steps, the counters read: no raster kernel
+     launched, every step writes, merges at steps 15 and 31 and at no
+     other, all agents online, no band escape, poses finite; steps/s,
+     peak memory, a 17-step split (sensing, raster, merge, zones,
+     collectives, rest); "rows" and "tiles" BIT-EQUAL to "replicated"
+     (maps, writes, poses); then the window kernel without the ring
+     (exact_endpoints=True) on the same world, seed and steps: the writes
+     ratio within (0.9, 1.1) and tri-state decisions differing in at most
+     1% of the explored cells, the raster part of both steps printed;
+ 31. the line scatter (raster_mode="line": the 4-way rays, then the
+     sweep's, through logodds_delta's ordered sum) in the three
+     decompositions, one warm-up and 16 timed steps (a merge at step 15),
+     the same checks, "rows" and "tiles" BIT-EQUAL to "replicated" and
+     "replicated" run twice BIT-IDENTICAL; then `python -m
+     swarm_tpu_torch.bench_sharded --agents 1024 --steps 20` (the swarm
+     preset on world 1) as its own process, which must exit 0;
+ 32. card against CPU at 8 agents over 34 steps (phase 11's bar): the XLA
+     tier on "replicated" and "tiles" and the line scatter on
+     "replicated", NCCL against gloo on the same noise; then
+     parallel/dryrun.py at world size 1 on the card with its sections for
+     the swarm preset, the XLA tier and the line scatter in each
+     decomposition and the XLA tier against the kernel without the ring.
+     Phases 30-32 launch no raster kernel on their main paths.
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`), then the card's name and power limit; the last
@@ -2256,15 +2283,20 @@ def phase_band_kernels(card, dev):
     return out
 
 
-def _sharded_run(dev, grid_sharding: str, flags=None):
-    """(cfg, step, this rank's state) of the sharded engine on one rank at
-    N_AGENTS agents (presets.deployable's world with `flags`)."""
+def _sharded_run(dev, grid_sharding: str, flags=None, eng=None,
+                 n_agents: int | None = None):
+    """(cfg, step, this rank's state, layout) of the sharded engine on one
+    rank at `n_agents` agents (N_AGENTS when None; presets.deployable's
+    world with `flags`, then the EngineConfig fields `eng` replaced)."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.engine.sim import sim_init
     from swarm_tpu_torch.parallel import mesh, sharded
 
-    cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev,
-                                                   **(flags or {}))
+    cfg, walls, params, rooms = presets.deployable(
+        N_AGENTS if n_agents is None else n_agents, device=dev,
+        **(flags or {}))
+    if eng:
+        cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, **eng))
     lay = mesh.make_layout((1, 1), device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     step = sharded.make_sharded_sim_step(
@@ -2560,10 +2592,11 @@ def _sharded_flag_row(card, dev, grid_sharding, key, flags):
     return by_form[key]
 
 
-def phase_dryrun(card):
+def phase_dryrun(card, expect=()):
     """parallel/dryrun.py at world size 1 on the card, as its own process
-    (`python -m swarm_tpu_torch.parallel.dryrun`): two steps in each
-    decomposition, rows bit-equal to replicated."""
+    (`python -m swarm_tpu_torch.parallel.dryrun`): two steps of each tier
+    in each decomposition, rows bit-equal to replicated; each text of
+    `expect` must be in its output."""
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     out = subprocess.run(
@@ -2571,7 +2604,8 @@ def phase_dryrun(card):
          "--timeout", "300"], cwd=here, capture_output=True, text=True,
         timeout=600)
     print(out.stdout.strip())
-    if out.returncode != 0 or "dryrun ok (1 ranks)" not in out.stdout:
+    if out.returncode != 0 or "dryrun ok (1 ranks)" not in out.stdout or \
+            any(e not in out.stdout for e in expect):
         raise AssertionError(f"parallel/dryrun.py failed:\n"
                              f"{out.stderr[-3000:]}")
     print(f"parallel/dryrun.py on the card [{card}]: "
@@ -4195,6 +4229,280 @@ def phase_checkpoint(card, dev, full, tmp):
         raise AssertionError(f"checkpoint: leaves differ {bad}")
 
 
+# the sharded engine's XLA tiers (no raster kernel on these paths): the
+# fast free-space tier (use_pallas=False) and the line scatter (every
+# raster mode but the beam mode) in every decomposition, bench_sharded,
+# and the card against the CPU
+
+XLA_STEPS = 33               # timed, after one warm-up: merges at 15 and 31
+LINE_STEPS = 16              # timed, after one warm-up: a merge at step 15
+XLA_DECISIONS_BAR = 0.01     # XLA vs kernel tier: differing explored cells
+XLA_WRITES_RATIO = (0.9, 1.1)  # kernel / XLA writes (__graft_entry__.py:317)
+BENCH_SHARDED_AGENTS = 1024
+BENCH_SHARDED_STEPS = 20
+TIERS_XLA = dict(use_pallas=False)
+TIERS_LINE = dict(raster_mode="line")
+
+
+def _tier_path(card, dev, name, grid_sharding, eng, flags, n_timed,
+               kernels=False, split=True):
+    """One sharded path on the one-rank group at N_AGENTS agents: the
+    counters set to 0, one warm-up step and `n_timed` timed steps, the
+    counters read: no raster kernel launched (unless `kernels`), every
+    timed step writes with all agents online, a merge on every merge step
+    and on no other, no band escape, poses finite; steps/s and peak
+    memory; then (with `split`) SPLIT_STEPS more steps split on the device
+    timeline. Returns (the global state after the timed steps, summary)."""
+    from swarm_tpu_torch.engine.sim import total_writes_value
+    from swarm_tpu_torch.ops.raster import ordered_add
+    from swarm_tpu_torch.parallel import sharded
+
+    cfg, step, state, lay = _sharded_run(dev, grid_sharding, flags, eng)
+    every = cfg.engine.merge_every
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ordered_add.deepest = 0
+    _reset_counts()                          # the path starts here
+    state, m0 = step(state)
+    torch.cuda.synchronize()
+    state, ms, wall, step_ms = _run_steps(step, state, n_timed)
+    launches = _kernel_launches()
+    _check_path(name, N_AGENTS, ms, state, kernels=kernels)
+    allm = [m0] + ms
+    writes = _stacked(allm, "writes")
+    merges = _stacked(allm, "merges")
+    escapes = int(_stacked(allm, "band_escapes").sum())
+    want = [k % every == every - 1 for k in range(n_timed + 1)]
+    if not bool((writes > 0).all()) or escapes or \
+            [bool(x > 0) for x in merges] != want:
+        raise AssertionError(f"{name}: writes {writes.tolist()[:4]}, "
+                             f"merges {merges.tolist()}, band escapes "
+                             f"{escapes}")
+    peak = torch.cuda.max_memory_allocated()
+    merge_steps = [k for k in range(n_timed + 1) if want[k]]
+    print(f"{name} at {N_AGENTS} agents on one rank (NCCL) [{card}]: "
+          f"{n_timed + 1} steps, raster launches {launches}, online "
+          f"{N_AGENTS} on every timed step, min writes {int(writes.min())}, "
+          f"merges {[int(merges[k]) for k in merge_steps]} at steps "
+          f"{merge_steps}, band escapes 0, poses finite; "
+          f"{n_timed / wall:.2f} steps/s, "
+          f"{int(writes.to(torch.int64).sum())} applied cells, device step "
+          f"median {_median(step_ms):.4f} ms, peak memory {peak} bytes, "
+          f"ordered add's deepest layer {ordered_add.deepest}")
+    full = sharded.gather_state(state, lay, grid_sharding)
+    full = full._replace(srv=full.srv._replace(
+        logodds=full.srv.logodds.clone()))
+    summary = dict(steps_s=n_timed / wall, peak=peak,
+                   writes=total_writes_value(full.srv.total_writes))
+    if split:
+        state, summary["split"] = _step_split(step, state, SPLIT_STEPS,
+                                              _sharded_parts())
+        print(f"{name} step split [{card}], device-timeline medians over "
+              f"{SPLIT_STEPS} more steps (ms): "
+              f"{_split_text(summary['split'])}")
+    del state, step
+    torch.cuda.empty_cache()
+    return full, summary
+
+
+def _bit_equal_decomps(name, full):
+    """"rows" and "tiles" BIT-EQUAL to "replicated": maps, writes, poses."""
+    ref = full["replicated"]
+    for gs in ("rows", "tiles"):
+        got = full[gs]
+        n_diff = int((got.srv.logodds != ref.srv.logodds).sum())
+        same_w = torch.equal(got.srv.total_writes, ref.srv.total_writes)
+        same_p = torch.equal(got.pose_true, ref.pose_true)
+        print(f"{name} {gs} vs replicated: {n_diff} of "
+              f"{ref.srv.logodds.numel()} cells differ, writes equal "
+              f"{same_w}, poses equal {same_p}")
+        if n_diff or not same_w or not same_p:
+            raise AssertionError(f"{name}: {gs} is not bit-equal to "
+                                 "replicated")
+
+
+def phase_sharded_xla(card, dev):
+    """Phase 30: the XLA fast tier (presets.deployable(1024) with
+    use_pallas=False: free_raster_reference per fan on a fresh window, the
+    exact endpoint delta) on the one-rank NCCL group in "replicated",
+    "rows" and "tiles" (`_tier_path`, XLA_STEPS timed steps, no raster
+    kernel), "rows" and "tiles" BIT-EQUAL to "replicated"; then the
+    window kernel without the ring (exact_endpoints=True, the reference's
+    pairing) on the same world, seed and steps: writes ratio within
+    XLA_WRITES_RATIO and tri-state decisions differing in at most
+    XLA_DECISIONS_BAR of the explored cells."""
+    from swarm_tpu_torch.config import GridConfig
+    from swarm_tpu_torch.ops.raster import tri_state_view
+
+    full, summary = {}, {}
+    for gs in ("replicated", "rows", "tiles"):
+        full[gs], summary[gs] = _tier_path(
+            card, dev, f"sharded XLA tier {gs}", gs, TIERS_XLA, None,
+            XLA_STEPS)
+    _bit_equal_decomps("sharded XLA tier", full)
+    kern, k_sum = _tier_path(card, dev, "sharded kernel tier without the "
+                             "ring, replicated", "replicated", None,
+                             dict(exact_endpoints=True), XLA_STEPS,
+                             kernels=True)
+    xla = full["replicated"]
+    cfg_g = GridConfig(size=xla.srv.logodds.shape[0])
+    t_x = tri_state_view(xla.srv.logodds, cfg_g)
+    t_k = tri_state_view(kern.srv.logodds, cfg_g)
+    explored = (t_x != cfg_g.unknown) | (t_k != cfg_g.unknown)
+    n_dec, n_exp = int((t_x != t_k).sum()), max(int(explored.sum()), 1)
+    ratio = k_sum["writes"] / max(summary["replicated"]["writes"], 1)
+    apart = int((torch.abs(kern.srv.logodds - xla.srv.logodds) > 1e-3).sum())
+    rx, rk = summary["replicated"]["split"]["raster"][0], \
+        k_sum["split"]["raster"][0]
+    print(f"sharded XLA tier vs kernel tier (replicated, {XLA_STEPS + 1} "
+          f"steps) [{card}]: writes {summary['replicated']['writes']} vs "
+          f"{k_sum['writes']} (kernel / XLA {ratio:.6f}), {n_dec} tri-state "
+          f"decisions differ of {n_exp} explored cells "
+          f"({n_dec / n_exp:.3e}), {apart} cells apart by > 1e-3; raster "
+          f"{rx:.4f} ms vs {rk:.4f} ms a step, steps/s "
+          f"{summary['replicated']['steps_s']:.2f} vs {k_sum['steps_s']:.2f}")
+    if not XLA_WRITES_RATIO[0] < ratio < XLA_WRITES_RATIO[1] or \
+            n_dec > XLA_DECISIONS_BAR * n_exp:
+        raise AssertionError("the sharded XLA tier and the kernel tier "
+                             "disagree")
+
+
+def phase_sharded_line(card, dev):
+    """Phase 31: the line scatter (presets.deployable(1024) with
+    raster_mode="line": the 4-way rays, then the sweep's, through
+    logodds_delta's ordered scatter) on the one-rank NCCL group in the
+    three decompositions (`_tier_path`, LINE_STEPS timed steps, no raster
+    kernel), "rows" and "tiles" BIT-EQUAL to "replicated", and
+    "replicated" run a second time BIT-IDENTICAL to the first."""
+    full = {}
+    for gs in ("replicated", "rows", "tiles"):
+        full[gs], _ = _tier_path(card, dev, f"sharded line scatter {gs}", gs,
+                                 TIERS_LINE, None, LINE_STEPS,
+                                 split=gs == "replicated")
+    _bit_equal_decomps("sharded line scatter", full)
+    again, _ = _tier_path(card, dev, "sharded line scatter replicated "
+                          "(again)", "replicated", TIERS_LINE, None,
+                          LINE_STEPS, split=False)
+    ref = full["replicated"]
+    same = torch.equal(again.srv.logodds, ref.srv.logodds) and \
+        torch.equal(again.pose_true, ref.pose_true) and \
+        torch.equal(again.srv.total_writes, ref.srv.total_writes)
+    print(f"sharded line scatter replicated run twice: bit-identical {same}")
+    if not same:
+        raise AssertionError("the sharded line scatter changed between "
+                             "runs")
+
+
+def phase_bench_sharded(card):
+    """bench_sharded (`python -m swarm_tpu_torch.bench_sharded --agents
+    BENCH_SHARDED_AGENTS --steps BENCH_SHARDED_STEPS`, world 1 on this
+    card) as its own process: it must exit 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "swarm_tpu_torch.bench_sharded", "--agents",
+         str(BENCH_SHARDED_AGENTS), "--steps", str(BENCH_SHARDED_STEPS)],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    print(out.stdout.strip())
+    if out.returncode != 0 or "OK: identical writes" not in out.stdout:
+        raise AssertionError(f"bench_sharded failed:\n{out.stderr[-3000:]}")
+    print(f"bench_sharded on the card [{card}]: "
+          f"{time.perf_counter() - t0:.2f} s in all")
+
+
+def phase_sharded_reference(card, dev):
+    """Phase 32: the card against the CPU at REF_AGENTS agents over
+    REF_STEPS steps (two merge events) from the same state and noise (drawn
+    on the CPU): the XLA tier on "replicated" and "tiles" and the line
+    scatter on "replicated", on a one-rank NCCL group and on a one-rank
+    gloo group, held to phase 11's bar (online equal, writes within 1%,
+    tri-state maps equal on >= 99% of the explored cells, a merge event
+    ran)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from swarm_tpu_torch.config import GridConfig
+    from swarm_tpu_torch.engine.sim import draw_step_noise
+    from swarm_tpu_torch.ops.raster import tri_state_view
+    from swarm_tpu_torch.parallel import mesh, sharded
+
+    cases = {"XLA tier replicated": ("replicated", TIERS_XLA),
+             "XLA tier tiles": ("tiles", TIERS_XLA),
+             "line scatter replicated": ("replicated", TIERS_LINE)}
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=cpu).manual_seed(SEED)
+    noises = [draw_step_noise(gen, REF_AGENTS, 181, cpu)
+              for _ in range(REF_STEPS)]
+    out = {}
+    for d in (dev, cpu):
+        mesh.init(f"tcp://127.0.0.1:{mesh.free_port()}", 1, 0,
+                  timedelta(seconds=SHARDED_TIMEOUT_S), device=d)
+        try:
+            for name, (gs, eng) in cases.items():
+                cfg, step, st, lay = _sharded_run(d, gs, None, eng,
+                                                  n_agents=REF_AGENTS)
+                writes, merges = [], []
+                for nz in noises:
+                    st, m = step(st, type(nz)(*(
+                        None if f is None else type(f)(*(x.to(d) for x in f))
+                        for f in nz)))
+                    writes.append(int(m.writes))
+                    merges.append(int(m.merges))
+                full = sharded.gather_state(st, lay, gs)
+                out[name, d.type] = (
+                    tri_state_view(full.srv.logodds, cfg.grid).cpu(),
+                    writes, merges, int(m.online))
+        finally:
+            dist.destroy_process_group()
+    unknown = GridConfig().unknown
+    for name in cases:
+        (t_d, w_d, m_d, on_d), (t_c, w_c, m_c, on_c) = \
+            out[name, dev.type], out[name, "cpu"]
+        explored = (t_c != unknown) | (t_d != unknown)
+        agree = float(((t_c == t_d) & explored).sum()) / max(
+            int(explored.sum()), 1)
+        ev = [k for k in range(REF_STEPS) if m_c[k] or m_d[k]]
+        print(f"sharded reference [{name}] at {REF_AGENTS} agents, "
+              f"{REF_STEPS} steps, NCCL vs gloo [{card}]: writes "
+              f"{sum(w_d)} (card) vs {sum(w_c)} (CPU), tri-state agreement "
+              f"{agree:.6f} over {int(explored.sum())} explored cells, "
+              f"merges at steps {ev}: {[m_d[k] for k in ev]} (card) vs "
+              f"{[m_c[k] for k in ev]} (CPU)")
+        if on_d != on_c or abs(sum(w_d) - sum(w_c)) > 0.01 * sum(w_c) or \
+                agree < 0.99 or not ev:
+            raise AssertionError(f"sharded reference [{name}]: card and "
+                                 "CPU disagree")
+
+
+def phase_sharded_tiers(card, dev):
+    """Phases 30-32: the XLA fast tier and the line scatter at N_AGENTS
+    agents on a one-rank NCCL group, bench_sharded as its own process,
+    then the card against the CPU at REF_AGENTS agents and the dry run's
+    new sections at world size 1 on the card."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from swarm_tpu_torch.parallel import mesh
+
+    mesh.init(f"tcp://127.0.0.1:{mesh.free_port()}", 1, 0,
+              timedelta(seconds=SHARDED_TIMEOUT_S), device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the card's process group is not NCCL")
+        phase_sharded_xla(card, dev)
+        phase_sharded_line(card, dev)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    phase_bench_sharded(card)
+    phase_sharded_reference(card, dev)
+    phase_dryrun(card, expect=("rows [xla] vs replicated",
+                               "tiles [line] vs replicated",
+                               "XLA tier vs kernel without the ring"))
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -4277,6 +4585,9 @@ def run(card, dev) -> list:
     phase_live_parity(card, dev)
     full, tmp = phase_run_session(card, dev)
     phase_checkpoint(card, dev, full, tmp)
+
+    # the sharded engine's XLA tiers (no raster kernel on these paths)
+    phase_sharded_tiers(card, dev)
 
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),

@@ -36,9 +36,9 @@ frontier-target assignment (`enable_targets`), delivered in each agent's
 odometry frame. With `scan_rays == 0` no sweep is sensed. The merge, zone
 and frontier cadences are host `if`s on a host-side step number:
 `make_sim_step` keeps it, `sim_step` takes it as `step_no` (or reads
-`state.step` once). The paths the port does not run raise
-NotImplementedError naming their ROADMAP item, and the combinations the
-reference refuses raise its ValueError (`check_supported`).
+`state.step` once). The port runs every path the reference runs; the
+combinations the reference refuses raise its ValueError
+(`check_supported`).
 `StepMetrics.writes` is one step's int32 count; sum a
 rollout's on the host in int64 (`rollout_writes`): at 32,768 agents a step
 writes ~1e8 cells and a few dozen steps pass 2^31.
@@ -300,14 +300,12 @@ def draw_step_noise(generator: torch.Generator, n: int, n_rays: int,
 
 
 def check_supported(cfg: SwarmConfig, sharded: bool = False):
-    """Raise NotImplementedError for every config path the port does not run
-    yet, naming its ROADMAP item — never a silently different path — and
-    ValueError for the combinations the reference itself refuses. With
-    `sharded` the rows are the sharded engine's
-    (parallel/sharded.make_sharded_sim_step). The fused engine runs every
-    raster mode (beam through a kernel or the XLA tier, line, parity, off),
-    the yaw-rate bias and the scan-matched closures, and refuses nothing
-    the reference runs."""
+    """Raise ValueError, in the reference's words, for the combinations the
+    reference itself refuses; with `sharded` those of the sharded engine
+    (parallel/sharded.make_sharded_sim_step). Both engines run every
+    raster mode the reference runs (beam through a kernel or the XLA tier,
+    line, parity, off; the sharded engine rasters all but the beam mode as
+    its line scatter), the yaw-rate bias and the scan-matched closures."""
     e, s = cfg.engine, cfg.slam
     if sharded:
         # the reference's make_sharded_sim_step refuses these, in these
@@ -326,19 +324,6 @@ def check_supported(cfg: SwarmConfig, sharded: bool = False):
         raise ValueError(
             "logodds_dtype=bfloat16 is supported by the fused beam "
             "tiers (window kernel + XLA reference) only")
-    todo = [
-        (sharded and e.raster_mode != "beam",
-         f"raster_mode={e.raster_mode!r} on the sharded path (its body "
-         "rasters every mode but the beam as the line scatter)",
-         "Queue A9, the sharded XLA tiers"),
-        (not e.use_pallas and sharded,
-         "use_pallas=False on the sharded path (the XLA fast tier "
-         "free_raster_reference)", "Queue A9, the sharded XLA tiers"),
-    ]
-    for off_path, what, item in todo:
-        if off_path:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
     if e.merge_every > 0 and e.scan_rays <= 0:
         raise ValueError("the merge matches servo sweeps: merge_every > 0 "
                          "needs scan_rays > 0")

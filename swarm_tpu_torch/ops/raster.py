@@ -23,7 +23,7 @@ adds layer r (the r-th contribution of every cell) in one gather and
 scatter. The kept count, the deepest layer and the layer bounds are read
 to the host once per call (ROADMAP C25). On the card `index_add_` adds
 with float atomics, in no fixed order, so a cell's sum of unlike addends
-would change from run to run.
+would change from run to run; `logodds_delta` sums through it too (C42).
 
 Cell indices follow the reference's `int()`: `world_to_grid` truncates
 toward zero (`.to(torch.int32)`), not floor, so a point up to one cell left
@@ -92,8 +92,9 @@ def _traced_cells(rays: RayBatch, cfg: GridConfig, k_max: int):
 def logodds_delta(rays: RayBatch, cfg: GridConfig = GridConfig(),
                   k_max: int = 32, dtype=torch.float32, band=None,
                   band_cols=None):
-    """Unclamped log-odds evidence of one ray batch, scatter-added into a
-    fresh [size, size] grid in ray order. Returns (delta, writes).
+    """Unclamped log-odds evidence of one ray batch, added into a fresh
+    [size, size] grid in ray order (`ordered_add`, each add rounded to
+    `dtype`). Returns (delta, writes).
 
     band=(row_off, n_rows) returns the [n_rows, size] delta of that row
     band of the grid, band_cols=(col_off, n_cols) restricts the columns as
@@ -115,12 +116,11 @@ def logodds_delta(rays: RayBatch, cfg: GridConfig = GridConfig(),
     zero = torch.zeros(flat.shape, dtype=dtype, device=flat.device)
     delta = torch.where(occ, zero + cfg.logodds_hit,
                         torch.where(free, zero + cfg.logodds_miss, zero))
-    flat_r = torch.where(free | occ, flat, torch.zeros_like(flat))
-    # index_add_ on the CPU adds in index order, as the reference's scatter
-    # does (index_put_ with accumulate may not)
-    out = torch.zeros((n_rows * n_cols,), dtype=dtype,
-                      device=flat.device).index_add_(
-        0, flat_r.reshape(-1).to(torch.int64), delta.reshape(-1))
+    # summed in ray order, as the reference's scatter-add sums on the CPU,
+    # on any device (a float atomic add would sum -miss and +hit in no
+    # fixed order; ROADMAP C42)
+    out = torch.zeros((n_rows * n_cols,), dtype=dtype, device=flat.device)
+    ordered_add(out, flat, delta, keep=free | occ)
     writes = free.sum() + occ.sum()
     return out.reshape(n_rows, n_cols), writes
 

@@ -31,6 +31,15 @@ gives the fused step's draws. Here every rank draws the whole step's
 seeded alike on every rank and takes its rows: the same draws for any world
 size, and the fused port's draws from the same seed.
 
+The raster is the reference body's choice (`_raster`): in the beam mode
+each fan through the window kernel (band and tile forms) or, with
+use_pallas=False, the XLA fast tier (`ops.beam_raster.free_raster_reference`
+plus the exact endpoint delta); in every other raster mode the line
+scatter (`_line_scatter`: the 4-way and sweep rays through
+`ops.raster.logodds_delta`, summed in ray order). The XLA tier and the line
+scatter compute in global coordinates, so "rows" and "tiles" are bit-equal
+to "replicated" on them.
+
 Where the port follows the reference body rather than the fused step: the
 sensing and the physics cast against ALL walls, not the agent's room
 (sharded.py:269-270, :317-320, :741; at 1024 agents 185 rays x 2048
@@ -357,21 +366,72 @@ def _sense(noise, pose_true, walls, cfg: SwarmConfig):
     return torch.cat(d4), (torch.cat(ds) if r > 0 else None)
 
 
-def _raster(delta, axy, ryaw, dist4, scan_dist, alive, cfg: SwarmConfig,
-            band, band_cols):
-    """Every fan of the step through the window kernel on the rank's
-    zeroed delta (its band or extended tile), the 4-way fan first, as the
-    reference body runs them (sharded.py:498-571): pack16 per beam (the
-    body passes no pack8) or the grouped tier, the endpoint ring or, without
-    it, the exact endpoint delta and a clip after the fan. Returns (delta,
-    writes int32)."""
+def _line_scatter(axy, ryaw, hx, hy, hit_valid, alive, scan_dist,
+                  cfg: SwarmConfig, band, band_cols):
+    """The body's line scatter (sharded.py:405-432, :573): every 4-way ray
+    (agent-major) and, after them, every sweep ray through
+    `logodds_delta`'s Bresenham scatter at k_max=32 into a fresh delta of
+    the rank's window, summed in ray order. Returns (delta, writes int32):
+    free plus occupied cells."""
+    from swarm_tpu_torch.models.scan import scan_angles
+    from swarm_tpu_torch.ops.raster import RayBatch, logodds_delta
+
+    sens = cfg.sensors
+    rx, ry = axy[:, 0], axy[:, 1]
+    rays = RayBatch(
+        ox=torch.repeat_interleave(rx, 4), oy=torch.repeat_interleave(ry, 4),
+        hx=hx.reshape(-1), hy=hy.reshape(-1),
+        hit_valid=hit_valid.reshape(-1),
+        active=torch.repeat_interleave(alive, 4))
+    r_scan = cfg.engine.scan_rays
+    if r_scan > 0:
+        sa = ryaw[:, None] + scan_angles(r_scan, rx.dtype, rx.device)[None, :]
+        sv = (scan_dist > sens.min_range) & (scan_dist <= sens.max_range)
+        sr = torch.where(sv, scan_dist,
+                         torch.full_like(scan_dist, sens.max_range))
+        shx = rx[:, None] + sr * torch.cos(sa)
+        shy = ry[:, None] + sr * torch.sin(sa)
+        rays = RayBatch(
+            ox=torch.cat([rays.ox, torch.repeat_interleave(rx, r_scan)]),
+            oy=torch.cat([rays.oy, torch.repeat_interleave(ry, r_scan)]),
+            hx=torch.cat([rays.hx, shx.reshape(-1)]),
+            hy=torch.cat([rays.hy, shy.reshape(-1)]),
+            hit_valid=torch.cat([rays.hit_valid, sv.reshape(-1)]),
+            active=torch.cat([rays.active,
+                              torch.repeat_interleave(alive, r_scan)]))
+    delta, writes = logodds_delta(rays, cfg.grid, band=band,
+                                  band_cols=band_cols)
+    return delta, writes.to(torch.int32)
+
+
+def _raster(shape, axy, ryaw, dist4, scan_dist, alive, hits,
+            cfg: SwarmConfig, band, band_cols):
+    """The step's raster into a fresh float32 delta of `shape` (the rank's
+    grid, band or extended tile), as the reference body chooses it
+    (sharded.py:312-313, :498-575). The beam mode (raster_mode "beam") runs
+    every fan, the 4-way fan first: through the window kernel (pack16 per
+    beam, as the body passes no pack8, or the grouped tier; the endpoint
+    ring or, without it, the exact endpoint delta and a clip after the
+    fan), or with use_pallas=False through the XLA fast tier
+    (`free_raster_reference` on a fresh zero window, which clips its own
+    output, plus the exact endpoint delta whatever kernel_endpoints says,
+    added with no clip; its float count truncated to int32, ROADMAP C41).
+    Every other raster mode ("line", "off", and "parity", which
+    make_sharded_sim_step refuses) is the line scatter (`_line_scatter`;
+    C40). `hits` is (hx, hy, hit_valid) of the 4-way rays. Returns
+    (delta, writes int32)."""
     from swarm_tpu_torch.ops.beam_raster import (BeamSpec, beams_from_4way,
                                                  beams_from_scan,
-                                                 endpoint_rays, reach_cells)
+                                                 endpoint_rays,
+                                                 free_raster_reference,
+                                                 reach_cells)
     from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
     from swarm_tpu_torch.ops.raster import logodds_delta
 
     sens, eng = cfg.sensors, cfg.engine
+    if eng.raster_mode != "beam" or eng.parity_mode:
+        return _line_scatter(axy, ryaw, *hits, alive, scan_dist, cfg, band,
+                             band_cols)
     fans = []
     if eng.raster_4way or eng.scan_rays == 0:
         fans.append((BeamSpec.four_way(),
@@ -382,11 +442,25 @@ def _raster(delta, axy, ryaw, dist4, scan_dist, alive, cfg: SwarmConfig,
                                      sens.min_range)))
     reach = reach_cells(cfg)
     clampv = cfg.grid.logodds_clamp
-    writes = torch.zeros((), dtype=torch.int32, device=axy.device)
+    dev = axy.device
+    delta = torch.zeros(shape, dtype=torch.float32, device=dev)
+    writes = torch.zeros((), dtype=torch.int32, device=dev)
     for spec, (db, tb) in fans:
         n_groups = (spec.n_beams if eng.beam_groups <= 0
                     else min(eng.beam_groups, spec.n_beams))
         dbm = torch.where(alive[:, None], db, torch.zeros_like(db))
+        if not eng.use_pallas:
+            d_free, w_free = free_raster_reference(
+                torch.zeros(shape, dtype=torch.float32, device=dev), axy,
+                ryaw, dbm, alive, spec, cfg.grid, n_groups=n_groups,
+                reach=reach, band=band, band_cols=band_cols,
+                tail_weight=eng.beam_tail_weight)
+            ep, w_ep = logodds_delta(
+                endpoint_rays(axy, ryaw, db, tb, alive, spec), cfg.grid,
+                k_max=1, band=band, band_cols=band_cols)
+            delta = delta + d_free + ep
+            writes = writes + w_free.to(torch.int32) + w_ep.to(torch.int32)
+            continue
         trusted = (tb & alive[:, None]) if eng.kernel_endpoints else None
         delta, w_cnt = free_raster(delta, axy, ryaw, dbm, alive, trusted,
                                    spec, cfg.grid, reach=reach, pack8=False,
@@ -548,12 +622,10 @@ def _step_body(state, noise, step_no: int, st: _Static):
         else:
             band = (lay.rank * core_r, core_r)
         band_esc = (~in_box & alive).sum().to(i32)
-    if tiles_mode:
-        delta = torch.zeros((band[1], band_cols[1]), dtype=f32, device=dev)
-    else:
-        delta = torch.zeros_like(srv.logodds)
-    delta, writes = _raster(delta, torch.stack([rx, ry], -1), ryaw, dist4,
-                            scan_dist, alive, cfg, band, band_cols)
+    shape = (band[1], band_cols[1]) if tiles_mode else srv.logodds.shape
+    delta, writes = _raster(shape, torch.stack([rx, ry], -1), ryaw, dist4,
+                            scan_dist, alive, (hx, hy, hit_valid), cfg,
+                            band, band_cols)
     if tiles_mode:
         delta = _halo_exchange(delta, lay, halo_r, halo_c, core_r, core_c)
     elif not rows_mode:

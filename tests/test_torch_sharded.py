@@ -19,10 +19,14 @@
 2. Four gloo ranks, one `torchrun` of `parallel/dryrun.py` (a join limit
    and a collective timeout): "rows" and "replicated" on
    `presets.vertical_rooms(4)`, "tiles" (2x2) and "replicated" on
-   `presets.tile_blocks(2, 2, 512)`, 4 steps with a merge event. "rows" is
-   bit-equal to "replicated"; so is "tiles" (what the run shows; ROADMAP
-   C22 for the card's size); poses bit-equal to a one-rank run of the same
-   world and seed; no band escape (the dry run checks it).
+   `presets.tile_blocks(2, 2, 512)`, 4 steps with a merge event, each in
+   the kernel tier, the XLA fast tier and the line scatter, and the swarm
+   preset's line scatter. "rows" is bit-equal to "replicated" in every
+   tier; so is "tiles" (what the run shows in the kernel tier, ROADMAP
+   C22 for the card's size; by construction in the XLA tier and the line
+   scatter); the XLA tier within the reference's bars of the kernel
+   without the ring; poses bit-equal to a one-rank run of the same world
+   and seed; no band escape (the dry run checks it).
 3. The static proofs and refusals raise what the JAX builder raises (the
    JAX builds raise before any step runs, so no multi-device interpret-mode
    collective runs, ROADMAP C10).
@@ -266,21 +270,31 @@ def test_four_gloo_ranks_decompositions(group, tmp_path):
     text = _torchrun(4, "--steps", "4", "--merge-every", "4", "--out",
                      str(npz))
     assert "dryrun ok (4 ranks)" in text
+    assert text.count("XLA tier vs kernel without the ring") == 8
     four = np.load(npz)
+    assert int(four["swarm replicated/writes"]) > 0
     lay = mesh.make_layout(device="cpu")
     for decomp, world_fn in (
             ("rows", lambda: presets.vertical_rooms(4, device="cpu",
                                                     merge_every=4)),
             ("tiles", lambda: presets.tile_blocks(2, 2, 512, device="cpu",
                                                   merge_every=4))):
+        # decompositions on 4 ranks: bit-equal to the replicated one, in
+        # the kernel tier, the XLA fast tier and the line scatter
+        for tier in ("", "xla ", "line "):
+            ref = f"{tier}{decomp}-world replicated"
+            got = four[f"{tier}{decomp}/logodds"]
+            np.testing.assert_array_equal(got, four[f"{ref}/logodds"])
+            np.testing.assert_array_equal(four[f"{tier}{decomp}/pose_true"],
+                                          four[f"{ref}/pose_true"])
+            assert int(four[f"{tier}{decomp}/writes"]) == \
+                int(four[f"{ref}/writes"])
+            assert (got != 0).sum() > 1000
+        # the XLA tier and the kernel without the ring paint differently
+        # (the dry run holds them to the reference's bars)
+        assert not np.array_equal(four[f"xla {decomp}/logodds"],
+                                  four[f"{decomp}/logodds"])
         ref = f"{decomp}-world replicated"
-        got = four[f"{decomp}/logodds"]
-        # decompositions on 4 ranks: bit-equal to the replicated one
-        np.testing.assert_array_equal(got, four[f"{ref}/logodds"])
-        np.testing.assert_array_equal(four[f"{decomp}/pose_true"],
-                                      four[f"{ref}/pose_true"])
-        assert int(four[f"{decomp}/writes"]) == int(four[f"{ref}/writes"])
-        assert (got != 0).sum() > 1000
         # the same world and seed on one rank
         cfg, walls, params, rooms = world_fn()
         step = sharded.make_sharded_sim_step(
@@ -372,20 +386,26 @@ def test_static_proofs_raise_as_jax(case):
 
 
 def test_unported_sharded_paths_name_their_item(group):
-    """The sharded XLA fast tier (use_pallas=False) is not ported; the
-    refusal names its ROADMAP item, as do the line raster and the
-    profiling mode, which the sharded body rasters as the line scatter
-    (A9, the sharded XLA tiers). The scan-matched closures (A5) run. A
+    """The sharded paths the port once refused with NotImplementedError
+    naming ROADMAP A9 (the XLA fast tier, use_pallas=False, and the line
+    and profiling modes, which the sharded body rasters as the line
+    scatter) now build and step on one rank: two steps each, cells
+    written, every agent online. The scan-matched closures (A5) build. A
     rank grid must cover the group."""
     cfg, walls, params, rooms = presets.deployable(N, device="cpu")
     lay = mesh.RankLayout(world=1, rank=0, rows=1, cols=1,
                           device=torch.device("cpu"))
-    for eng, item in ((dict(use_pallas=False), "A9"),
-                      (dict(raster_mode="line"), "A9"),
-                      (dict(raster_mode="off"), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            sharded.make_sharded_sim_step(_with(cfg, eng), walls, params,
-                                          lay)
+    for eng in (dict(use_pallas=False), dict(raster_mode="line"),
+                dict(raster_mode="off")):
+        c = _with(cfg, eng)
+        ps.check_supported(c, sharded=True)
+        step = sharded.make_sharded_sim_step(
+            c, walls, params, lay, torch.Generator().manual_seed(1))
+        st = sharded.shard_state(ps.sim_init(c, params), lay)
+        for _ in range(2):      # the heartbeat sees the second step's stamp
+            st, m = step(st)
+            assert int(m.writes) > 0, eng
+        assert int(m.online) == N, eng
     sharded.make_sharded_sim_step(
         cfg.replace(slam=dataclasses.replace(cfg.slam,
                                              closure_scanmatch=True)),
