@@ -283,7 +283,32 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      parallel/dryrun.py at world size 1 on the card with its sections for
      the swarm preset, the XLA tier and the line scatter in each
      decomposition and the XLA tier against the kernel without the ring.
-     Phases 30-32 launch no raster kernel on their main paths.
+     Phases 30-32 launch no raster kernel on their main paths;
+ 33. the firmware-faithful per-robot API (models/, geom/, slam/closure) at
+     1024 robots on presets.deployable's tiled rooms for 100 ticks of
+     0.05 s, every input made on the host: sense_4way_median3 against each
+     robot's room (three pings, their median, the 4.0 m sentinel),
+     cast_rays_grouped BIT-EQUAL to sense_true's cast (closed rooms),
+     detect_landmark_fw, cmd_vel_drive, firmware_odometry_step and the
+     EKF's ekf_predict / ekf_update on [1024, 6] states; then 512
+     packets (64 robots at 8 ticks) through closure_add_pose one by one,
+     BIT-EQUAL to closure_add_poses_seq batch by batch in every field and
+     decision; all of it again on the CPU from the same draws: PWM,
+     closure decisions and integers equal, landmark codes equal but where
+     a reading lies within 1e-5 of a threshold, floats within 1e-5 (the
+     EKF's yaw as an angle), the sentinel exact; the card's time a tick
+     and a packet;
+ 34. the pose-graph solvers summed in a fixed order (ROADMAP C43): each
+     assembly site on a pile-up graph (256 nodes, 28 of 32 closures and 6
+     of 16 unary factors on one node) from the CPU's addends, the
+     former scatter-add form twice on the card (bits apart between runs
+     and against the CPU, reported: the finding per site) and the plans'
+     form (BIT-EQUAL to the CPU and between runs); then phase 25's 1024
+     graphs (dense and structured batches) and the pile-up graph (dense
+     and structured, with the unary factors) solved twice on the card:
+     the runs BIT-IDENTICAL, the card within 1e-3 of the CPU (yaws as
+     angles), final costs within rtol 1e-3. Phases 33-34 launch no raster
+     kernel.
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`), then the card's name and power limit; the last
@@ -4503,6 +4528,461 @@ def phase_sharded_tiers(card, dev):
                                "XLA tier vs kernel without the ring"))
 
 
+FIRMWARE_AGENTS = N_AGENTS   # presets.deployable(1024)'s robots and rooms
+FIRMWARE_TICKS = 100
+FIRMWARE_DT = 0.05           # s a tick
+FIRMWARE_PACKET_AGENTS = 64  # closure packets: these agents' estimates at
+FIRMWARE_PACKET_TICKS = tuple(range(0, 40, 5))  # these ticks, 512 packets
+FIRMWARE_ATOL = 1e-5         # card vs CPU floats (atol = rtol)
+FW_THRESHOLDS = (0.4, 0.8)   # detect_landmark_fw's 40 cm / 80 cm
+
+
+def _firmware_draws(params, rooms, seed):
+    """Everything the firmware phase consumes, made on the host with numpy
+    so that the card and the CPU see the same inputs: the robots' true
+    poses per tick (from a random place and heading in each robot's room,
+    the commanded motion kept 15 cm off its walls), the
+    commands and their ages, gyro readings, encoder counts, the commanded
+    yaw and three pings' sensor noise [T, 3, N, 4]."""
+    from swarm_tpu_torch.geom.world import agent_room_boxes
+
+    rng = np.random.default_rng(seed)
+    n, steps = params.home_x.shape[0], FIRMWARE_TICKS
+    box = agent_room_boxes(rooms[0].cpu().numpy(), rooms[1].cpu().numpy())
+    lo, hi = box[:, :2] + 0.15, box[:, 2:] - 0.15        # 15 cm off a wall
+    lin = rng.uniform(-0.2, 1.0, (steps, n)).astype(np.float32)
+    ang = rng.uniform(-2.0, 2.0, (steps, n)).astype(np.float32)
+    age = rng.uniform(0.0, 0.8, (steps, n)).astype(np.float32)
+    age[:, ::16] = 0.5                     # the dead-man's own bound
+    pose = np.zeros((steps, n, 3), np.float32)
+    p = np.concatenate([rng.uniform(lo, hi),
+                        rng.uniform(-np.pi, np.pi, (n, 1))], -1)
+    yaw_cmd = np.zeros((steps, n), np.float32)
+    for k in range(steps):
+        p[:, 2] = np.remainder(p[:, 2] + ang[k] * FIRMWARE_DT + np.pi,
+                               2 * np.pi) - np.pi
+        step = lin[k] * FIRMWARE_DT
+        p[:, :2] = np.clip(p[:, :2] + step[:, None] * np.stack(
+            [np.cos(p[:, 2]), np.sin(p[:, 2])], -1), lo, hi)
+        pose[k] = p
+        yaw_cmd[k] = p[:, 2]
+    return dict(
+        pose=pose, lin=lin, ang=ang, age=age, yaw_cmd=yaw_cmd,
+        omega=(ang + rng.normal(0, 0.01, (steps, n))).astype(np.float32),
+        counts=rng.integers(-5, 30, (steps, n)).astype(np.int32),
+        gauss=rng.standard_normal((steps, 3, n, 4)).astype(np.float32),
+        spur_u=rng.random((steps, 3, n, 4), np.float32),
+        spur_p=rng.random((steps, 3, n, 4), np.float32))
+
+
+def _firmware_run(dev, params, rooms, draws):
+    """The per-robot firmware loop on `dev` over FIRMWARE_TICKS ticks:
+    three-ping sensing against each robot's room, room-culled casting held
+    BIT-EQUAL to sense_true's cast, the firmware landmark classifier, the
+    command receiver, dead reckoning along the commanded yaw and the EKF's
+    predict and update, batched over the robots. Returns (per-tick records
+    and final states on the CPU, seconds)."""
+    from swarm_tpu_torch.config import SensorConfig
+    from swarm_tpu_torch.geom.world import cast_rays_grouped
+    from swarm_tpu_torch.models import (detect_landmark_fw, ekf_init,
+                                        ekf_predict, ekf_update,
+                                        firmware_odometry_step,
+                                        sense_4way_median3, sense_true)
+    from swarm_tpu_torch.models.scan import cmd_vel_drive
+    from swarm_tpu_torch.models.sensors import SensorNoise
+
+    def d(key, k):
+        return torch.from_numpy(draws[key][k]).to(dev)
+
+    wg, roa = rooms[0].to(dev), rooms[1].to(dev)
+    walls_agent = wg[roa.long()]                          # [N, 4, 4]
+    angles = torch.tensor(SensorConfig().angles, device=dev)
+    n = roa.shape[0]
+    pose0 = torch.from_numpy(draws["pose"][0]).to(dev)
+    zeros = torch.zeros((n,), device=dev)
+    st = ekf_init(torch.stack([pose0[:, 0], pose0[:, 1], pose0[:, 2], zeros,
+                               zeros, zeros], -1))
+    x_est, y_est = pose0[:, 0].clone(), pose0[:, 1].clone()
+    rec = {k: [] for k in ("readings", "codes", "pwm", "m")}
+    culled_apart = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    for k in range(FIRMWARE_TICKS):
+        pose = d("pose", k)
+        noise = SensorNoise(d("gauss", k), d("spur_u", k), d("spur_p", k))
+        readings = sense_4way_median3(noise, pose, walls_agent)
+        culled = cast_rays_grouped(
+            pose[:, None, :2].expand(n, 4, 2), pose[:, 2:3] + angles, wg,
+            roa[:, None].expand(n, 4))
+        culled_apart += int((culled != sense_true(pose, walls_agent)).sum())
+        codes = detect_landmark_fw(readings[:, 0], readings[:, 1],
+                                   readings[:, 3])
+        pwm = torch.stack(cmd_vel_drive(d("lin", k), d("ang", k),
+                                        d("age", k)), -1)
+        x_est, y_est, m = firmware_odometry_step(x_est, y_est,
+                                                 d("yaw_cmd", k),
+                                                 d("counts", k))
+        tk = (k + 1) * FIRMWARE_DT
+        st = ekf_predict(st, d("omega", k), tk)
+        st = ekf_update(st, m / FIRMWARE_DT, d("omega", k))
+        for key, v in (("readings", readings), ("codes", codes),
+                       ("pwm", pwm), ("m", m)):
+            rec[key].append(v)
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    out = {key: torch.stack(v).cpu() for key, v in rec.items()}
+    out.update(x_est=x_est.cpu(), y_est=y_est.cpu(), ekf_x=st.x.cpu(),
+               ekf_P=st.P.cpu(), culled_apart=culled_apart)
+    return out, sec
+
+
+def _fw_packets(rec, draws):
+    """Closure packets: FIRMWARE_PACKET_AGENTS robots' positions (the true
+    poses plus their dead-reckoning error at that tick) and landmark codes
+    at each of FIRMWARE_PACKET_TICKS, one batch of distinct agents per
+    tick, every ninth packet invalid."""
+    a = FIRMWARE_PACKET_AGENTS
+    out = []
+    for j, k in enumerate(FIRMWARE_PACKET_TICKS):
+        pose = torch.from_numpy(draws["pose"][k][:a])
+        err = 0.01 * torch.sin(torch.arange(a, dtype=torch.float32) + k)
+        valid = (torch.arange(a) + j) % 9 != 0
+        out.append((pose[:, 0] + err, pose[:, 1] - err,
+                    torch.arange(a, dtype=torch.int32),
+                    rec["codes"][k][:a].clone(), valid))
+    return out
+
+
+def _fw_closures(dev, packets):
+    """The packets through `closure_add_pose` one by one and through
+    `closure_add_poses_seq` batch by batch on `dev`: every state field,
+    closed, cdx and cdy BIT-EQUAL between the two. Returns (state, closed,
+    cdx, cdy) of the one-by-one run on the CPU, and its seconds."""
+    from swarm_tpu_torch.slam import (closure_add_pose, closure_add_poses_seq,
+                                      closure_init)
+
+    st1 = st2 = closure_init(FIRMWARE_PACKET_AGENTS, device=dev)
+    got, ref = [], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for xs, ys, ag, lm, valid in packets:
+        xs, ys, ag, lm, valid = (v.to(dev) for v in (xs, ys, ag, lm, valid))
+        for i in range(xs.shape[0]):
+            st1, c, dx, dy = closure_add_pose(st1, xs[i], ys[i], ag[i], lm[i],
+                                              valid=valid[i])
+            got.append(torch.stack([c.float(), dx, dy]))
+        st2, c, dx, dy = closure_add_poses_seq(st2, xs, ys, ag, lm,
+                                               valid=valid)
+        ref.append(torch.stack([c.float(), dx, dy], -1))
+    _sync(dev)
+    sec = time.perf_counter() - t0
+    got, ref = torch.stack(got), torch.cat(ref)
+    apart = [f for f in st1._fields
+             if not torch.equal(getattr(st1, f), getattr(st2, f))]
+    if apart or not torch.equal(got, ref):
+        raise AssertionError(f"closure_add_pose vs closure_add_poses_seq on "
+                             f"{dev}: fields {apart}, decisions equal "
+                             f"{torch.equal(got, ref)}")
+    return type(st1)(*(f.cpu() for f in st1)), got.cpu(), sec
+
+
+def _near(values, thresholds, tol):
+    """Entries within `tol` of any threshold."""
+    near = torch.zeros(values.shape, dtype=torch.bool)
+    for c in thresholds:
+        near |= (values - c).abs() <= tol
+    return near
+
+
+def phase_firmware(card, dev):
+    """Phase 33: the firmware-faithful per-robot API at FIRMWARE_AGENTS
+    robots on presets.deployable's tiled rooms for FIRMWARE_TICKS ticks,
+    then FIRMWARE_PACKET_AGENTS x len(FIRMWARE_PACKET_TICKS) closure
+    packets one by one, on the card and again on the CPU from the same
+    draws: PWM, closure decisions and ints equal, landmark codes equal
+    (but where a reading lies within FIRMWARE_ATOL of a threshold: none
+    expected), floats within FIRMWARE_ATOL (the EKF's yaw as an angle,
+    ROADMAP C31), the sentinel exact, the culled cast bit-equal to the
+    full one on each device; no raster kernel launched."""
+    from swarm_tpu_torch.config import SensorConfig
+    from swarm_tpu_torch.presets import deployable
+
+    cpu = torch.device("cpu")
+    _, _, params, rooms = deployable(FIRMWARE_AGENTS, device=cpu)
+    draws = _firmware_draws(params, rooms, SEED + 90)
+    _reset_counts()
+    runs, secs = {}, {}
+    for d in (dev, cpu):
+        runs[d.type], secs[d.type] = _firmware_run(d, params, rooms, draws)
+    packets = _fw_packets(runs["cpu"], draws)
+    closures, secs_cl = {}, {}
+    for d in (dev, cpu):
+        st, dec, secs_cl[d.type] = _fw_closures(d, packets)
+        closures[d.type] = (st, dec)
+    rd, rc = runs[dev.type], runs["cpu"]
+    atol = FIRMWARE_ATOL
+    sentinel = SensorConfig().timeout_sentinel
+    near = _near(rc["readings"][..., [0, 1, 3]], FW_THRESHOLDS, atol) | \
+        _near(rd["readings"][..., [0, 1, 3]], FW_THRESHOLDS, atol)
+    near_code = near.any(-1)
+    code_flips = int(((rd["codes"] != rc["codes"]) & ~near_code).sum())
+    near_flips = int(((rd["codes"] != rc["codes"]) & near_code).sum())
+    read_d = float((rd["readings"] - rc["readings"]).abs().max())
+    sent_c, sent_d = rc["readings"] == sentinel, rd["readings"] == sentinel
+    sent_apart = int(((sent_c != sent_d) & ~_near(rc["readings"],
+                                                   (sentinel,), atol)).sum())
+    yaw = torch.remainder(rd["ekf_x"][:, 2] - rc["ekf_x"][:, 2] + math.pi,
+                          2 * math.pi) - math.pi
+
+    def off(a, b):
+        """Largest |a - b| beyond the atol = rtol bar (<= 0 passes)."""
+        return float(((a - b).abs() - atol - atol * b.abs()).max())
+
+    float_off = max(off(rd["m"], rc["m"]), off(rd["x_est"], rc["x_est"]),
+                    off(rd["y_est"], rc["y_est"]),
+                    off(rd["ekf_x"][:, [0, 1, 3, 4, 5]],
+                        rc["ekf_x"][:, [0, 1, 3, 4, 5]]),
+                    off(rd["ekf_P"], rc["ekf_P"]), float(yaw.abs().max())
+                    - atol, off(rd["readings"], rc["readings"]))
+    (st_d, dec_d), (st_c, dec_c) = closures[dev.type], closures["cpu"]
+    ints_apart = [f for f in st_c._fields
+                  if not getattr(st_c, f).dtype.is_floating_point and
+                  not torch.equal(getattr(st_d, f), getattr(st_c, f))]
+    fl_apart = max(float((getattr(st_d, f) - getattr(st_c, f)).abs().max())
+                   for f in st_c._fields
+                   if getattr(st_c, f).dtype.is_floating_point)
+    n_closed = int(dec_c[:, 0].sum())
+    n_pk = dec_c.shape[0]
+    codes = torch.bincount(rc["codes"].reshape(-1).long(), minlength=6)
+    print(f"firmware [{card}]: {FIRMWARE_AGENTS} robots x {FIRMWARE_TICKS} "
+          f"ticks on the card {secs[dev.type]:.6f} s "
+          f"({1e3 * secs[dev.type] / FIRMWARE_TICKS:.4f} ms a tick), the "
+          f"CPU {secs['cpu']:.6f} s; {n_pk} closure packets one by one on "
+          f"the card {secs_cl[dev.type]:.6f} s "
+          f"({1e3 * secs_cl[dev.type] / n_pk:.4f} ms a packet), the CPU "
+          f"{secs_cl['cpu']:.6f} s; landmark codes {codes.tolist()}, "
+          f"{int(sent_c.sum())} sentinel readings, {n_closed} closures")
+    print(f"firmware card vs CPU [{card}]: codes apart {code_flips} (+ "
+          f"{near_flips} within {atol} of a threshold), PWM "
+          f"{'equal' if torch.equal(rd['pwm'], rc['pwm']) else 'APART'}, "
+          f"readings {read_d:.3g} apart, sentinel apart {sent_apart}, "
+          f"floats beyond the bar by {float_off:.3g} (<= 0 passes), EKF "
+          f"yaw {float(yaw.abs().max()):.3g} rad; culled vs full cast "
+          f"{rd['culled_apart']} (card) / {rc['culled_apart']} (CPU) "
+          f"readings apart; closures: ints apart {ints_apart}, decisions "
+          f"{'equal' if torch.equal(dec_d[:, 0], dec_c[:, 0]) else 'APART'}"
+          f", floats {fl_apart:.3g} apart; raster kernels "
+          f"{_no_kernel('firmware')}")
+    if code_flips or near_flips > 4 or \
+            not torch.equal(rd["pwm"], rc["pwm"]) or sent_apart or \
+            float_off > 0 or rd["culled_apart"] or rc["culled_apart"] or \
+            ints_apart or not torch.equal(dec_d[:, 0], dec_c[:, 0]) or \
+            fl_apart > atol or not n_closed or not int(sent_c.sum()) or \
+            int((codes[1:] > 0).sum()) < 2:
+        raise AssertionError("firmware phase")
+    return secs[dev.type] + secs_cl[dev.type]
+
+
+PILE_NODES = 256             # the pile-up graph: a noisy loop whose
+PILE_CLOSURES = 32           # closures mostly start at one node
+PILE_NODE = 37
+PILE_UNARY = 16
+
+
+def _pileup_graph(dev, seed):
+    """A noisy loop of PILE_NODES nodes with PILE_CLOSURES closures, 28 of
+    them from node PILE_NODE (two between the same pair), and PILE_UNARY
+    unary factors, 6 on PILE_NODE: (graph, unary) on `dev`."""
+    from swarm_tpu_torch.slam.posegraph import graph_from_trajectory
+
+    rng = np.random.default_rng(seed)
+    m, c = PILE_NODES, PILE_CLOSURES
+    s = np.linspace(0, 4 * np.pi, m)
+    truth = np.stack([np.cos(s), np.sin(s), s + np.pi / 2], -1)
+    noisy = (truth + 0.05 * rng.normal(size=truth.shape)).astype(np.float32)
+    noisy[0] = truth[0]
+    ci = np.full(c, PILE_NODE, np.int32)
+    ci[-4:] = rng.integers(m // 2, m - 1, 4)
+    cj = rng.integers(m // 2, m - 1, c).astype(np.int32)
+    cj[1] = cj[0]
+    cmeas = (0.02 * rng.normal(size=(c, 3))).astype(np.float32)
+    g = graph_from_trajectory(torch.from_numpy(noisy), m,
+                              torch.from_numpy(ci), torch.from_numpy(cj),
+                              torch.from_numpy(cmeas), c)
+    nodes = rng.integers(0, m, PILE_UNARY)
+    nodes[:6] = PILE_NODE
+    unary = (torch.from_numpy(nodes.astype(np.int32)),
+             torch.from_numpy(noisy[nodes] + 0.01 * rng.normal(
+                 size=(PILE_UNARY, 3)).astype(np.float32)),
+             torch.full((PILE_UNARY, 3), 4.0))
+    return (type(g)(*(f.to(dev) for f in g)),
+            tuple(u.to(dev) for u in unary))
+
+
+def _order_inputs(g, unary):
+    """The addends of every assembly site on the pile-up graph [1, ...],
+    computed once (on the CPU): the graph, the unary nodes, each edge's
+    gradient terms, its four Hessian blocks, the unary terms, the closures'
+    Jacobians and weights (the closure factor's inputs)."""
+    from swarm_tpu_torch.slam.posegraph import (_blk, _residuals_and_jac,
+                                                _unary_residuals)
+
+    wmask = torch.where(g.e_valid[..., None], g.weight,
+                        torch.zeros_like(g.weight))
+    r, Ji, Jj = _residuals_and_jac(g)
+    wr = wmask * r
+    Hij = _blk(Ji, Jj, wmask)
+    n_chain = g.poses.shape[1] - 1
+    return dict(
+        g=g, nodes=unary[0],
+        bi=torch.einsum("...eab,...ea->...eb", Ji, wr),
+        bj=torch.einsum("...eab,...ea->...eb", Jj, wr),
+        blocks=(_blk(Ji, Ji, wmask), _blk(Jj, Jj, wmask), Hij,
+                Hij.transpose(-1, -2)),
+        uwr=_unary_residuals(g.poses, unary)[0],
+        cl=(Ji[:, n_chain:], Jj[:, n_chain:], g.ei[:, n_chain:].long(),
+            g.ej[:, n_chain:].long(),
+            g.e_valid[:, n_chain:, None] & (wmask[:, n_chain:] > 0)))
+
+
+def _order_on(x, d):
+    """`_order_inputs` moved to device d."""
+    if isinstance(x, dict):
+        return {k: _order_on(v, d) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_order_on(v, d) for v in x)) \
+            if hasattr(x, "_fields") else tuple(_order_on(v, d) for v in x)
+    return x.to(d)
+
+
+def _former_sites(x):
+    """The scatter-add assembly the solvers used before their plans
+    (ROADMAP C43), on the addends' device: {site: sum}."""
+    from swarm_tpu_torch.slam.tridiag import _closure_factor
+
+    g = x["g"]
+
+    def rows(idx, src):
+        return torch.zeros_like(g.poses).scatter_add_(
+            -2, idx.long()[..., None].expand(src.shape), src)
+
+    b = rows(g.ei, x["bi"]).scatter_add_(
+        -2, g.ej.long()[..., None].expand(x["bj"].shape), x["bj"])
+    nb, m = g.poses.shape[:2]
+    H = torch.zeros((nb, 3 * m, 3 * m), device=b.device)
+    k = torch.arange(3, device=b.device)
+    for a_, c_, blocks in zip((g.ei, g.ej, g.ei, g.ej),
+                              (g.ei, g.ej, g.ej, g.ei), x["blocks"]):
+        rr = (3 * a_.long()[..., None, None] + k[:, None]).expand_as(blocks)
+        cc = (3 * c_.long()[..., None, None] + k[None, :]).expand_as(blocks)
+        bb = torch.arange(nb, device=b.device)[:, None, None, None]
+        H.index_put_((bb.expand_as(blocks).reshape(-1), rr.reshape(-1),
+                      cc.reshape(-1)), blocks.reshape(-1), accumulate=True)
+    Jic, Jjc, ci, cj, live = x["cl"]
+    n_chain = m - 1
+    return {
+        "gradient (posegraph._gradient, scatter_add_)": b,
+        "dense Hessian (posegraph._add_blocks, index_put_ accumulate)": H,
+        "unary terms (posegraph.unary_terms, scatter_add_)": rows(
+            x["nodes"], x["uwr"]),
+        "closure factor (tridiag._closure_factor, index_put_ accumulate)":
+            _closure_factor(Jic, Jjc, ci, cj, live, m),
+        "sharded trajectory solver's closure gradient (index_add)":
+            b[0].index_add(0, ci[0], x["bi"][0, n_chain:]).index_add(
+                0, cj[0], x["bj"][0, n_chain:]),
+    }
+
+
+def _plan_sites(x):
+    """The same sums through the solvers' AddPlans: {site: sum}."""
+    from swarm_tpu_torch.slam.posegraph import (_plan_rows, _sum_blocks,
+                                                add_plans, plan_add,
+                                                solve_plans)
+
+    g = x["g"]
+    plans = solve_plans(g, (x["nodes"],), hessian=True)
+    m = g.poses.shape[1]
+    b = _plan_rows(g.poses, plans["b"], torch.cat(
+        [x["bi"].reshape(-1, 3), x["bj"].reshape(-1, 3)]))
+    ci, cj = x["cl"][2][0], x["cl"][3][0]
+    cl = add_plans((torch.cat([ci, cj]), 2 * ci.numel()))[0]
+    return {
+        "gradient": b,
+        "dense Hessian": _sum_blocks(g.poses, plans["H"], x["blocks"]),
+        "unary terms": _plan_rows(g.poses, plans["unary"], x["uwr"]),
+        "sharded trajectory solver's closure gradient": plan_add(
+            b[0].clone(), cl, torch.cat([x["bi"][0, m - 1:],
+                                         x["bj"][0, m - 1:]])),
+    }
+
+
+def phase_solve_order(card, dev):
+    """Phase 34: the solvers summed in a fixed order (ROADMAP C43). First
+    each assembly site on the pile-up graph from the same addends (the
+    CPU's, `_order_inputs`): the former scatter-add form run twice on the
+    card (the
+    bits apart between the runs and against the CPU: the finding for each
+    site) and the plans' form, which must be BIT-EQUAL to the CPU's and
+    between the runs. Then the batched dense and structured solves of
+    phase 25's graphs and of the pile-up graph (dense and structured, with
+    unary factors) twice on the card: BIT-IDENTICAL runs, and within
+    SOLVE_CPU_ATOL of the CPU (yaws as angles) with final costs within
+    rtol 1e-3."""
+    from swarm_tpu_torch.slam.posegraph import (batched, gauss_newton,
+                                                optimize_graphs_batch)
+    from swarm_tpu_torch.slam.tridiag import structured_gn, structured_gn_batch
+
+    cpu = torch.device("cpu")
+    _reset_counts()
+    g1, un1 = _pileup_graph(cpu, SEED + 82)
+    inputs = _order_inputs(batched(g1), tuple(u[None] for u in un1))
+    for name, fn, hard in (("former", _former_sites, False),
+                           ("plan", _plan_sites, True)):
+        ref = fn(inputs)
+        run1, run2 = fn(_order_on(inputs, dev)), fn(_order_on(inputs, dev))
+        for site in ref:
+            runs = _bit_differ(run1[site].cpu(), run2[site].cpu())
+            vs_cpu = _bit_differ(run1[site].cpu(), ref[site])
+            print(f"solve order [{card}] {name} {site}: runs apart in "
+                  f"{runs}, card vs CPU in {vs_cpu} of {ref[site].numel()} "
+                  f"entries")
+            if hard and (runs or vs_cpu):
+                raise AssertionError(f"solve order: {name} {site}")
+
+    loops = _loop_graphs(SOLVE_GRAPHS, SOLVE_NODES, cpu, SEED + 80)
+    cases = (
+        ("dense batch", loops, None, lambda gg, _: optimize_graphs_batch(
+            gg, iterations=SOLVE_ITERS)),
+        ("structured batch", loops, None, lambda gg, _: structured_gn_batch(
+            gg, SOLVE_NODES - 1, iterations=SOLVE_ITERS)),
+        ("dense pile-up + unary", g1, un1, lambda gg, uu: gauss_newton(
+            gg, iterations=SOLVE_ITERS, unary=uu)),
+        ("structured pile-up + unary", g1, un1, lambda gg, uu: structured_gn(
+            gg, PILE_NODES - 1, iterations=SOLVE_ITERS, unary=uu)),
+    )
+    times = {}
+    for name, gc, uc, solve in cases:
+        gd = type(gc)(*(f.to(dev) for f in gc))
+        ud = None if uc is None else tuple(u.to(dev) for u in uc)
+        (o1, c1), sec = _wall(lambda: solve(gd, ud), dev)
+        o2, c2 = solve(gd, ud)
+        oc, cc = solve(gc, uc)
+        runs = _bit_differ(o1.poses.cpu(), o2.poses.cpu()) + \
+            _bit_differ(c1.cpu(), c2.cpu())
+        pos, yaw = _graph_pose_diff(o1.poses, oc.poses)
+        cost = float(((c1[..., -1].cpu() - cc[..., -1]).abs()
+                      / cc[..., -1].abs().clamp_min(1e-6)).max())
+        print(f"solve order [{card}] {name}: {sec:.6f} s on the card, two "
+              f"runs apart in {runs} bits, card vs CPU {pos:.3g} m / "
+              f"{yaw:.3g} rad, final cost rtol {cost:.3g}")
+        if runs or max(pos, yaw) > SOLVE_CPU_ATOL or cost > 1e-3 or \
+                not bool(torch.isfinite(o1.poses).all()):
+            raise AssertionError(f"solve order: {name}")
+        times[name] = sec
+    print(f"solve order raster kernels {_no_kernel('solve order')}")
+    return times
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
     records of the JSON line."""
@@ -4588,6 +5068,11 @@ def run(card, dev) -> list:
 
     # the sharded engine's XLA tiers (no raster kernel on these paths)
     phase_sharded_tiers(card, dev)
+
+    # the firmware-faithful per-robot API and the solvers' fixed-order
+    # sums (no raster kernel on these paths)
+    phase_firmware(card, dev)
+    phase_solve_order(card, dev)
 
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),

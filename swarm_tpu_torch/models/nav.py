@@ -22,6 +22,9 @@ AVOID_FRONT = 3
 GO_TO_TARGET = 4
 RETURN_HOME_STRAIGHT = 5
 
+NAV_STATE_NAMES = ("FOLLOW", "CORNER_ROUND", "TURN_TO_WALL", "AVOID_FRONT",
+                   "GO_TO_TARGET", "RETURN_HOME_STRAIGHT")
+
 RETURN_STYLE_STRAIGHT = 0
 RETURN_STYLE_GOHOME = 1
 RETURN_STYLE_PROXIMITY = 2

@@ -1,5 +1,6 @@
 """Odometry models: drift integration, encoder counts, yaw quantisation
-(swarm_tpu/models/odometry.py), batched over agents.
+and the firmware's dead reckoning (swarm_tpu/models/odometry.py), batched
+over agents.
 
 The drift noise is an input (`DriftNoise`, standard normals per agent): the
 JAX step's own draws in the parity tests, `draw_drift_noise` in a run.
@@ -11,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from swarm_tpu_torch._device import div
 from swarm_tpu_torch.config import NoiseConfig
 from swarm_tpu_torch.utils.angles import degrees, wrap_pi
 
@@ -91,3 +93,14 @@ def quantize_yaw_deg(yaw_rad, step_deg: float = 15.0):
     """Reported yaw quantised to the commanded-turn grid, in degrees.
     torch.round is round-half-to-even, like jnp.round and Python's round."""
     return torch.round(degrees(yaw_rad) / step_deg) * step_deg
+
+
+def firmware_odometry_step(x, y, yaw_cmd, encoder_counts,
+                           cm_per_groove: float = 21.0 / 20.0):
+    """Firmware dead reckoning: encoder ticks -> metres along the COMMANDED
+    yaw, not the IMU yaw, so that gyro drift stays out of it
+    (AgentFirmware_Bot1.ino:269-281, 704-707). Negative counts move
+    nothing. Returns (x, y, metres)."""
+    m = div(torch.clamp_min(encoder_counts, 0).to(torch.float32)
+            * cm_per_groove, 100.0)
+    return x + m * torch.cos(yaw_cmd), y + m * torch.sin(yaw_cmd), m

@@ -1,5 +1,6 @@
 """4-way ultrasonic sensing: exact ray cast from the TRUE pose + noise
-(swarm_tpu/models/sensors.py).
+(swarm_tpu/models/sensors.py), and the firmware's three-ping median with
+its 4.0 m timeout sentinel (`sense_4way_median3`).
 
 The noise is an input. `jax.random` draws cannot be reproduced by torch, so
 the port's sensing takes its draws as a `SensorNoise` of tensors shaped like
@@ -31,6 +32,14 @@ def draw_sensor_noise(generator: torch.Generator, shape,
         gauss=torch.randn(shape, generator=generator, device=device),
         spur_u=torch.rand(shape, generator=generator, device=device),
         spur_p=torch.rand(shape, generator=generator, device=device))
+
+
+def draw_median3_noise(generator: torch.Generator, shape,
+                       device) -> SensorNoise:
+    """The draws of `sense_4way_median3`: three pings' SensorNoise, each
+    leaf with a leading [3] axis."""
+    pings = [draw_sensor_noise(generator, shape, device) for _ in range(3)]
+    return SensorNoise(*(torch.stack(leaf) for leaf in zip(*pings)))
 
 
 def walls_for_rays(walls):
@@ -69,3 +78,20 @@ def sense_4way(noise: SensorNoise, pose_true, walls,
     """Full sensing step: exact cast + reference noise. [N, 4] metres."""
     return apply_ultrasonic_noise(noise, sense_true(pose_true, walls, cfg),
                                   cfg)
+
+
+def sense_4way_median3(noise, pose_true, walls,
+                       cfg: SensorConfig = SensorConfig()):
+    """Firmware-style sensing (AgentFirmware_Bot1.ino:239-253): three noisy
+    pings per channel, their median, and a reading beyond the sonar's
+    envelope reported as the timeout sentinel (`cfg.timeout_sentinel`).
+    noise: three SensorNoise, or one whose leaves have a leading [3] axis
+    (`draw_median3_noise`). Returns [N, 4] metres."""
+    if isinstance(noise, SensorNoise):
+        noise = [SensorNoise(*leaves) for leaves in zip(*noise)]
+    true_dist = sense_true(pose_true, walls, cfg)
+    pings = torch.stack([apply_ultrasonic_noise(n, true_dist, cfg)
+                         for n in noise])
+    med = torch.median(pings, dim=0).values
+    return torch.where(med > cfg.timeout_sentinel,
+                       torch.full_like(med, cfg.timeout_sentinel), med)

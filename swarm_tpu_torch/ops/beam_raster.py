@@ -31,6 +31,9 @@ from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.ops.raster import ordered_add
 from swarm_tpu_torch.utils.angles import jmod
 
+PATCH_ROWS = 80         # the reference's legacy patch defaults (patch_dims
+PATCH_COLS = 384        # sizes a patch from the reach)
+
 REACH_CELLS = 26        # max beam reach: 1.2 m trust / 5 cm + ring margin
 
 # 16-bit pair packing (the room kernel's per-beam table): 15-bit ranges in

@@ -25,7 +25,8 @@ import torch.distributed as dist
 from swarm_tpu_torch.parallel.mesh import RankLayout
 from swarm_tpu_torch.slam.posegraph import (PoseGraph, _blk,
                                             _gauss_newton_batch,
-                                            _residuals_and_jac)
+                                            _residuals_and_jac, add_plans,
+                                            plan_add)
 from swarm_tpu_torch.slam.tridiag import (_closure_factor,
                                           _structured_gn_batch,
                                           solve_chain_plus_closures)
@@ -99,6 +100,9 @@ def make_trajectory_sharded_gn(layout: RankLayout, n_chain: int,
             live = g.e_valid[n_chain:, None] & (wcl > 0)
             s_inv = torch.where(live, 1.0 / torch.clamp_min(wcl, 1e-12),
                                 torch.ones_like(wcl)).reshape(-1)
+            # the closures' gradient: each node's terms summed in closure
+            # order on every device (ROADMAP C43), one plan for the solve
+            cl_plan = add_plans((torch.cat([ci, cj]), 2 * c))[0]
 
         def cost_at(poses):
             r2, _, _ = _residuals_and_jac(g_loc._replace(poses=poses))
@@ -136,9 +140,9 @@ def make_trajectory_sharded_gn(layout: RankLayout, n_chain: int,
             if c > 0:
                 # closures: the replicated low-rank term and its gradient
                 rcl, Jicl, Jjcl = r[chunk:], Ji[chunk:], Jj[chunk:]
-                b = b.index_add(0, ci, torch.einsum(
-                    "eab,ea->eb", Jicl, wcl * rcl)).index_add(
-                    0, cj, torch.einsum("eab,ea->eb", Jjcl, wcl * rcl))
+                b = plan_add(b.clone(), cl_plan, torch.cat([
+                    torch.einsum("eab,ea->eb", Jicl, wcl * rcl),
+                    torch.einsum("eab,ea->eb", Jjcl, wcl * rcl)]))
                 cost = cost + (wcl * rcl * rcl).sum()
                 U = _closure_factor(Jicl[None], Jjcl[None], ci[None],
                                     cj[None], live[None], m)[0]

@@ -2,7 +2,9 @@
 (swarm_tpu/slam/closure.py `ClosureState`, `closure_init`,
 `closure_add_poses_batch`, `closure_add_pose`).
 
-Two forms. `closure_add_poses_batch` is the throughput form: one step's
+Three forms. `closure_add_pose` is the reference's one-packet check,
+field for field (the parity replay's and the native oracle's unit).
+`closure_add_poses_batch` is the throughput form: one step's
 packets (one per agent) are matched against the landmarks stored BEFORE the
 batch, the first match in insertion order wins, the closure log and the
 landmark ring append in packet order. `closure_add_poses_seq` is the
@@ -90,6 +92,88 @@ def closure_init(n_agents: int, cfg: SlamConfig = SlamConfig(),
         cl_mx=zf(C), cl_my=zf(C), cl_mth=zf(C),
         cl_fit=torch.full((C,), -1.0, dtype=torch.float32, device=device),
         last_pair_node=fi((n_agents,), NEG_NODE))
+
+
+def closure_add_pose(state: ClosureState, x, y, agent, lm_type,
+                     cfg: SlamConfig = SlamConfig(), valid=True,
+                     yaw=None, scan=None):
+    """Add one pose (already drift-corrected) and run the closure check
+    (ref dual_bot_mapper.py:261-338): the packet is matched against every
+    stored landmark and the first hit in insertion order wins; its
+    landmark is stored after matching, with `yaw` (0 when None) and, with
+    `cfg.closure_scanmatch`, `scan` [R]; a closure is logged unmeasured
+    (cl_fit = -1). x, y, agent, lm_type and valid are scalars or 0-d
+    tensors; an invalid packet leaves the state untouched. No host read.
+    Returns (new_state, closed, cdx, cdy)."""
+    dev = state.lm_x.device
+    f32, i32 = torch.float32, torch.int32
+
+    def as_t(v, dtype):
+        return torch.as_tensor(v, dtype=dtype, device=dev)
+
+    x, y = as_t(x, f32), as_t(y, f32)
+    agent = as_t(agent, torch.int64)
+    agent32 = agent.to(i32)
+    lm_type = as_t(lm_type, i32)
+    valid = as_t(valid, torch.bool)
+    idx = state.n_nodes
+    L = state.lm_x.shape[0]
+    slots = torch.arange(L, dtype=i32, device=dev)
+    has_lm = (lm_type != 0) & valid
+
+    # the first-match closure test (ref :292-326)
+    last_cl_agent = state.last_closure_node[agent]
+    match = (slots < torch.clamp_max(state.lm_count, L)) & \
+        (state.lm_type == lm_type) & \
+        ((idx - state.lm_node) >= cfg.min_poses_between) & \
+        (((x - state.lm_x) ** 2 + (y - state.lm_y) ** 2)
+         < cfg.closure_radius_m ** 2) & \
+        ((idx - last_cl_agent) >= cfg.min_poses_between) & has_lm
+    if cfg.closure_same_agent_only:
+        match = match & (state.lm_agent == agent32)
+    closed = match.any()
+    first = torch.argmin(torch.where(match, slots, torch.full_like(slots, L)))
+    zero = torch.zeros((), dtype=f32, device=dev)
+    cdx = torch.where(closed, (state.lm_x[first] - x)
+                      * cfg.closure_correction, zero)
+    cdy = torch.where(closed, (state.lm_y[first] - y)
+                      * cfg.closure_correction, zero)
+
+    def put(buf, slot, keep, val):
+        """buf with buf[slot] = val where `keep` (a copy)."""
+        out = buf.clone()
+        out[slot] = torch.where(keep, torch.as_tensor(val, dtype=buf.dtype,
+                                                      device=dev), buf[slot])
+        return out
+
+    last_cl = put(state.last_closure_node, agent, closed, idx)
+    drift_dx = state.drift_dx.clone()
+    drift_dx[agent] = state.drift_dx[agent] + torch.where(closed, cdx, zero)
+    drift_dy = state.drift_dy.clone()
+    drift_dy[agent] = state.drift_dy[agent] + torch.where(closed, cdy, zero)
+
+    # the closure log (ring buffer)
+    cslot = torch.remainder(state.cl_count, state.cl_node.shape[0]).long()
+    log = {f: put(getattr(state, f), cslot, closed, v) for f, v in (
+        ("cl_lm_node", state.lm_node[first]), ("cl_node", idx),
+        ("cl_dx", cdx), ("cl_dy", cdy), ("cl_agent", agent32),
+        ("cl_mx", 0.0), ("cl_my", 0.0), ("cl_mth", 0.0), ("cl_fit", -1.0))}
+
+    # the landmark append AFTER matching (ref :288)
+    lslot = torch.remainder(state.lm_count, L).long()
+    ring = {f: put(getattr(state, f), lslot, has_lm, v) for f, v in (
+        ("lm_x", x), ("lm_y", y), ("lm_type", lm_type), ("lm_node", idx),
+        ("lm_agent", agent32), ("lm_yaw", 0.0 if yaw is None else yaw))}
+    lm_scan = state.lm_scan
+    if scan is not None and cfg.closure_scanmatch:
+        lm_scan = put(lm_scan, lslot, has_lm, as_t(scan, lm_scan.dtype))
+
+    new = state._replace(
+        **ring, lm_scan=lm_scan, lm_count=state.lm_count + has_lm.to(i32),
+        n_nodes=idx + valid.to(i32), last_closure_node=last_cl,
+        drift_dx=drift_dx, drift_dy=drift_dy, **log,
+        cl_count=state.cl_count + closed.to(i32))
+    return new, closed, cdx, cdy
 
 
 def _ring_put(buf, slot, vals, keep):

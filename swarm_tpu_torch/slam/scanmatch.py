@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from swarm_tpu_torch._device import div
+from swarm_tpu_torch.config import GridConfig, SlamConfig
 from swarm_tpu_torch.utils.angles import linspace_f32
 
 class WindowMatch(NamedTuple):
@@ -345,7 +346,6 @@ def match_grids(local_occ, global_occ, cfg=None, slam=None,
     sub-cell refinement, and ICP's inlier fraction against the global map
     dilated by `icp_threshold_m` as the fitness. Returns the transform
     FROM local TO global (p' = R(dtheta) (p - c) + c + (dx, dy))."""
-    from swarm_tpu_torch.config import GridConfig, SlamConfig
     cfg = GridConfig() if cfg is None else cfg
     slam = SlamConfig() if slam is None else slam
     w = slam.scanmatch_window_cells
@@ -408,3 +408,11 @@ def match_grids_batch(local_occs, global_occ, cfg=None, slam=None,
     out = [match_grids(lo, global_occ, cfg, slam, fitness_min)
            for lo in local_occs]
     return MatchResult(*(torch.stack(f) for f in zip(*out)))
+
+
+def occupancy_mass(tri_grid, cfg: GridConfig = GridConfig()):
+    """Tri-state grid -> occupancy mass in [0, 1]: OCCUPIED cells only
+    (map_merger's > 50 threshold, map_merger.py:67), float32. The live
+    merge's mass of log-odds cells is another function,
+    `slam.livemerge.occupancy_mass`."""
+    return (tri_grid == cfg.occupied).to(torch.float32)

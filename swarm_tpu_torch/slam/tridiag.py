@@ -9,6 +9,9 @@ couple consecutive poses) plus a low-rank update from the closure edges:
     (T + U S U^T)^-1 b = T^-1 b - T^-1 U (S^-1 + U^T T^-1 U)^-1 U^T T^-1 b,
     one chain solve with 3C + 1 right-hand sides and one dense (3C, 3C)
     solve (`solve_chain_plus_closures`).
+The gradient is summed per node in edge order on every device
+(`posegraph.solve_plans`, ROADMAP C43); the closure factor's writes name
+no entry twice, and the chain blocks add each node once.
 `structured_gn` rejects a step whose cost is not finite or rises past 2.5x
 and escalates the damping 10x, as the reference does. The solver runs on a
 batch of graphs (a leading [B] axis, the reference's `jax.vmap`), each with
@@ -25,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from swarm_tpu_torch.slam.posegraph import (PoseGraph, _blk, _gradient,
-                                            _residuals_and_jac, batched,
+                                            _residuals_and_jac, _unary_cost,
+                                            batched, solve_plans,
                                             unary_terms, unbatched)
 from swarm_tpu_torch.utils.angles import wrap_pi
 
@@ -198,7 +202,7 @@ def _structured_gn_batch(g: PoseGraph, n_chain: int, iterations: int,
         r, _, _ = _residuals_and_jac(g._replace(poses=poses))
         cost = (wmask_all * r * r).sum(dim=(-2, -1))
         if unary is not None:
-            cost = cost + unary_terms(poses, unary)[2]
+            cost = cost + _unary_cost(poses, unary)
         return cost
 
     if c > 0:
@@ -209,6 +213,7 @@ def _structured_gn_batch(g: PoseGraph, n_chain: int, iterations: int,
         s_inv = torch.where(live, 1.0 / torch.clamp_min(cw, 1e-12),
                             torch.ones_like(cw)).reshape(nb, -1)
 
+    plans = solve_plans(g, unary)
     poses = g.poses
     lam = torch.full((nb,), damping, dtype=dtype, device=dev)
     costs = []
@@ -216,10 +221,10 @@ def _structured_gn_batch(g: PoseGraph, n_chain: int, iterations: int,
         gg = g._replace(poses=poses)
         r, Ji, Jj = _residuals_and_jac(gg)
         wr = wmask_all * r
-        b = _gradient(gg, Ji, Jj, wr)
+        b = _gradient(gg, Ji, Jj, wr, plans["b"])
         u_cost = 0.0
         if unary is not None:
-            b_add, d_add, u_cost = unary_terms(poses, unary)
+            b_add, d_add, u_cost = unary_terms(poses, unary, plans["unary"])
             b = b + b_add
 
         D, O = _chain_system(Ji[:, :n_chain], Jj[:, :n_chain],

@@ -1,0 +1,1 @@
+from swarm_tpu_torch.utils.angles import wrap_pi  # noqa: F401
