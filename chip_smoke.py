@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero; nothing is caught and then passed):
   1. build the three raster kernels (swarm_tpu_torch/csrc/free_raster.cu,
-     room_raster.cu and exact_raster.cu) from the checkout, one nvcc each,
-     started together; print each build time, and per instance of the
+     room_raster.cu and exact_raster.cu) and the roofline's float32 probe
+     (fp32_probe.cu) from the checkout, one nvcc each, started together;
+     print each build time, and per instance of the
      window, room and exact-raster kernels its registers and spilled bytes
      (ptxas) and its resident blocks per SM (CUDA's occupancy calculator);
   2. each kernel, in each of its per-beam forms, vs its plain torch version
@@ -64,9 +65,7 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      time per fan, peak memory, coverage of the reachable cells;
   7. the ultrasonic-only path: presets.deployable(1024, scan_rays=0), 101
      steps, one pack8 + ring launch on the 4-way fan per step;
-  8. the coverage tool's own configuration (64 agents, 1024^2): 400 steps
-     wall-following, then 400 with frontier targets; both coverages > 0;
-     then each entry point of the exploration path through sim_rollout at
+  8. each entry point of the exploration path through sim_rollout at
      1024 agents for 17 steps (coverage with and without frontier targets,
      bench.py --frontiers, bench.py --scan-rays 0), its launches per form
      checked;
@@ -308,11 +307,39 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      and structured, with the unary factors) solved twice on the card:
      the runs BIT-IDENTICAL, the card within 1e-3 of the CPU (yaws as
      angles), final costs within rtol 1e-3. Phases 33-34 launch no raster
-     kernel.
+     kernel;
+ 35. bench.py on the port, `python -m swarm_tpu_torch.bench` at its
+     defaults (1024 agents, a warm chunk and 2 timed chunks of 200 steps,
+     the reconciliation's 131 steps, the merge probe), called in this
+     process through its `main` with the counters set to 0 just before
+     and read just after: pack8-ring launched once a step and the room
+     kernel never, the fresh ratio above 0.6, merges, a finite merge
+     event; then `--room-kernel --steps 50 --chunks 1`: pack16-ring of
+     the room kernel once a step and the window kernel never;
+ 36. `bench_coverage --agents 64 --steps 300 --chunk 100` (the coverage
+     tool's own configuration, 64 agents on 1024^2): both variants'
+     coverage > 0, pack16 and pack16-wrapped once a step each;
+ 37. `bench_merge --inner 16`: three finite times; the 1024-node graph
+     solved dense and structured on the card and on the CPU: poses within
+     1e-3 (dense) and 5e-3 (structured: float32 sets this graph's solve
+     to ~1e-3, ROADMAP C44), yaws as angles, final costs within rtol 1e-3;
+ 38. `profile_step --agents 1024 --inner 16 --reps 1`: all 18 rows timed
+     on the device and on the host, the step split's rest >= 0;
+ 39. `roofline`: csrc/fp32_probe.cu BIT-EQUAL to its torch chain, the
+     deployable window kernel's share of its bound in (0, 1.05];
+ 40. `quality_onchip --steps 300 --turbo`: IoU and wall p90 of the pack16,
+     pack8 and grouped tiers against the exact tier;
+ 41. `proto_phase_quality`: the static and phase-rotated rows. Each
+     tool prints its own lines and JSON, and its seconds.
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
-`exact_raster[<fan>]`), then the card's name and power limit; the last
-line is {"ok": true, "device": {...}}.
+`exact_raster[<fan>]`; pack16 and pack16-wrapped at 64 agents on 1024^2,
+the accuracy path's and bench_coverage's shapes, are the records
+`free_raster[pack16-64-agents]` and `[pack16-wrapped-64-agents]`), then
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}. A record's `launches` counts the launches of the paths at its
+shapes: the window path's pack8-ring and the room path's pack16-ring add
+phase 35's.
 """
 
 from __future__ import annotations
@@ -329,7 +356,15 @@ import types
 import numpy as np
 import torch
 
-from kernel_ab import device_ms
+from swarm_tpu_torch.bench_coverage import reachable_mask
+from swarm_tpu_torch.profile_step import median as _median
+from swarm_tpu_torch.profile_step import sharded_parts as _sharded_parts
+from swarm_tpu_torch.profile_step import step_split as _step_split
+from swarm_tpu_torch.roofline import bound as _bound
+from swarm_tpu_torch.roofline import box_cells as _box_cells
+from swarm_tpu_torch.roofline import card as _card
+from swarm_tpu_torch.roofline import covered_cells as _covered_cells
+from swarm_tpu_torch.roofline import device_ms, needed_bytes
 
 N_AGENTS = 1024
 SLICE_AGENTS = 32768         # bench.py --agents 32768 --grid-dtype bfloat16
@@ -343,14 +378,9 @@ REF_AGENTS = 8
 REF_STEPS = 34
 EXPLORE_REF_STEPS = 17       # three frontier events (steps 0, 8, 16)
 COVERAGE_AGENTS = 64         # tools/bench_coverage.py's default
-COVERAGE_STEPS = 400
 ULTRASONIC_STEPS = 101
 ENTRY_STEPS = 17             # three frontier events (steps 0, 8, 16)
 SEED = 0
-# H100 SXM peaks (NVIDIA's data sheet): HBM bandwidth and float32 outside
-# the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # operations per cell evaluation of either raster kernel, counted from
 # csrc/raster_common.cuh `polar` (~50: the radius, the atan2 polynomial,
 # the bin, the crossing count) plus the table lookup, the carve, the ring,
@@ -363,14 +393,6 @@ OPS_PER_CELL = 80
 OPS_PER_CELL_EXACT = 90
 GROUPED_STEPS = TIMED_STEPS                  # the grouped paths' timed steps
 EXACT_FRAMES = 17            # sensed frames through the exact raster's entry
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()].strip()
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -398,14 +420,6 @@ def _ab_ms(first, second, reps_first: int, reps_second: int):
     return min(a1, a2), min(b1, b2), (a1, b1, b2, a2)
 
 
-def _bound(n_bytes: float, n_ops: float):
-    """(least time in ms, what bounds it) for the bytes a function must
-    move and the operations it must do, at the card's published peaks."""
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / FP32_OPS_PER_S * 1e3
-    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
-
-
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -431,7 +445,7 @@ def _bounds(elem: int, covered: int, changed: int, operand_bytes: int,
     every covered cell read and written once, every cell of the fan-bbox
     strips (`evaluated`) evaluated. Returns (the bounds, the needed
     bytes)."""
-    n_bytes = elem * (covered + changed) + operand_bytes
+    n_bytes = needed_bytes(elem, covered, changed, operand_bytes)
     bound, bound_by = _bound(n_bytes, changed * ops_per_cell)
     covered_bound = _bound(2 * elem * covered + operand_bytes,
                            evaluated * ops_per_cell)[0]
@@ -445,7 +459,7 @@ def _timed(worst, t_kernel, t_plain, runs, t_wrapper, t_device, bounds,
     is the launch call on prepared operands (CUDA events, median of 20:
     host gap, the wrapper's fill and sum, the kernel; the records' measure
     from the first kernel on), `device_ms` the kernel alone
-    (`kernel_ab.device_ms`)."""
+    (`roofline.device_ms`)."""
     text = (f"launch call {t_kernel:.4f} ms (runs {runs[0]:.4f}, "
             f"{runs[3]:.4f}), kernel alone {t_device:.4f} ms (profiler), "
             f"wrapper with its preparation {t_wrapper:.4f} ms, plain torch "
@@ -462,7 +476,7 @@ def phase_build():
     from swarm_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    built = cuda_build.build_all(["free_raster", "room_raster",
+    built = cuda_build.build_all(["free_raster", "room_raster", "fp32_probe",
                                   "exact_raster"])
     for name, (lib, secs) in built.items():
         print(f"kernel build [{name}]: {secs:.2f} s ({os.path.relpath(lib)};"
@@ -649,25 +663,6 @@ def _max_abs_diff(a, b) -> float:
     return float(torch.where(torch.isnan(d), torch.zeros_like(d), d).max())
 
 
-def _box_cells(w, spec) -> int:
-    """The cells the window kernel evaluates on a clean grid: per agent its
-    evaluation box (`beam_raster_cuda.evaluation_box`) within its window
-    and its fan-bbox strips."""
-    from swarm_tpu_torch.ops import beam_raster_cuda as bc
-
-    r_lo, r_hi, c_lo, c_hi = bc.evaluation_box(w.table, w.kind, w.ring,
-                                               w.ax, w.ay, w.yaw, spec,
-                                               w.n_bins)
-    row0, col0 = w.row0.to(torch.float32), w.col0.to(torch.float32)
-    rows = torch.minimum(r_hi, row0 + w.rows) - torch.maximum(r_lo, row0)
-    lo = torch.maximum(torch.maximum(c_lo, col0),
-                       col0 + 128 * w.t_cl.to(torch.float32))
-    hi = torch.minimum(torch.minimum(c_hi, col0 + w.cols),
-                       col0 + 128 * w.t_ch.to(torch.float32))
-    return int((rows.clamp_min(0).double() *
-                (hi - lo).clamp_min(0).double()).sum())
-
-
 def _room_box_cells(rm, spec) -> int:
     """The cells the room kernel evaluates: per slot (an empty one too) its
     evaluation box within its window."""
@@ -720,21 +715,6 @@ def _hold_equal(name, kernel, plain, cases, size):
         if float(c_k.sum()) <= 0:
             raise AssertionError(f"{name}: nothing painted [{case}]")
     return worst
-
-
-def _covered_cells(w, size, dev, n_cols=None) -> int:
-    """The cells of the union of the agents' windows (`w.row0`, `w.col0`,
-    `w.rows`, `w.cols`) on a [size, n_cols or size] grid: windows are
-    8-row (16 on bf16) and 128-column aligned, so an [S/8, S/128] mask
-    counts them exactly."""
-    blocks = torch.zeros((-(-size // 8), (n_cols or size) // 128),
-                         dtype=torch.bool, device=dev)
-    rb = (w.row0 // 8).long()[:, None] + torch.arange(w.rows // 8,
-                                                      device=dev)
-    cb = (w.col0 // 128).long()[:, None] + torch.arange(w.cols // 128,
-                                                        device=dev)
-    blocks[rb[:, :, None], cb[:, None, :]] = True
-    return int(blocks.sum()) * 8 * 128
 
 
 def _plain_in_chunks(plain):
@@ -1225,33 +1205,6 @@ def phase_reference(dev, name: str, steps: int = REF_STEPS,
         raise AssertionError(f"reference [{name}]: merge counts differ")
 
 
-def reachable_mask(walls, grid_cfg, inset_cells: int = 1):
-    """Ground-truth reachable free space (tools/bench_coverage.py
-    `reachable_mask`): cells whose centres lie inside a room rectangle
-    inset by `inset_cells`. Rooms are 4 consecutive wall segments."""
-    import numpy as np
-
-    res = grid_cfg.resolution
-    s = grid_cfg.size
-    mask = np.zeros((s, s), bool)
-    rects = np.asarray(walls, np.float64).reshape(-1, 4, 4)
-    for seg in rects:
-        xs = np.concatenate([seg[:, 0], seg[:, 2]])
-        ys = np.concatenate([seg[:, 1], seg[:, 3]])
-        x0, x1 = xs.min(), xs.max()
-        y0, y1 = ys.min(), ys.max()
-        pad = inset_cells * res
-        cx0 = int(np.ceil((x0 + pad - grid_cfg.origin_x) / res))
-        cx1 = int(np.floor((x1 - pad - grid_cfg.origin_x) / res))
-        cy0 = int(np.ceil((y0 + pad - grid_cfg.origin_y) / res))
-        cy1 = int(np.floor((y1 - pad - grid_cfg.origin_y) / res))
-        cx0, cy0 = max(cx0, 0), max(cy0, 0)
-        cx1, cy1 = min(cx1, s - 1), min(cy1, s - 1)
-        if cx1 >= cx0 and cy1 >= cy0:
-            mask[cy0:cy1 + 1, cx0:cx1 + 1] = True
-    return mask
-
-
 def _coverage(logodds, reach) -> float:
     """Fraction of the reachable cells the map calls FREE (the coverage
     tool's count, tools/bench_coverage.py:93-95)."""
@@ -1405,42 +1358,6 @@ def phase_endpoint_scatter(card, dev, cfg, rooms, state):
               f"build the rays)")
 
 
-def phase_coverage_tool(card, dev):
-    """tools/bench_coverage.py's own configuration (64 agents, 1024^2,
-    greedy_assign): wall-following, then frontier targets, COVERAGE_STEPS
-    steps each; the closed loop is chaotic, so only coverage > 0 is
-    required."""
-    from swarm_tpu_torch import presets
-    from swarm_tpu_torch.engine.sim import make_sim_step, sim_init
-
-    out = {}
-    for name, frontiers in (("wall_follow", False),
-                            ("frontier_targets", True)):
-        cfg, walls, params, rooms = presets.coverage(COVERAGE_AGENTS,
-                                                     frontiers, dev)
-        reach = torch.as_tensor(reachable_mask(walls.cpu().numpy(),
-                                               cfg.grid), device=dev)
-        state = sim_init(cfg, params)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        step = make_sim_step(cfg, walls, params, gen,
-                             enable_targets=frontiers,
-                             walls_grouped=rooms[0], room_of_agent=rooms[1])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(COVERAGE_STEPS):
-            state, m = step(state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        out[name] = _coverage(state.srv.logodds, reach)
-        print(f"coverage tool [{name}] at {COVERAGE_AGENTS} agents on "
-              f"{cfg.grid.size}^2 [{card}]: coverage {out[name]:.6f} after "
-              f"{COVERAGE_STEPS} steps, {COVERAGE_STEPS / wall:.2f} steps/s, "
-              f"{int(m.n_frontiers)} frontiers at the last step")
-        if out[name] <= 0:
-            raise AssertionError(f"coverage tool [{name}]: nothing covered")
-    return out
-
-
 def phase_ultrasonic(card, dev):
     """bench.py --scan-rays 0 at full width: the wrapped 4-way fan through
     the pack8 + ring form, once per step, for ULTRASONIC_STEPS steps."""
@@ -1591,92 +1508,6 @@ def phase_reference_explore(dev):
     if n_fr[cpu] != n_fr[dev]:
         raise AssertionError("reference [exploration]: frontier counts "
                              "differ")
-
-
-def _median(xs):
-    xs = sorted(xs)
-    return xs[len(xs) // 2] if xs else 0.0
-
-
-def _sim_parts():
-    """The fused step's parts for `_step_split`: part -> (module, name)
-    pairs of the functions engine.sim calls by name."""
-    from swarm_tpu_torch.engine import sim
-
-    names = {"sensing": ("sense_4way", "sense_scan"),
-             "raster": ("_raster_fans", "logodds_raster", "parity_raster"),
-             "merge": ("_merge_event",),
-             "zones": ("zones_for_agents",),
-             "closure": ("closure_add_poses_batch", "closure_add_poses_seq"),
-             "v2v": ("v2v_stats",)}
-    return {part: tuple((sim, nm) for nm in nms)
-            for part, nms in names.items()}
-
-
-def _step_split(step, state, n_steps: int, parts=None):
-    """n_steps more steps with CUDA events around the step and around each
-    part the engine calls by name: engine.sim's `sense_4way` and
-    `sense_scan` (sensing), `_raster_fans` (the beam raster, its
-    preparation and any endpoint scatter, or the XLA tier),
-    `logodds_raster` and `parity_raster` (the line and parity rasters),
-    `_merge_event` (the merge, on merge steps), `zones_for_agents` (the
-    zone snapshot, every 2 s of simulated time), `closure_add_poses_batch`
-    and `closure_add_poses_seq` (the closure's landmark match, batched or
-    sequential) and `v2v_stats` (the pairwise radio statistics). Returns (state, split):
-    per part (device-timeline median ms over the steps that ran it, their
-    count, the most device memory allocated while it ran); for the step
-    and its rest (the step less its parts), medians over the steps with
-    neither a merge nor a zone snapshot. `parts`: part -> (module, name)
-    pairs to time (default `_sim_parts()`)."""
-    parts = _sim_parts() if parts is None else parts
-    marks = []
-    originals = {(mod, nm): getattr(mod, nm)
-                 for pairs in parts.values() for mod, nm in pairs}
-
-    def timed(part, fn):
-        def run(*a, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda.reset_peak_memory_stats()
-            e0.record()
-            out = fn(*a, **k)
-            e1.record()
-            marks[-1].append((part, e0, e1,
-                              torch.cuda.max_memory_allocated()))
-            return out
-        return run
-
-    steps = []
-    try:
-        for part, pairs in parts.items():
-            for mod, nm in pairs:
-                setattr(mod, nm, timed(part, originals[(mod, nm)]))
-        for _ in range(n_steps):
-            marks.append([])
-            s0 = torch.cuda.Event(enable_timing=True)
-            s1 = torch.cuda.Event(enable_timing=True)
-            s0.record()
-            state, _ = step(state)
-            s1.record()
-            steps.append((s0, s1))
-        torch.cuda.synchronize()
-    finally:
-        for (mod, nm), fn in originals.items():
-            setattr(mod, nm, fn)
-    rows, peaks = [], dict.fromkeys(parts, 0)
-    for (s0, s1), ms in zip(steps, marks):
-        row = {"step": s0.elapsed_time(s1)}
-        for part, e0, e1, peak in ms:
-            row[part] = row.get(part, 0.0) + e0.elapsed_time(e1)
-            peaks[part] = max(peaks[part], peak)
-        row["rest"] = row["step"] - sum(row.get(p, 0.0) for p in parts)
-        rows.append(row)
-    split = {p: (_median([r[p] for r in rows if p in r]),
-                 sum(p in r for r in rows), peaks[p]) for p in parts}
-    plain = [r for r in rows if "merge" not in r and "zones" not in r]
-    for p in ("step", "rest"):
-        split[p] = (_median([r[p] for r in plain]), len(plain), None)
-    return state, split
 
 
 def phase_slice_kernel(card, dev):
@@ -2329,21 +2160,6 @@ def _sharded_run(dev, grid_sharding: str, flags=None, eng=None,
         walls_grouped=rooms[0], room_of_agent=rooms[1])
     return cfg, step, sharded.shard_state(sim_init(cfg, params), lay,
                                           grid_sharding), lay
-
-
-def _sharded_parts():
-    """The sharded step's parts for `_step_split`."""
-    from swarm_tpu_torch.coord import zones
-    from swarm_tpu_torch.engine import sim
-    from swarm_tpu_torch.parallel import sharded
-
-    return {"sensing": ((sharded, "_sense"),),
-            "raster": ((sharded, "_raster"),),
-            "merge": ((sim, "_merge_event"),),
-            "zones": ((zones, "zones_for_agents"),),
-            "collectives": tuple((sharded, nm) for nm in (
-                "_all_reduce_sum", "_gather_rows", "_halo_exchange",
-                "_gather_grid"))}
 
 
 def _captured_step(step, state):
@@ -4983,17 +4799,203 @@ def phase_solve_order(card, dev):
     return times
 
 
+BENCH_RUNS = (("bench", []),                 # bench.py's defaults
+              ("bench --room-kernel", ["--room-kernel", "--steps", "50",
+                                       "--chunks", "1"]))
+COVERAGE_TOOL_ARGS = ["--agents", str(COVERAGE_AGENTS), "--steps", "300",
+                      "--chunk", "100"]
+MERGE_INNER = 16
+# card vs CPU solves of the merge bench's 1024-node graph, m and rad (yaws
+# as angles, ROADMAP C31): dense at phase 25's bar; the structured solve
+# of this graph is set by float32 to ~1e-3 (a 1e-6 change of the inputs
+# moves it 8.7e-4 on the CPU, ROADMAP C44)
+MERGE_CPU_ATOL = {"dense": SOLVE_CPU_ATOL, "structured": 5e-3}
+PROFILE_ARGS = ["--agents", str(N_AGENTS), "--inner", "16", "--reps", "1"]
+QUALITY_STEPS = 300
+ROOFLINE_SHARE_MAX = 1.05
+
+
+def _tool(name, fn, argv):
+    """One tool's `main(argv)` on the card, timed; returns its result."""
+    t0 = time.perf_counter()
+    print(f"{name}: python -m swarm_tpu_torch.{fn.__module__.split('.')[-1]}"
+          f" {' '.join(argv)}", flush=True)
+    out = fn(argv)
+    print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_bench(card, dev):
+    """bench.py on the port (swarm_tpu_torch.bench) at its defaults and
+    with --room-kernel, each with the counters set to 0 just before and
+    read just after: its raster kernel launched once a step (warm chunk,
+    timed chunks and the reconciliation's steps), the other never; the
+    fresh ratio above the floor, merges, a finite merge probe. Returns
+    {form: launches} per kernel ("window", "room")."""
+    from swarm_tpu_torch import bench
+
+    out = {}
+    for name, argv in BENCH_RUNS:
+        args = bench.parse_args(argv)
+        steps = args.steps * (args.chunks + 1) + bench.RATIO_STEPS
+        _reset_counts()
+        res = _tool(name, bench.main, argv)
+        n_free, by_form, n_room = _read_counts()
+        d = res["detail"]
+        room = args.room_kernel
+        own = _room_by_form() if room else by_form
+        want = {"pack16-ring" if room else "pack8-ring": steps}
+        if own != want or (n_free if room else n_room):
+            raise AssertionError(f"{name}: launches {own} (window {n_free}"
+                                 f", room {n_room}), want {want}")
+        if not d["delta_ratio_fresh"] > bench.RATIO_FLOOR or \
+                d["merges_total"] <= 0 or \
+                not math.isfinite(d["merge_event_ms"]) or \
+                d["platform"] != "gpu" or res["value"] <= 0:
+            raise AssertionError(f"{name}: {res}")
+        print(f"{name} at {d['agents']} agents [{card}]: {res['value']:.6e} "
+              f"cells/s, {d['steps_per_s']} steps/s, ratio curve "
+              f"{d['delta_ratio_curve']}, merges {d['merges_total']}, merge "
+              f"event {d['merge_event_ms']} ms ({d['merge_event_chunk']} "
+              f"agents), full batch {d['merge_latency_full_batch_ms']} ms; "
+              f"launches {want}")
+        out["room" if room else "window"] = sum(want.values())
+    return out
+
+
+def phase_bench_coverage(card, dev):
+    """tools/bench_coverage.py on the port at 64 agents (its world, both
+    fans through the window kernel's pack16 forms at the accuracy path's
+    shapes), 300 steps of each variant: both coverages > 0, launches one
+    per fan a step. Returns the window kernel's launches per form."""
+    from swarm_tpu_torch import bench_coverage
+
+    _reset_counts()
+    res = _tool("bench_coverage", bench_coverage.main, COVERAGE_TOOL_ARGS)
+    n_free, by_form, n_room = _read_counts()
+    steps = 2 * int(COVERAGE_TOOL_ARGS[3])
+    if by_form != {"pack16": steps, "pack16-wrapped": steps} or n_room:
+        raise AssertionError(f"bench_coverage: launches {by_form} (room "
+                             f"{n_room})")
+    finals = res["detail"]["finals_per_seed"]
+    if min(min(v) for v in finals.values()) <= 0:
+        raise AssertionError(f"bench_coverage: nothing covered {finals}")
+    print(f"bench_coverage [{card}]: finals {finals}, steps to 50% "
+          f"{ {k: res['detail'][k]['steps_to_50pct'] for k in finals} }, "
+          f"launches {by_form}")
+    return by_form
+
+
+def phase_bench_merge(card, dev):
+    """tools/bench_merge.py on the port (--inner 16): three finite times;
+    then the 1024-node graph solved dense and structured on the card and
+    on the CPU: poses within MERGE_CPU_ATOL (yaws as angles), final costs
+    within rtol 1e-3."""
+    from swarm_tpu_torch import bench_merge
+
+    _reset_counts()
+    res = _tool("bench_merge", bench_merge.main,
+                ["--inner", str(MERGE_INNER)])
+    times = [res[k] for k in ("scanmatch_ms", "posegraph_gn_1024n_10it_ms",
+                              "posegraph_structured_gn_1024n_10it_ms")]
+    if not all(math.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"bench_merge: {res}")
+    g_d = bench_merge.inputs(bench_merge.NODES, dev)[2]
+    g_c = bench_merge.inputs(bench_merge.NODES, "cpu")[2]
+    for name, solve in (("dense", bench_merge.solve_dense),
+                        ("structured", bench_merge.solve_structured)):
+        (out_d, cost_d), (out_c, cost_c) = solve(g_d), solve(g_c)
+        pos, yaw = _graph_pose_diff(out_d.poses, out_c.poses)
+        cost_d, cost_c = float(cost_d[-1]), float(cost_c[-1])
+        print(f"bench_merge {name} GN card vs CPU ({bench_merge.NODES} "
+              f"nodes): poses within {pos:.3g} m, yaw {yaw:.3g} rad; final "
+              f"cost {cost_d:.6g} vs {cost_c:.6g}")
+        if not max(pos, yaw) <= MERGE_CPU_ATOL[name] or \
+                not abs(cost_d - cost_c) <= 1e-3 * abs(cost_c):
+            raise AssertionError(f"bench_merge {name}: card vs CPU {pos} m,"
+                                 f" {yaw} rad, costs {cost_d}, {cost_c}")
+    print(f"bench_merge [{card}]: {res}; raster kernels "
+          f"{_no_kernel('bench_merge')}")
+
+
+def phase_profile_step(card, dev):
+    """tools/profile_step.py on the port at 1024 agents (--inner 16
+    --reps 1): every row timed on the device and on the host, and the
+    step split's parts within the step (its rest >= 0)."""
+    from swarm_tpu_torch import profile_step
+
+    res = _tool("profile_step", profile_step.main, PROFILE_ARGS)
+    bad = {k: v for k, v in res["rows"].items()
+           if not (v["device_ms"] > 0 and v["host_ms"] > 0)}
+    split = res["split"]
+    if len(res["rows"]) != 18 or bad or split["rest"][0] < 0:
+        raise AssertionError(f"profile_step: rows {bad}, split {split}")
+
+
+def phase_roofline(card, dev):
+    """tools/roofline.py on the port: the probe equal to its torch chain,
+    the window kernel's share of its bound in (0, ROOFLINE_SHARE_MAX]."""
+    from swarm_tpu_torch import roofline
+
+    res = _tool("roofline", roofline.main, ["--agents", str(N_AGENTS)])
+    share = res["kernel_bound_frac"]
+    if res["probe_max_abs_err"] != 0.0 or \
+            not 0.0 < share <= ROOFLINE_SHARE_MAX:
+        raise AssertionError(f"roofline: {res}")
+
+
+def phase_quality(card, dev):
+    """tools/quality_onchip.py (--steps 300 --turbo) and
+    tools/proto_phase_quality.py on the port: each tier's IoU and wall p90
+    finite."""
+    from swarm_tpu_torch import proto_phase_quality, quality_onchip
+
+    q = _tool("quality_onchip", quality_onchip.main,
+              ["--steps", str(QUALITY_STEPS), "--turbo"])
+    p = _tool("proto_phase_quality", proto_phase_quality.main, [])
+    tiers = {**{f"quality {k}": v for k, v in q["tiers"].items()},
+             **{f"proto {k}": v for k, v in p["tiers"].items()}}
+    bad = [k for k, v in tiers.items()
+           if not (0 < v["iou"] <= 1 and math.isfinite(v["p90"]))]
+    if len(tiers) != 5 or bad:
+        raise AssertionError(f"quality: {tiers}")
+    print(f"quality [{card}]: " + ", ".join(
+        f"{k} IoU {v['iou']:.4f} p90 {v['p90']:.1f}"
+        for k, v in tiers.items()))
+
+
+def phase_tools(card, dev):
+    """bench.py and the tools (phases 35-41 of the module docstring). Returns (the
+    bench runs' launches per kernel, bench_coverage's per form)."""
+    n_bench = phase_bench(card, dev)
+    n_cov = phase_bench_coverage(card, dev)
+    phase_bench_merge(card, dev)
+    phase_profile_step(card, dev)
+    phase_roofline(card, dev)
+    phase_quality(card, dev)
+    return n_bench, n_cov
+
+
 def run(card, dev) -> list:
     """Every phase after the build, in order; returns the per-kernel
-    records of the JSON line."""
+    records of the JSON line. Prints each group of phases' seconds."""
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"phase time [{what}]: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     k_window = phase_window_kernel(card, dev)
     k_forms = phase_form_kernels(card, dev)
     k_room = {"pack16-ring": phase_room_kernel(card, dev)}
     for i, flags in enumerate(ROOM_ROWS):
         k_room[_form_of(flags)[-1]] = phase_room_kernel(card, dev, flags,
                                                         SEED + 20 + i)
+    lap("2")
     k_slice = phase_slice_kernel(card, dev)
     n_slice = phase_slice(card, dev)
+    lap("2-3: the slice")
     paths = {}
     n_window, (_, _, state, _), summary = phase_path(card, dev,
                                                      room_kernel=False)
@@ -5006,17 +5008,19 @@ def run(card, dev) -> list:
     paths[("room", "per-beam")] = phase_path_split(card, "room", state,
                                                    summary)
     del cfg, rooms, state, m, summary
+    lap("4-5")
     n_explore = phase_explore(card, dev)
     n_ultrasonic = phase_ultrasonic(card, dev)
-    phase_coverage_tool(card, dev)
     phase_entry_points(card, dev)
     n_flags = phase_flag_paths(card, dev)
+    lap("6-9")
     phase_bf16_vs_f32(card, dev)
     phase_reference(dev, "window")
     phase_reference(dev, "room", room_kernel=True)
     phase_reference(dev, "window bf16", 17, equal_merges=True,
                     grid_dtype="bfloat16")
     phase_reference_explore(dev)
+    lap("10-11")
 
     # the grouped tier (bench.py --beam-groups N) and the exact raster
     k_grouped, k_grouped_room = phase_grouped_kernels(card, dev)
@@ -5034,12 +5038,14 @@ def run(card, dev) -> list:
     phase_reference(dev, "window --beam-groups 8", beam_groups=8)
     phase_reference(dev, "room --beam-groups 8", room_kernel=True,
                     beam_groups=8)
+    lap("12")
 
     # the sharded engine: the band and tile forms, the three
     # decompositions on a one-rank NCCL group, the dry run
     k_band = phase_band_kernels(card, dev)
     n_band = phase_sharded(card, dev)
     phase_dryrun(card)
+    lap("13-15")
 
     # every raster mode of the fused engine (no raster kernel on these)
     untiled_ms = phase_untiled(card, dev)
@@ -5049,30 +5055,40 @@ def run(card, dev) -> list:
     phase_bias(card, dev)
     phase_card_vs_cpu(card, dev)
     phase_reference_modes(dev)
+    lap("16-21")
 
     # offline SLAM: the accuracy tool's path (both fans through the window
     # kernel's pack16 forms)
     n_accuracy, k_accuracy = phase_accuracy(card, dev)
+    lap("22")
 
     # the mapping server, the packet formats and the solvers (no raster
     # kernel on these paths)
     phase_replay(card, dev)
     phase_serve(card, dev)
     phase_solve(card, dev)
+    lap("23-25")
 
     # the live server, the session CLI and checkpoints (no raster kernel)
     phase_live(card, dev)
     phase_live_parity(card, dev)
     full, tmp = phase_run_session(card, dev)
     phase_checkpoint(card, dev, full, tmp)
+    lap("26-29")
 
     # the sharded engine's XLA tiers (no raster kernel on these paths)
     phase_sharded_tiers(card, dev)
+    lap("30-32")
 
     # the firmware-faithful per-robot API and the solvers' fixed-order
     # sums (no raster kernel on these paths)
     phase_firmware(card, dev)
     phase_solve_order(card, dev)
+    lap("33-34")
+
+    # bench.py and the tools on the port
+    n_bench, n_cov = phase_tools(card, dev)
+    lap("35-41: bench.py and the tools")
 
     def kernel(name, form, launches, res):
         src, line = {"room_raster": ("room_raster.cu", 672),
@@ -5087,28 +5103,27 @@ def run(card, dev) -> list:
         k_slice["pack8-ring-bf16"]["max_abs_err"],
         k_forms["pack8-ring-bf16"]["max_abs_err"]))
 
-    def worst_of(key):
-        """The exploration path's record (its times at 1024 agents), its
-        error the worse of that path's and the accuracy path's."""
-        return dict(k_forms[key], max_abs_err=max(
-            k_forms[key]["max_abs_err"], k_accuracy[key]["max_abs_err"]))
-
     kernels = [
-        kernel("free_raster", "pack8-ring", n_window,
+        kernel("free_raster", "pack8-ring", n_window + n_bench["window"],
                k_window["pack8-ring"]),
-        kernel("free_raster", "pack16",
-               n_explore["pack16"] + n_accuracy["pack16"], worst_of("pack16")),
-        kernel("free_raster", "pack16-wrapped",
-               n_explore["pack16-wrapped"] + n_accuracy["pack16-wrapped"],
-               worst_of("pack16-wrapped")),
+        kernel("free_raster", "pack16", n_explore["pack16"],
+               k_forms["pack16"]),
+        kernel("free_raster", "pack16-wrapped", n_explore["pack16-wrapped"],
+               k_forms["pack16-wrapped"])]
+    # the same two forms at the accuracy tool's and bench_coverage's
+    # shapes (64 agents on 1024^2), records of their own
+    kernels += [kernel("free_raster", f"{key}-64-agents",
+                       n_accuracy[key] + n_cov[key], k_accuracy[key])
+                for key in ("pack16", "pack16-wrapped")]
+    kernels += [
         kernel("free_raster", "pack8-ring-wrapped",
                n_ultrasonic["pack8-ring-wrapped"],
                k_forms["pack8-ring-wrapped"]),
         kernel("free_raster", "pack8-ring-bf16", n_slice, slice_res)]
     kernels += [kernel("free_raster", key, n, k_forms[key])
                 for (which, key), n in n_flags.items() if which == "window"]
-    kernels.append(kernel("room_raster", "pack16-ring", n_room,
-                          k_room["pack16-ring"]))
+    kernels.append(kernel("room_raster", "pack16-ring",
+                          n_room + n_bench["room"], k_room["pack16-ring"]))
     kernels += [kernel("room_raster", key, n, k_room[key])
                 for (which, key), n in n_flags.items() if which == "room"]
     kernels.append(kernel("free_raster", "grouped-ring", n_grouped["window"],
@@ -5125,7 +5140,7 @@ def run(card, dev) -> list:
                 for key in k_band]
     names = {k["name"] for k in kernels}
     if len(names) != len(kernels) or \
-            len(kernels) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS):
+            len(kernels) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS) + 2:
         raise AssertionError(f"kernel records: {sorted(names)}")
     return kernels
 

@@ -60,33 +60,17 @@ KERNELS = {"window": "free_raster_kernel", "room": "room_raster_kernel",
            "exact": "exact_raster_kernel"}
 
 
-def device_ms(fn, reps: int, kernel: str, sessions: int = 3) -> float:
-    """The mean device time of the kernel whose name holds `kernel` over
-    `reps` calls of `fn`, from torch.profiler's CUDA activity (the kernel
-    alone: no host gap, no other kernel of the call), over the launches it
-    recorded (it can drop some). A session that recorded under half of the
-    launches is run again, up to `sessions` in all; then it raises."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _device_ms():
+    """`roofline.device_ms` of THIS checkout, loaded from its file: the
+    timing instrument stays the same whichever checkout's kernels it
+    times (a child imports the other checkout's `swarm_tpu_torch`)."""
+    import importlib.util
 
-    seen = []
-    for _ in range(sessions):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for row in prof.key_averages():
-            if kernel in row.key:
-                total += getattr(row, "device_time_total",
-                                 getattr(row, "cuda_time_total", 0.0))
-                count += row.count
-        if 2 * count >= reps and total > 0:
-            return total / count / 1e3
-        seen.append(count)
-    raise RuntimeError(f"profiler saw {seen} launches of {kernel} in "
-                       f"{sessions} sessions of {reps}")
+    path = os.path.join(HERE, "swarm_tpu_torch", "roofline.py")
+    spec = importlib.util.spec_from_file_location("_ab_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.device_ms
 
 
 def child(root: str) -> dict:
@@ -110,6 +94,7 @@ def child(root: str) -> dict:
     for name in names:
         print(f"  ptxas [{name}]: "
               f"{getattr(cuda_build, 'ptxas', {}).get(name)}", flush=True)
+    device_ms = _device_ms()
     out = {}
     for form, kw in FORMS:
         kw = dict(kw)

@@ -29,6 +29,14 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
+def describe(dev) -> tuple:
+    """(platform, name) of a torch.device for a tool's record: ("gpu", the
+    card's name) on CUDA, else the device type twice."""
+    if dev.type == "cuda":
+        return "gpu", torch.cuda.get_device_name(dev)
+    return dev.type, dev.type
+
+
 def div(x, c: float):
     """x / c as an IEEE division. The divisor goes in as a device tensor:
     PyTorch's CUDA division by a Python scalar multiplies by its reciprocal

@@ -66,12 +66,18 @@ from swarm_tpu_torch.geom.world import (BEDROOM_WALLS, make_multi_room,
                                         make_vertical_rooms, walls_by_group)
 
 
+def tile_rooms_per_row(n_agents: int) -> int:
+    """Rooms to a tile row of the tiled world of n agents (two to a room):
+    the room kernel's `per_row`."""
+    return max(1, round(math.sqrt(max(1, n_agents // 2) / 2.0)))
+
+
 def _tiled_world(n_agents: int, device, frontiers: bool, scan_rays: int,
                  room_kernel: bool, grid_dtype: str = "float32", **engine):
     """Tiled-rooms world (two agents per room, each room on its own
     [128, 256]-cell grid tile) + config with the given engine fields."""
     n_rooms = max(1, n_agents // 2)
-    per_row = max(1, round(math.sqrt(n_rooms / 2.0)))
+    per_row = tile_rooms_per_row(n_agents)
     n_rows = math.ceil(n_rooms / per_row)
     size = max(per_row * 256, n_rows * 128)
     size = -(-size // 256) * 256
@@ -135,14 +141,16 @@ def deployable(n_agents: int, device=None, merge_every: int = 16,
         merge_every=merge_every if scan_rays > 0 else 0)
 
 
-def coverage(n_agents: int, frontiers: bool = True, device=None):
+def coverage(n_agents: int, frontiers: bool = True, device=None,
+             scan_rays: int = 181):
     """tools/bench_coverage.py's world + config (the exploration path):
     the same tiled world, EngineConfig's raster defaults (the wrapped 4-way
     fan and the 181-beam sweep, each through the pack16 window table
     without the endpoint ring, then the exact endpoint scatter), the merge
     off, frontiers at the 3 s cadence when `frontiers`. Returns what
-    `deployable` returns. At 64 agents: a 1024^2 grid; at 1024: 4096^2."""
-    return _tiled_world(n_agents, device, frontiers, 181, False)
+    `deployable` returns. At 64 agents: a 1024^2 grid; at 1024: 4096^2.
+    `scan_rays=61` at 4 agents is tools/quality_onchip.py's world."""
+    return _tiled_world(n_agents, device, frontiers, scan_rays, False)
 
 
 ACCURACY_VARIANTS = ("raw", "ref_closures", "merge_anchored",

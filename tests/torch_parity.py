@@ -10,6 +10,7 @@ step consumes, as the port's `StepNoise`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -40,34 +41,47 @@ def t(x, dtype=None):
     return out if dtype is None else out.to(dtype)
 
 
-def sensor_noise_from_keys(keys, n_readings: int) -> SensorNoise:
-    """The draws `apply_ultrasonic_noise(key, [R] readings)` makes, for a
-    batch of per-agent keys [N, 2] -> SensorNoise of [N, R] tensors.
-    `uniform(k, shape, lo, hi)` scales the same [0, 1) floats that
-    `uniform(k, shape)` returns, so the port gets the unit draws."""
+@functools.partial(jax.jit, static_argnums=1)
+def _sensor_draws(keys, n_readings: int):
     def one(k):
         k_gauss, k_spur_p, k_spur_v = jax.random.split(k, 3)
         shape = (n_readings,)
         return (jax.random.normal(k_gauss, shape, jnp.float32),
                 jax.random.uniform(k_spur_v, shape, jnp.float32),
                 jax.random.uniform(k_spur_p, shape))
-    g, u, p = jax.vmap(one)(keys)
+    return jax.vmap(one)(keys)
+
+
+def sensor_noise_from_keys(keys, n_readings: int) -> SensorNoise:
+    """The draws `apply_ultrasonic_noise(key, [R] readings)` makes, for a
+    batch of per-agent keys [N, 2] -> SensorNoise of [N, R] tensors.
+    `uniform(k, shape, lo, hi)` scales the same [0, 1) floats that
+    `uniform(k, shape)` returns, so the port gets the unit draws. Jitted,
+    as inside the JAX step, and compiled once per shape: traced eagerly,
+    the vmaps cost ~0.5 s a call."""
+    g, u, p = _sensor_draws(keys, n_readings)
     return SensorNoise(gauss=t(g), spur_u=t(u), spur_p=t(p))
 
 
-def drift_noise_from_keys(keys) -> DriftNoise:
-    """The three normals `drift_integrate(key, ...)` draws per agent."""
+@jax.jit
+def _drift_draws(keys):
     def one(k):
         k_t, k_r, k_s = jax.random.split(k, 3)
         return (jax.random.normal(k_t, ()), jax.random.normal(k_r, ()),
                 jax.random.normal(k_s, ()))
-    a, b, c = jax.vmap(one)(keys)
+    return jax.vmap(one)(keys)
+
+
+def drift_noise_from_keys(keys) -> DriftNoise:
+    """The three normals `drift_integrate(key, ...)` draws per agent."""
+    a, b, c = _drift_draws(keys)
     return DriftNoise(n_t=t(a), n_r=t(b), n_s=t(c))
 
 
+@functools.partial(jax.jit, static_argnums=1)
 def step_keys(key, n: int):
     """(next state key, k_sense [N], k_drift [N], k_scan [N]) exactly as
-    sim_step splits them."""
+    sim_step splits them (jitted, once per n)."""
     key, k_step = jax.random.split(key)
     ids = jnp.arange(n, dtype=jnp.uint32)
     k_agents = jax.vmap(lambda i: jax.random.fold_in(k_step, i))(ids)
