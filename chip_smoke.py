@@ -1,6 +1,15 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --group donation    # the build and one group
+
+With no arguments every phase runs, in order. `--group NAME` runs the
+build and one group of phases, each with all its checks and shapes:
+kernels (2-3), paths (4-12), sharded (13-15, 30-32), modes (16-21),
+accuracy (22), server (23-29, 33-34), tools (35-41), donation (42); it
+prints the records of the kernels that group held or launched (the
+numbers of a group that did not run are null) and the same last line.
+The count of kernel records is checked on a full run only.
 
 Phases (any failure exits non-zero; nothing is caught and then passed):
   1. build the three raster kernels (swarm_tpu_torch/csrc/free_raster.cu,
@@ -324,13 +333,31 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      1e-3 (dense) and 5e-3 (structured: float32 sets this graph's solve
      to ~1e-3, ROADMAP C44), yaws as angles, final costs within rtol 1e-3;
  38. `profile_step --agents 1024 --inner 16 --reps 1`: all 18 rows timed
-     on the device and on the host, the step split's rest >= 0;
+     on the device and on the host, the step split's rest >= 0, the
+     counted steps' launches (the window kernel once a step);
  39. `roofline`: csrc/fp32_probe.cu BIT-EQUAL to its torch chain, the
      deployable window kernel's share of its bound in (0, 1.05];
  40. `quality_onchip --steps 300 --turbo`: IoU and wall p90 of the pack16,
      pack8 and grouped tiers against the exact tier;
  41. `proto_phase_quality`: the static and phase-rotated rows. Each
-     tool prints its own lines and JSON, and its seconds.
+     tool prints its own lines and JSON, and its seconds;
+ 42. donation at the engines' boundary, the launch counters set to 0
+     just before and read just after: on presets.deployable(1024) (the
+     window path, pack8-ring) and with room_kernel=True (pack16-ring),
+     17 steps of make_sim_step(donate=False) and of donate=True from
+     clones of one state on the same noise, (a) states (grids, poses, the
+     closure ring) and StepMetrics BIT-IDENTICAL after every step, (b)
+     every state passed to the donate=False step unchanged in every byte
+     against a clone taken before; (c) two sim_rollouts of 17 steps from
+     one state object BIT-IDENTICAL, the state unchanged; (d) the sharded
+     step on a one-rank NCCL group in "replicated" and "tiles", (a) and
+     (b), and the unsharded state handed to shard_state unchanged; the
+     extra peak memory of a donate=False step against a donated one and
+     of sim_rollout against the donated steps; at the slice
+     (presets.deployable(32768, grid_dtype="bfloat16")) the peak of a
+     one-step sim_rollout beyond one donated step's and the time of its
+     copy of the grid; every launch of the phase checked (each step its
+     form once) and added to its form's record.
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`; pack16 and pack16-wrapped at 64 agents on 1024^2,
@@ -339,7 +366,9 @@ the accuracy path's and bench_coverage's shapes, are the records
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}. A record's `launches` counts the launches of the paths at its
 shapes: the window path's pack8-ring and the room path's pack16-ring add
-phase 35's.
+phase 35's and phase 42's, pack16-ring, pack16-ring-tile and
+pack8-ring-bf16 add phase 42's. The line before the records gives the
+run's seconds.
 """
 
 from __future__ import annotations
@@ -4920,16 +4949,20 @@ def phase_bench_merge(card, dev):
 
 def phase_profile_step(card, dev):
     """tools/profile_step.py on the port at 1024 agents (--inner 16
-    --reps 1): every row timed on the device and on the host, and the
-    step split's parts within the step (its rest >= 0)."""
+    --reps 1): every row timed on the device and on the host, the step
+    split's parts within the step (its rest >= 0), and the launches of its
+    counted steps: the window kernel once a step, torch ops dispatched and
+    device operations recorded."""
     from swarm_tpu_torch import profile_step
 
     res = _tool("profile_step", profile_step.main, PROFILE_ARGS)
     bad = {k: v for k, v in res["rows"].items()
            if not (v["device_ms"] > 0 and v["host_ms"] > 0)}
-    split = res["split"]
-    if len(res["rows"]) != 18 or bad or split["rest"][0] < 0:
-        raise AssertionError(f"profile_step: rows {bad}, split {split}")
+    split, n = res["split"], res["launches"]
+    if len(res["rows"]) != 18 or bad or split["rest"][0] < 0 or \
+            n["raster"] != n["steps"] or n["ops"] <= 0 or not n["device"]:
+        raise AssertionError(f"profile_step: rows {bad}, split {split}, "
+                             f"launches {n}")
 
 
 def phase_roofline(card, dev):
@@ -4976,78 +5009,319 @@ def phase_tools(card, dev):
     return n_bench, n_cov
 
 
-def run(card, dev) -> list:
-    """Every phase after the build, in order; returns the per-kernel
-    records of the JSON line. Prints each group of phases' seconds."""
-    clock = [time.perf_counter()]
+DONATION_STEPS = 17          # one merge event (step 15)
+DONATION_REPS = 5            # timed copies of the slice's grid
 
-    def lap(what):
-        now = time.perf_counter()
-        print(f"phase time [{what}]: {now - clock[0]:.1f} s", flush=True)
-        clock[0] = now
 
-    k_window = phase_window_kernel(card, dev)
-    k_forms = phase_form_kernels(card, dev)
-    k_room = {"pack16-ring": phase_room_kernel(card, dev)}
+def _leaves(tree, path=""):
+    """(path, tensor) of every tensor leaf of a NamedTuple tree."""
+    if isinstance(tree, tuple):
+        for name, x in zip(getattr(tree, "_fields", range(len(tree))), tree):
+            yield from _leaves(x, f"{path}.{name}")
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+
+
+def _clone_tree(tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_clone_tree(x) for x in tree))
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _bits_apart(a, b) -> list:
+    """The leaves of two NamedTuple trees whose bytes differ (a -0.0 is not
+    a +0.0, a NaN equals only its own bits)."""
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["<structure>"]
+    return [p for (p, x), (_, y) in zip(la, lb)
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).contiguous().view(torch.uint8),
+                y.reshape(-1).contiguous().view(torch.uint8))]
+
+
+def _hold_bits(what, a, b):
+    apart = _bits_apart(a, b)
+    if apart:
+        raise AssertionError(f"donation: {what}: {apart[:6]} differ")
+
+
+def _peak_of(fn):
+    """(fn's result, the bytes its call allocated at its peak beyond what
+    was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _donation_steps(name, step_d, step_u, st_d, st_u, draw):
+    """DONATION_STEPS steps of a donate=True and a donate=False step
+    closure on the same noise: (a) the states and StepMetrics bit-
+    identical after every step, (b) each state handed to the donate=False
+    step unchanged in every byte. Returns (the largest extra peak of a
+    step of each kind, the merges)."""
+    peak_d = peak_u = 0
+    merges = 0
+    for k in range(DONATION_STEPS):
+        noise = draw()
+        before = _clone_tree(st_u)
+        (nxt_u, m_u), p_u = _peak_of(lambda: step_u(st_u, noise))
+        _hold_bits(f"{name} step {k}: the state passed to donate=False",
+                   st_u, before)
+        del before
+        (st_d, m_d), p_d = _peak_of(lambda: step_d(st_d, noise))
+        _hold_bits(f"{name} step {k}: donate=False against True", nxt_u,
+                   st_d)
+        _hold_bits(f"{name} step {k}: metrics", m_u, m_d)
+        if int(m_d.writes) <= 0:
+            raise AssertionError(f"donation: {name} step {k} wrote nothing")
+        merges += int(m_d.merges)
+        peak_d, peak_u = max(peak_d, p_d), max(peak_u, p_u)
+        st_u = nxt_u
+    if merges <= 0:
+        raise AssertionError(f"donation: {name}: no merge")
+    return peak_d, peak_u, merges
+
+
+def _donation_fused(card, dev, room_kernel: bool):
+    """(a)-(c) of phase 42 on one fused path at N_AGENTS agents."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import (draw_step_noise, make_sim_step,
+                                            run_steps, sim_init, sim_rollout)
+
+    name = "room" if room_kernel else "window"
+    cfg, walls, params, rooms = presets.deployable(
+        N_AGENTS, device=dev, room_kernel=room_kernel)
+    kw = dict(walls_grouped=rooms[0], room_of_agent=rooms[1])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step_d, step_u = (make_sim_step(cfg, walls, params, gen, donate=d, **kw)
+                      for d in (True, False))
+    st0 = sim_init(cfg, params)
+    peak_d, peak_u, merges = _donation_steps(
+        name, step_d, step_u, _clone_tree(st0), _clone_tree(st0),
+        lambda: draw_step_noise(gen, N_AGENTS, cfg.engine.scan_rays, dev))
+
+    kept = _clone_tree(st0)
+    runs, peaks = [], []
+    for _ in range(2):
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+        out, peak = _peak_of(lambda: sim_rollout(
+            st0, DONATION_STEPS, cfg, walls, params, g, **kw))
+        runs.append(out)
+        peaks.append(peak)
+    _hold_bits(f"{name}: the state passed to sim_rollout", st0, kept)
+    _hold_bits(f"{name}: the second sim_rollout", runs[0], runs[1])
+    del runs
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    step = make_sim_step(cfg, walls, params, g, donate=True, **kw)
+    _, peak_run = _peak_of(lambda: run_steps(step, kept, DONATION_STEPS))
+    grid = st0.srv.logodds.numel() * st0.srv.logodds.element_size()
+    print(f"donation {name} path at {N_AGENTS} agents [{card}]: "
+          f"{DONATION_STEPS} steps donate=False BIT-IDENTICAL to "
+          f"donate=True (states, metrics; merges {merges}), every state "
+          f"passed to donate=False unchanged; two sim_rollouts from one "
+          f"state BIT-IDENTICAL, the state unchanged; extra peak: a "
+          f"donate=False step {peak_u} bytes against {peak_d} "
+          f"({peak_u - peak_d} more), sim_rollout {peaks[0]} against "
+          f"{peak_run} for the donated steps ({peaks[0] - peak_run} more); "
+          f"the grid is {grid} bytes")
+
+
+def _donation_sharded(card, dev):
+    """(d) of phase 42: the sharded step on a one-rank NCCL group."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import draw_step_noise, sim_init
+    from swarm_tpu_torch.parallel import mesh, sharded
+
+    mesh.init(f"tcp://127.0.0.1:{mesh.free_port()}", 1, 0,
+              timedelta(seconds=SHARDED_TIMEOUT_S), device=dev)
+    if dist.get_backend() != "nccl":
+        raise AssertionError("the card's process group is not NCCL")
+    try:
+        for gs in ("replicated", "tiles"):
+            cfg, walls, params, rooms = presets.deployable(N_AGENTS,
+                                                           device=dev)
+            lay = mesh.make_layout((1, 1), device=dev)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            step_d, step_u = (sharded.make_sharded_sim_step(
+                cfg, walls, params, lay, gen, donate=d, grid_sharding=gs,
+                walls_grouped=rooms[0], room_of_agent=rooms[1])
+                for d in (True, False))
+            st0 = sim_init(cfg, params)
+            kept = _clone_tree(st0)
+            peak_d, peak_u, merges = _donation_steps(
+                f"sharded {gs}", step_d, step_u,
+                sharded.shard_state(st0, lay, gs),
+                sharded.shard_state(st0, lay, gs),
+                lambda: draw_step_noise(gen, N_AGENTS,
+                                        cfg.engine.scan_rays, dev))
+            _hold_bits(f"sharded {gs}: the state handed to shard_state",
+                       st0, kept)
+            print(f"donation sharded {gs} on one NCCL rank at {N_AGENTS} "
+                  f"agents [{card}]: {DONATION_STEPS} steps donate=False "
+                  f"BIT-IDENTICAL to donate=True (merges {merges}), every "
+                  f"state passed in unchanged, the unsharded state too; "
+                  f"extra peak of a step {peak_u} / {peak_d} bytes "
+                  f"(donate=False / True)")
+            del st0, kept
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def _donation_slice(card, dev):
+    """sim_rollout's one copy at the slice's size: its peak beyond one
+    donated step's, and the copy's time (CUDA events, median of
+    DONATION_REPS)."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine import sim
+
+    cfg, walls, params, rooms = presets.deployable(SLICE_AGENTS, device=dev,
+                                                   **SLICE)
+    kw = dict(walls_grouped=rooms[0], room_of_agent=rooms[1])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step = sim.make_sim_step(cfg, walls, params, gen, donate=True, **kw)
+    state, _ = step(sim.sim_init(cfg, params))            # warm-up
+    _, peak_r = _peak_of(lambda: sim.sim_rollout(state, 1, cfg, walls,
+                                                 params, gen, **kw))
+    _, peak_d = _peak_of(lambda: sim.run_steps(step, state, 1))
+    times = []
+    for _ in range(DONATION_REPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        sim._copy_written(state, cfg)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    grid = state.srv.logodds.numel() * state.srv.logodds.element_size()
+    copy_ms = sorted(times)[len(times) // 2]
+    print(f"donation at the slice ({SLICE_AGENTS} agents, "
+          f"{cfg.grid.size}^2 {cfg.grid.logodds_dtype}) [{card}]: one "
+          f"sim_rollout step peaks {peak_r} bytes beyond its input, one "
+          f"donated step {peak_d} ({peak_r - peak_d} more; the grid is "
+          f"{grid} bytes); sim_rollout's copy of the grid {copy_ms:.4f} ms "
+          f"(median of {DONATION_REPS}: {[round(t, 4) for t in times]}), "
+          f"{2 * grid / copy_ms / 1e6:.1f} GB/s read + written")
+
+
+def phase_donation(card, dev):
+    """Phase 42: the engines keep the caller's state as the reference's
+    do. Returns {(kernel, form): launches} of its runs."""
+    from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
+    from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _reset_counts()                          # this phase starts here
+    _donation_fused(card, dev, room_kernel=False)
+    _donation_fused(card, dev, room_kernel=True)
+    torch.cuda.empty_cache()
+    _donation_sharded(card, dev)
+    _donation_slice(card, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = {**{("window", f): n
+                   for f, n in free_raster.launches_by_form.items()},
+                **{("room", f): n
+                   for f, n in room_raster.launches_by_form.items()}}
+    fused = 2 * DONATION_STEPS + 3 * DONATION_STEPS
+    want = {("window", "pack8-ring"): fused, ("room", "pack16-ring"): fused,
+            ("window", "pack16-ring"): 2 * DONATION_STEPS,
+            ("window", "pack16-ring-tile"): 2 * DONATION_STEPS,
+            ("window", "pack8-ring-bf16"): 3}
+    if launches != want:
+        raise AssertionError(f"donation: launches {launches}, want {want}")
+    print(f"donation phase [{card}]: launches {launches}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _group_kernels(card, dev, r):
+    """Phases 2-3: every per-beam form against its plain version, the
+    slice."""
+    r["k_window"] = phase_window_kernel(card, dev)
+    r["k_forms"] = phase_form_kernels(card, dev)
+    r["k_room"] = {"pack16-ring": phase_room_kernel(card, dev)}
     for i, flags in enumerate(ROOM_ROWS):
-        k_room[_form_of(flags)[-1]] = phase_room_kernel(card, dev, flags,
-                                                        SEED + 20 + i)
-    lap("2")
-    k_slice = phase_slice_kernel(card, dev)
-    n_slice = phase_slice(card, dev)
-    lap("2-3: the slice")
+        r["k_room"][_form_of(flags)[-1]] = phase_room_kernel(
+            card, dev, flags, SEED + 20 + i)
+    r.lap("2")
+    r["k_slice"] = phase_slice_kernel(card, dev)
+    r["n_slice"] = phase_slice(card, dev)
+    r.lap("2-3: the slice")
+
+
+def _group_paths(card, dev, r):
+    """Phases 4-12: the fused paths, flag rows, references, the grouped
+    tier and the exact raster."""
     paths = {}
-    n_window, (_, _, state, _), summary = phase_path(card, dev,
-                                                     room_kernel=False)
+    r["n_window"], (_, _, state, _), summary = phase_path(
+        card, dev, room_kernel=False)
     paths[("window", "per-beam")] = phase_path_split(card, "window", state,
                                                      summary)
     del state, summary           # the room path's peak is its own (C19)
-    n_room, (cfg, rooms, state, m), summary = phase_path(card, dev,
-                                                         room_kernel=True)
+    r["n_room"], (cfg, rooms, state, m), summary = phase_path(
+        card, dev, room_kernel=True)
     phase_merge(card, dev, cfg, rooms, state, m)
     paths[("room", "per-beam")] = phase_path_split(card, "room", state,
                                                    summary)
     del cfg, rooms, state, m, summary
-    lap("4-5")
-    n_explore = phase_explore(card, dev)
-    n_ultrasonic = phase_ultrasonic(card, dev)
+    r.lap("4-5")
+    r["n_explore"] = phase_explore(card, dev)
+    r["n_ultrasonic"] = phase_ultrasonic(card, dev)
     phase_entry_points(card, dev)
-    n_flags = phase_flag_paths(card, dev)
-    lap("6-9")
+    r["n_flags"] = phase_flag_paths(card, dev)
+    r.lap("6-9")
     phase_bf16_vs_f32(card, dev)
     phase_reference(dev, "window")
     phase_reference(dev, "room", room_kernel=True)
     phase_reference(dev, "window bf16", 17, equal_merges=True,
                     grid_dtype="bfloat16")
     phase_reference_explore(dev)
-    lap("10-11")
+    r.lap("10-11")
 
     # the grouped tier (bench.py --beam-groups N) and the exact raster
-    k_grouped, k_grouped_room = phase_grouped_kernels(card, dev)
-    k_exact = phase_exact_kernel(card, dev)
-    n_exact = phase_exact_entry(card, dev)
-    n_grouped = {}
+    r["k_grouped"], r["k_grouped_room"] = phase_grouped_kernels(card, dev)
+    r["k_exact"] = phase_exact_kernel(card, dev)
+    r["n_exact"] = phase_exact_entry(card, dev)
+    r["n_grouped"] = {}
     for kernel_name, room_kernel in (("window", False), ("room", True)):
-        n_grouped[kernel_name], (_, _, state, _), summary = phase_path(
+        r["n_grouped"][kernel_name], (_, _, state, _), summary = phase_path(
             card, dev, room_kernel=room_kernel, beam_groups=8)
         paths[(kernel_name, "grouped")] = phase_path_split(
             card, f"{kernel_name} --beam-groups 8", state, summary)
         del state, summary
     _compare_paths(card, paths)
-    n_gflags = phase_grouped_flag_paths(card, dev)
+    r["n_gflags"] = phase_grouped_flag_paths(card, dev)
     phase_reference(dev, "window --beam-groups 8", beam_groups=8)
     phase_reference(dev, "room --beam-groups 8", room_kernel=True,
                     beam_groups=8)
-    lap("12")
+    r.lap("12")
 
-    # the sharded engine: the band and tile forms, the three
-    # decompositions on a one-rank NCCL group, the dry run
-    k_band = phase_band_kernels(card, dev)
-    n_band = phase_sharded(card, dev)
+
+def _group_sharded(card, dev, r):
+    """Phases 13-15 and 30-32: the sharded engine."""
+    # the band and tile forms, the three decompositions on a one-rank NCCL
+    # group, the dry run
+    r["k_band"] = phase_band_kernels(card, dev)
+    r["n_band"] = phase_sharded(card, dev)
     phase_dryrun(card)
-    lap("13-15")
+    r.lap("13-15")
+    # the sharded engine's XLA tiers (no raster kernel on these paths)
+    phase_sharded_tiers(card, dev)
+    r.lap("30-32")
 
-    # every raster mode of the fused engine (no raster kernel on these)
+
+def _group_modes(card, dev, r):
+    """Phases 16-21: every raster mode of the fused engine (no raster
+    kernel on these)."""
     untiled_ms = phase_untiled(card, dev)
     phase_profiling(card, dev, untiled_ms)
     phase_parity(card, dev)
@@ -5055,110 +5329,199 @@ def run(card, dev) -> list:
     phase_bias(card, dev)
     phase_card_vs_cpu(card, dev)
     phase_reference_modes(dev)
-    lap("16-21")
+    r.lap("16-21")
 
-    # offline SLAM: the accuracy tool's path (both fans through the window
-    # kernel's pack16 forms)
-    n_accuracy, k_accuracy = phase_accuracy(card, dev)
-    lap("22")
 
-    # the mapping server, the packet formats and the solvers (no raster
-    # kernel on these paths)
+def _group_accuracy(card, dev, r):
+    """Phase 22: offline SLAM, the accuracy tool's path (both fans through
+    the window kernel's pack16 forms)."""
+    r["n_accuracy"], r["k_accuracy"] = phase_accuracy(card, dev)
+    r.lap("22")
+
+
+def _group_server(card, dev, r):
+    """Phases 23-29 and 33-34: the mapping server, the packet formats, the
+    solvers, the live server, the session CLI, checkpoints, the firmware
+    API (no raster kernel on these paths)."""
     phase_replay(card, dev)
     phase_serve(card, dev)
     phase_solve(card, dev)
-    lap("23-25")
-
-    # the live server, the session CLI and checkpoints (no raster kernel)
+    r.lap("23-25")
     phase_live(card, dev)
     phase_live_parity(card, dev)
     full, tmp = phase_run_session(card, dev)
     phase_checkpoint(card, dev, full, tmp)
-    lap("26-29")
-
-    # the sharded engine's XLA tiers (no raster kernel on these paths)
-    phase_sharded_tiers(card, dev)
-    lap("30-32")
-
-    # the firmware-faithful per-robot API and the solvers' fixed-order
-    # sums (no raster kernel on these paths)
+    r.lap("26-29")
     phase_firmware(card, dev)
     phase_solve_order(card, dev)
-    lap("33-34")
+    r.lap("33-34")
 
-    # bench.py and the tools on the port
-    n_bench, n_cov = phase_tools(card, dev)
-    lap("35-41: bench.py and the tools")
 
-    def kernel(name, form, launches, res):
+def _group_tools(card, dev, r):
+    """Phases 35-41: bench.py and the tools on the port."""
+    r["n_bench"], r["n_cov"] = phase_tools(card, dev)
+    r.lap("35-41: bench.py and the tools")
+
+
+def _group_donation(card, dev, r):
+    """Phase 42: donation at the engines' boundary."""
+    r["n_donation"] = phase_donation(card, dev)
+    r.lap("42: donation")
+
+
+# the groups of phases `--group` runs one at a time, in the order of a full
+# run (the module docstring's phase numbers)
+GROUPS = {"kernels": _group_kernels, "paths": _group_paths,
+          "sharded": _group_sharded, "modes": _group_modes,
+          "accuracy": _group_accuracy, "server": _group_server,
+          "tools": _group_tools, "donation": _group_donation}
+
+
+class _Results(dict):
+    """The phases' results by name, and the clock of their groups."""
+
+    def __init__(self):
+        super().__init__()
+        self.clock = time.perf_counter()
+
+    def lap(self, what):
+        now = time.perf_counter()
+        print(f"phase time [{what}]: {now - self.clock:.1f} s", flush=True)
+        self.clock = now
+
+
+# a record's numbers when the group that measures its kernel did not run
+NOT_RUN = dict(max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+               bound_by=None)
+
+
+def _records(r, full: bool) -> list:
+    """The per-kernel records of the JSON line from the results `r` of the
+    groups that ran: a record's numbers from the phase that held its kernel
+    against the plain version (null where that group did not run), its
+    launches summed over the paths that ran it. With `full` (every group
+    ran) every record must be there."""
+    def kernel(name, form, res, *counts):
+        counts = [c for c in counts if c is not None]
+        if res is None and not counts:
+            return []
         src, line = {"room_raster": ("room_raster.cu", 672),
                      "exact_raster": ("exact_raster.cu", 235)}.get(
                          name, ("free_raster.cu", 305))
-        return {"name": f"{name}[{form}]", "route": "cuda",
-                "source": f"swarm_tpu_torch/csrc/{src}",
-                "replaces": f"swarm_tpu/ops/beam_raster_pallas.py:{line}",
-                "launches": launches, **res, "library_ms": None}
+        return [{"name": f"{name}[{form}]", "route": "cuda",
+                 "source": f"swarm_tpu_torch/csrc/{src}",
+                 "replaces": f"swarm_tpu/ops/beam_raster_pallas.py:{line}",
+                 "launches": sum(counts), **(res or NOT_RUN),
+                 "library_ms": None}]
 
-    slice_res = dict(k_slice["pack8-ring-bf16"], max_abs_err=max(
-        k_slice["pack8-ring-bf16"]["max_abs_err"],
-        k_forms["pack8-ring-bf16"]["max_abs_err"]))
+    def get(name, *keys):
+        x = r.get(name)
+        for k in keys:
+            if x is None:
+                return None
+            x = x.get(k)
+        return x
 
-    kernels = [
-        kernel("free_raster", "pack8-ring", n_window + n_bench["window"],
-               k_window["pack8-ring"]),
-        kernel("free_raster", "pack16", n_explore["pack16"],
-               k_forms["pack16"]),
-        kernel("free_raster", "pack16-wrapped", n_explore["pack16-wrapped"],
-               k_forms["pack16-wrapped"])]
+    def don(kind, form):
+        return get("n_donation", (kind, form))
+
+    slice_res = None
+    if "k_slice" in r:
+        slice_res = dict(r["k_slice"]["pack8-ring-bf16"], max_abs_err=max(
+            r["k_slice"]["pack8-ring-bf16"]["max_abs_err"],
+            r["k_forms"]["pack8-ring-bf16"]["max_abs_err"]))
+    window_rows = [_form_of(f)[-1] for f in WINDOW_ROWS]
+    room_rows = [_form_of(f)[-1] for f in ROOM_ROWS]
+    grouped_window = [_form_of(f)[-1] for f in GROUPED_WINDOW_ROWS]
+    grouped_room = [_form_of(f)[-1] for f in GROUPED_ROOM_ROWS]
+    band_keys = [f"{form}-{kind}" for kind in ("band", "tile")
+                 for form in BAND_FORMS]
+
+    out = kernel("free_raster", "pack8-ring", get("k_window", "pack8-ring"),
+                 r.get("n_window"), get("n_bench", "window"),
+                 don("window", "pack8-ring"))
+    for key in ("pack16", "pack16-wrapped"):
+        out += kernel("free_raster", key, get("k_forms", key),
+                      get("n_explore", key))
     # the same two forms at the accuracy tool's and bench_coverage's
     # shapes (64 agents on 1024^2), records of their own
-    kernels += [kernel("free_raster", f"{key}-64-agents",
-                       n_accuracy[key] + n_cov[key], k_accuracy[key])
-                for key in ("pack16", "pack16-wrapped")]
-    kernels += [
-        kernel("free_raster", "pack8-ring-wrapped",
-               n_ultrasonic["pack8-ring-wrapped"],
-               k_forms["pack8-ring-wrapped"]),
-        kernel("free_raster", "pack8-ring-bf16", n_slice, slice_res)]
-    kernels += [kernel("free_raster", key, n, k_forms[key])
-                for (which, key), n in n_flags.items() if which == "window"]
-    kernels.append(kernel("room_raster", "pack16-ring",
-                          n_room + n_bench["room"], k_room["pack16-ring"]))
-    kernels += [kernel("room_raster", key, n, k_room[key])
-                for (which, key), n in n_flags.items() if which == "room"]
-    kernels.append(kernel("free_raster", "grouped-ring", n_grouped["window"],
-                          k_grouped["grouped-ring"]))
-    kernels += [kernel("free_raster", key, n, k_grouped[key])
-                for (which, key), n in n_gflags.items() if which == "window"]
-    kernels.append(kernel("room_raster", "grouped-ring", n_grouped["room"],
-                          k_grouped_room["grouped-ring"]))
-    kernels += [kernel("room_raster", key, n, k_grouped_room[key])
-                for (which, key), n in n_gflags.items() if which == "room"]
-    kernels += [kernel("exact_raster", fan, n_exact[fan], k_exact[fan])
-                for fan in ("scan", "wrapped")]
-    kernels += [kernel("free_raster", key, n_band[key], k_band[key])
-                for key in k_band]
-    names = {k["name"] for k in kernels}
-    if len(names) != len(kernels) or \
-            len(kernels) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS) + 2:
+    for key in ("pack16", "pack16-wrapped"):
+        out += kernel("free_raster", f"{key}-64-agents",
+                      get("k_accuracy", key), get("n_accuracy", key),
+                      get("n_cov", key))
+    out += kernel("free_raster", "pack8-ring-wrapped",
+                  get("k_forms", "pack8-ring-wrapped"),
+                  get("n_ultrasonic", "pack8-ring-wrapped"))
+    out += kernel("free_raster", "pack8-ring-bf16", slice_res,
+                  r.get("n_slice"), don("window", "pack8-ring-bf16"))
+    for key in window_rows:
+        out += kernel("free_raster", key, get("k_forms", key),
+                      get("n_flags", ("window", key)), don("window", key))
+    out += kernel("room_raster", "pack16-ring", get("k_room", "pack16-ring"),
+                  r.get("n_room"), get("n_bench", "room"),
+                  don("room", "pack16-ring"))
+    for key in room_rows:
+        out += kernel("room_raster", key, get("k_room", key),
+                      get("n_flags", ("room", key)))
+    out += kernel("free_raster", "grouped-ring",
+                  get("k_grouped", "grouped-ring"),
+                  get("n_grouped", "window"))
+    for key in grouped_window:
+        out += kernel("free_raster", key, get("k_grouped", key),
+                      get("n_gflags", ("window", key)))
+    out += kernel("room_raster", "grouped-ring",
+                  get("k_grouped_room", "grouped-ring"),
+                  get("n_grouped", "room"))
+    for key in grouped_room:
+        out += kernel("room_raster", key, get("k_grouped_room", key),
+                      get("n_gflags", ("room", key)))
+    for fan in ("scan", "wrapped"):
+        out += kernel("exact_raster", fan, get("k_exact", fan),
+                      get("n_exact", fan))
+    for key in band_keys:
+        out += kernel("free_raster", key, get("k_band", key),
+                      get("n_band", key), don("window", key))
+    names = {k["name"] for k in out}
+    if len(names) != len(out) or full and (
+            len(out) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS) + 2 or
+            any(k["ms"] is None or k["launches"] <= 0 for k in out)):
         raise AssertionError(f"kernel records: {sorted(names)}")
-    return kernels
+    return out
 
 
-def main():
+def run(card, dev, groups=tuple(GROUPS)) -> list:
+    """The groups of phases after the build, in order; returns the
+    per-kernel records of the JSON line. Prints each group's seconds."""
+    r = _Results()
+    for g in groups:
+        GROUPS[g](card, dev, r)
+    return _records(r, full=tuple(groups) == tuple(GROUPS))
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--group", choices=list(GROUPS),
+                    help="run this group of phases only (default: all)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False"
                          " -- this script runs only on a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import swarm_tpu_torch  # noqa: F401  (fails outside the checkout)
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = _card()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase_build()
-    kernels = run(card, dev)
+    kernels = run(card, dev, tuple(GROUPS) if args.group is None
+                  else (args.group,))
+    print(f"chip_smoke {args.group or 'all groups'}: "
+          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,20 +20,23 @@ both beam fans through the XLA tier). `--device cpu` implies
 card only.
 
 The timed window: one untimed warm chunk, then `--chunks` chunks of
-`--steps` steps through `engine.sim.sim_rollout`, each chunk ending in one
-host read of its int64 write sum and its merge count; the host clock, with
+`--steps` steps, each chunk a `make_sim_step(..., donate=True)` closure run
+by `engine.sim.run_steps` (sim_rollout's steps, without its one copy of
+the grid on entry: the run owns its state) and ending in one host read of
+its int64 write sum and its merge count; the host clock, with
 `torch.cuda.synchronize()` at both ends. The headline counts what the
 raster applied: the kernels' in-kernel applied counter; `--raster line`
 counts the scatter's writes, and `--no-pallas` the XLA tier's cells, which
 are not the kernels' applied count (ROADMAP C18: `writes_semantics`).
 
 The counter reconciliation (bench.py:160-221), on a fresh map, with a
-step of its own (`make_sim_step`, noise from a generator seeded
-RATIO_SEED): per step the evidence the map shows, sum max(-d, 0) / |miss|
-+ sum max(d, 0) / hit over the grid's change d, against the step's write
-count (`step_evidence`), averaged over 3-step windows at map ages 2, 35
-and 128 steps (`ratio_curve`). The rasters update the grid IN PLACE, so
-the grid is cloned before each step. The run fails unless the age-2 ratio
+step of its own (`make_sim_step(..., donate=False)`, as bench.py builds
+it, noise from a generator seeded RATIO_SEED): per step the evidence the
+map shows, sum max(-d, 0) / |miss| + sum max(d, 0) / hit over the grid's
+change d, against the step's write count (`step_evidence`), averaged over
+3-step windows at map ages 2, 35 and 128 steps (`ratio_curve`). The step
+keeps the grid it is given (it writes a copy), so the grid before the
+step is still there to subtract. The run fails unless the age-2 ratio
 exceeds RATIO_FLOOR.
 
 The merge probe (bench.py:222-287): `slam.livemerge.scan_merge` on the
@@ -145,9 +148,11 @@ def _sync(dev):
 def step_evidence(step, state, grid_cfg):
     """One call of `step` (state -> (state, metrics)) from `state`:
     (the next state, the evidence the map shows in unit updates, the
-    step's write count). The grid is cloned first, since the rasters update
-    it in place; the change is taken in float32 (exact on a bf16 grid)."""
-    lo0 = state.srv.logodds.clone()
+    step's write count). `step` must keep the state it is given
+    (`make_sim_step(..., donate=False)`, `sim_step`): a donating step
+    updates the grid in place and leaves no change to read. The change is
+    taken in float32 (exact on a bf16 grid)."""
+    lo0 = state.srv.logodds
     state, m = step(state)
     d = state.srv.logodds.float() - lo0.float()
     neg, pos = torch.stack([torch.clamp_min(-d, 0.0).sum(),
@@ -238,8 +243,8 @@ def merge_probe(cfg, state, rooms, dev):
 
 def run(args) -> dict:
     """The benchmark of parsed `args`; returns the JSON record."""
-    from swarm_tpu_torch.engine.sim import make_sim_step, sim_init, \
-        sim_rollout
+    from swarm_tpu_torch.engine.sim import make_sim_step, run_steps, \
+        sim_init
 
     dev = default_device(args.device)
     cfg, walls, params, rooms, use_pallas = configure(args)
@@ -248,8 +253,8 @@ def run(args) -> dict:
     gen = torch.Generator(device=dev).manual_seed(RUN_SEED)
 
     def chunk(state):
-        state, ms = sim_rollout(state, args.steps, cfg, walls, params, gen,
-                                **kw)
+        step = make_sim_step(cfg, walls, params, gen, donate=True, **kw)
+        state, ms = run_steps(step, state, args.steps)
         w, nm = torch.stack([ms.writes.to(torch.int64).sum(),
                              ms.merges.to(torch.int64).sum()]).tolist()
         return state, w, nm
@@ -268,7 +273,8 @@ def run(args) -> dict:
     value = total_writes / dt
 
     ratio_gen = torch.Generator(device=dev).manual_seed(RATIO_SEED)
-    single = make_sim_step(cfg, walls, params, ratio_gen, **kw)
+    single = make_sim_step(cfg, walls, params, ratio_gen, donate=False,
+                           **kw)
     curve = ratio_curve(single, sim_init(cfg, params), cfg.grid)
     applied_ratio = curve["step2"]
     curve = {k: round(v, 4) for k, v in curve.items()}

@@ -97,8 +97,8 @@ def run_closed_loop(args):
     from swarm_tpu_torch.engine.checkpoint import (GENERATOR_KEY,
                                                    load_generator,
                                                    load_pytree, save_pytree)
-    from swarm_tpu_torch.engine.sim import (sim_init, sim_rollout,
-                                            total_writes_value)
+    from swarm_tpu_torch.engine.sim import (make_sim_step, run_steps,
+                                            sim_init, total_writes_value)
     from swarm_tpu_torch.ops.raster import tri_state_view
     from swarm_tpu_torch.proto.csvio import write_session
     from swarm_tpu_torch.render import render_map, save_png
@@ -120,9 +120,11 @@ def run_closed_loop(args):
         print(f"[RESUME] from {args.resume} at t={float(st.t):.1f}s "
               f"step={int(st.step)}")
     t0 = time.time()
-    final, ms = sim_rollout(st, args.steps, cfg, walls, params, gen,
-                            enable_targets=args.enable_targets,
-                            walls_grouped=rooms[0], room_of_agent=rooms[1])
+    # the session owns `st`: the donated step, no copy in the timed run
+    step = make_sim_step(cfg, walls, params, gen, donate=True,
+                         enable_targets=args.enable_targets,
+                         walls_grouped=rooms[0], room_of_agent=rooms[1])
+    final, ms = run_steps(step, st, args.steps)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.time() - t0

@@ -8,9 +8,15 @@ V2V. State is NamedTuples of tensors on one device; the step is eager torch,
 a Python loop replaces `lax.scan`, and noise comes in as tensors
 (`StepNoise`) drawn from an explicit `torch.Generator`.
 
-The log-odds rasters update `state.srv.logodds` IN PLACE: the grid of the
-state passed in is the grid of the state returned (the parity raster
-returns a new int8 grid).
+The caller's state is kept, as the reference's pure step keeps it:
+`sim_step`, `sim_rollout` and `make_sim_step(..., donate=False)` leave the
+state passed in as it was. The log-odds rasters (the window and room
+kernels, the XLA beam tier, the endpoint scatter, the line raster) update
+the grid IN PLACE, so these copy it first (`_copy_written`; `sim_rollout`
+once per call, not once per step). `make_sim_step(..., donate=True)`, the
+default and the deployable engine, is the reference's donated step: it
+runs on the state it is given, whose grid then is the grid of the state
+returned (the parity raster returns a new int8 grid).
 
 Ported: every configuration the reference's fused engine runs, the
 scan-matched closures (`slam.closure_scanmatch`: measured closure edges,
@@ -768,12 +774,31 @@ def agent_merge_box(cfg: SwarmConfig, walls_grouped, room_of_agent,
                  for a in box)
 
 
+def _copy_written(state: SimState, cfg: SwarmConfig) -> SimState:
+    """`state` with its own copy of each tensor a step of `cfg` writes in
+    place, and every other tensor shared. Of the state, a step writes in
+    place only the log-odds grid: the beam rasters (`free_raster`,
+    `room_raster`, `beam_raster_reference`, `endpoint_scatter`) and the
+    line raster (`logodds_raster`) add into it. The parity raster returns
+    a new int8 grid, the profiling mode paints nothing, and every other
+    field of the new state (the anchor, the closure ring, the frame
+    tracker, ...) is a tensor the step makes."""
+    e = cfg.engine
+    if e.parity_mode or e.raster_mode == "off":
+        return state
+    return state._replace(srv=state.srv._replace(
+        logodds=state.srv.logodds.clone()))
+
+
 def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
              params: AgentParams, faults: Optional[FaultSchedule] = None,
              enable_targets: bool = False, walls_grouped=None,
              room_of_agent=None, step_no: Optional[int] = None,
              merge_win_box=None, target_rooms: Optional[TargetRooms] = None):
     """Advance the whole swarm by one tick. Returns (new_state, StepMetrics).
+    The state passed in is kept: the grid the rasters update in place is
+    copied first (`make_sim_step(..., donate=True)` steps without the
+    copy).
 
     walls [S, 4] tensor; walls_grouped [G, S_g, 4] + room_of_agent [N]:
     culled casting, each agent against its own room's segments, the
@@ -782,6 +807,21 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
     (`agent_target_rooms`), each built here when not given. step_no:
     `state.step` as a host int, which decides the merge, zone and frontier
     cadences; read from the state (one device sync) when None."""
+    return _step_in_place(_copy_written(state, cfg), noise, cfg, walls,
+                          params, faults, enable_targets, walls_grouped,
+                          room_of_agent, step_no, merge_win_box,
+                          target_rooms)
+
+
+def _step_in_place(state: SimState, noise: StepNoise, cfg: SwarmConfig,
+                   walls, params: AgentParams,
+                   faults: Optional[FaultSchedule] = None,
+                   enable_targets: bool = False, walls_grouped=None,
+                   room_of_agent=None, step_no: Optional[int] = None,
+                   merge_win_box=None,
+                   target_rooms: Optional[TargetRooms] = None):
+    """`sim_step` on `state` itself: the rasters update `state.srv.logodds`
+    in place, and it becomes the grid of the state returned."""
     check_supported(cfg)
     if step_no is None:
         step_no = int(state.step)
@@ -929,10 +969,18 @@ def sim_step(state: SimState, noise: StepNoise, cfg: SwarmConfig, walls,
 def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
                   generator: torch.Generator,
                   faults: Optional[FaultSchedule] = None,
-                  enable_targets: bool = False, walls_grouped=None,
-                  room_of_agent=None):
+                  enable_targets: bool = False, donate: bool = True,
+                  walls_grouped=None, room_of_agent=None):
     """A single-argument step closure — the deployable engine. Noise comes
     from `generator` (on the params' device) unless a StepNoise is passed.
+
+    `donate`, as the reference's `donate_argnums`: with True (the default)
+    the step runs on the state it is given, and the rasters update its
+    grid in place (the reference's donated buffers are invalid after the
+    call; here the state passed in shares the returned grid). With False
+    the step first copies the tensors it writes in place
+    (`_copy_written`), and the state passed in is kept. Both give the
+    same result, bit for bit.
 
     The closure keeps the step number on the host, so the merge and
     frontier cadences cost no device sync: it reads `state.step` once, on
@@ -958,10 +1006,11 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
                                     cfg.engine.scan_rays, dev)
         if state is not host["state"]:
             host["step"] = int(state.step)
-        out = sim_step(state, noise, cfg, walls_t, params, faults,
-                       enable_targets, walls_grouped=wg_t,
-                       room_of_agent=roa_t, step_no=host["step"],
-                       merge_win_box=win_box, target_rooms=rooms)
+        out = _step_in_place(
+            state if donate else _copy_written(state, cfg), noise, cfg,
+            walls_t, params, faults, enable_targets, walls_grouped=wg_t,
+            room_of_agent=roa_t, step_no=host["step"],
+            merge_win_box=win_box, target_rooms=rooms)
         host["state"], host["step"] = out[0], host["step"] + 1
         return out
 
@@ -982,9 +1031,21 @@ def sim_rollout(state: SimState, n_steps: int, cfg: SwarmConfig, walls,
                 enable_targets: bool = False, walls_grouped=None,
                 room_of_agent=None):
     """n_steps of the fused step in a Python loop. Returns (final state,
-    StepMetrics with every field stacked over steps)."""
+    StepMetrics with every field stacked over steps). The state passed in
+    is kept: its grid is copied once, on entry (`_copy_written`), and the
+    steps then update the copy in place (`make_sim_step(...,
+    donate=True)`)."""
     step = make_sim_step(cfg, walls, params, generator, faults,
-                         enable_targets, walls_grouped, room_of_agent)
+                         enable_targets, donate=True,
+                         walls_grouped=walls_grouped,
+                         room_of_agent=room_of_agent)
+    return run_steps(step, _copy_written(state, cfg), n_steps)
+
+
+def run_steps(step, state: SimState, n_steps: int):
+    """n_steps calls of a step closure (`make_sim_step`) from `state`.
+    Returns (final state, StepMetrics with every field stacked over
+    steps). A donating closure updates the grid of `state` in place."""
     ms = []
     for _ in range(n_steps):
         state, m = step(state)

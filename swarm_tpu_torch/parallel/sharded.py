@@ -159,7 +159,9 @@ def shard_state(state, layout, grid_sharding: str = "replicated"):
     """This rank's part of a global SimState (any device), on the layout's
     device: the agent leaves' rows of this rank, the server state whole,
     and the log-odds grid and anchor cut to the rank's band or tile (an
-    anchor of [1, 1], merge_anchor off, stays whole)."""
+    anchor of [1, 1], merge_anchor off, stays whole). Every tensor of the
+    part is a copy, on the same device too: no step on the part writes
+    into the state passed in."""
     from swarm_tpu_torch.engine.sim import SimState
 
     n = state.pose_true.shape[0]
@@ -831,6 +833,7 @@ def _tile_halo(cfg: SwarmConfig, layout):
 def make_sharded_sim_step(cfg: SwarmConfig, walls, params, layout,
                           generator: Optional[torch.Generator] = None,
                           faults=None, enable_targets: bool = False,
+                          donate: bool = True,
                           grid_sharding: str = "replicated",
                           walls_grouped=None, room_of_agent=None):
     """The sharded step for this rank: `step(state, noise=None) ->
@@ -839,6 +842,12 @@ def make_sharded_sim_step(cfg: SwarmConfig, walls, params, layout,
     `params` and `faults` are global (every agent), on the layout's
     device. Noise comes from `generator` (seeded alike on every rank, on
     the layout's device) unless a whole-step StepNoise is passed.
+
+    `donate` is the reference's `donate_argnums` switch, and here either
+    value keeps the state passed in: the sharded step writes no tensor of
+    the state in place (its rasters paint a fresh delta, and the map is
+    `clamp(logodds + delta)`, a new tensor), so a `donate=False` step
+    copies nothing and is the donated step, bit for bit.
 
     grid_sharding "replicated", "rows" or "tiles" (see the module
     docstring). "rows" and "tiles" need `walls_grouped` / `room_of_agent`

@@ -29,7 +29,10 @@ After the rows, on the card, SPLIT_STEPS more steps of the full step split
 on the device timeline into the parts the engine calls by name
 (`step_split` with `sim_parts`: sensing, raster, merge, zones, closure,
 V2V, rest); `sharded_parts` are the sharded step's parts for the same
-split.
+split. Then the launches of LAUNCH_STEPS more steps (`step_launches`): the
+torch operations the steps dispatch (on any device) and the raster
+kernels they launch, and on the card the device operations (kernels,
+copies, fills) torch.profiler records.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 from swarm_tpu_torch._device import default_device, describe
 
 SPLIT_STEPS = 17         # one merge step (step 15) among them
+LAUNCH_STEPS = 4         # steps whose launches are counted
 SEED = 0
 
 
@@ -145,6 +149,46 @@ def step_split(step, state, n_steps: int, parts=None):
     for p in ("step", "rest"):
         split[p] = (median([r[p] for r in plain]), len(plain), None)
     return state, split
+
+
+def step_launches(step, state, n_steps: int):
+    """(state, launches) over n_steps more steps of `step`: "ops", the
+    torch operations dispatched (each a launch or a few on the card, none
+    for a view); "raster", the window and room kernels' launches (their
+    wrappers' counts); on the card "device", the kernels, copies and fills
+    torch.profiler records (it can drop records under load), else None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
+    from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def raster():
+        return free_raster.launches + room_raster.launches
+
+    r0, count = raster(), Count()
+    with count:
+        for _ in range(n_steps):
+            state, _ = step(state)
+    r1, device = raster(), None
+    if state.pose_true.device.type == "cuda":
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                state, _ = step(state)
+            torch.cuda.synchronize()
+        device = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    return state, {"steps": n_steps, "ops": count.n,
+                   "raster": r1 - r0,
+                   "device": device}
 
 
 def time_call(fn, inner: int, reps: int, dev):
@@ -325,7 +369,15 @@ def main(argv=None):
     else:
         print("step split: not measured (the device timeline needs the "
               "card)")
-    return {"rows": out, "split": split, "device": device_name}
+    full["state"], launches = step_launches(step, full["state"],
+                                            LAUNCH_STEPS)
+    print(f"launches over {LAUNCH_STEPS} steps: {launches['ops']} torch "
+          f"ops dispatched, {launches['raster']} raster kernels, device "
+          f"operations "
+          + ("not measured" if launches["device"] is None
+             else str(launches["device"])))
+    return {"rows": out, "split": split, "launches": launches,
+            "device": device_name}
 
 
 if __name__ == "__main__":

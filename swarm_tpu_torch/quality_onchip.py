@@ -79,7 +79,7 @@ def map_quality(exact, fast, grid_cfg) -> dict:
 def run(patch: dict, steps: int, use_pallas: bool, device, seed=SEED):
     """One tier's rollout: (its tri-state map as numpy, cfg, seconds)."""
     from swarm_tpu_torch import presets
-    from swarm_tpu_torch.engine.sim import sim_init, sim_rollout
+    from swarm_tpu_torch.engine.sim import make_sim_step, run_steps, sim_init
     from swarm_tpu_torch.ops.raster import tri_state_view
 
     dev = default_device(device)
@@ -89,9 +89,10 @@ def run(patch: dict, steps: int, use_pallas: bool, device, seed=SEED):
         cfg.engine, use_pallas=use_pallas, **patch))
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
-    final, _ = sim_rollout(sim_init(cfg, params), steps, cfg, walls, params,
-                           gen, walls_grouped=rooms[0],
-                           room_of_agent=rooms[1])
+    # a fresh state the run owns: the donated step, no copy in the timing
+    step = make_sim_step(cfg, walls, params, gen, donate=True,
+                         walls_grouped=rooms[0], room_of_agent=rooms[1])
+    final, _ = run_steps(step, sim_init(cfg, params), steps)
     tri = tri_state_view(final.srv.logodds, cfg.grid).cpu().numpy()
     return tri, cfg, time.perf_counter() - t0
 

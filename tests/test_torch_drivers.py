@@ -156,9 +156,10 @@ def test_ratio_window_evidence_matches_jax():
     """One reconciliation step's `applied` (bench.step_evidence) from one
     state and one step's noise: equal to bench.py's expression (:184-189)
     on JAX's step within rtol 1e-5, the writes too. The state is the
-    port's after WARM steps on the JAX step's own noise. A step_evidence
-    that does not clone the grid before the step (the rasters update it in
-    place) reads a zero change and fails here."""
+    port's after WARM steps on the JAX step's own noise; the step is
+    bench.run's, `make_sim_step(..., donate=False)`, which keeps the grid
+    it is given. A donating step there (the rasters update the grid in
+    place) leaves step_evidence a zero change and fails here."""
     cfg_j, params_j, step_j = _jax_cpu_bench()
     args = bench.parse_args(["--device", "cpu", "--agents", str(N_RATIO)])
     cfg, walls, params, rooms, _ = bench.configure(args)
@@ -181,9 +182,11 @@ def test_ratio_window_evidence_matches_jax():
                       jnp.sum(jnp.maximum(d, 0.0)) / cfg_j.grid.logodds_hit)
 
     noise = jax_step_noise(key, N_RATIO, 181)
+    single = ps.make_sim_step(cfg, walls, params, torch.Generator(),
+                              donate=False, **kw)
     _, applied, writes = bench.step_evidence(
-        lambda s: ps.sim_step(s, noise, cfg, walls, params, **kw),
-        convert.to_torch(st_j, ps.SimState), cfg.grid)
+        lambda s: single(s, noise), convert.to_torch(st_j, ps.SimState),
+        cfg.grid)
     assert applied_j > 0
     np.testing.assert_allclose(applied, applied_j, rtol=1e-5)
     np.testing.assert_allclose(writes, int(m_j.writes), rtol=1e-5)

@@ -218,6 +218,9 @@ def test_profile_step_prints_every_row(capsys):
     for row, v in res["rows"].items():
         assert row in out and v["device_ms"] is None and v["host_ms"] > 0
     assert "FULL sim_step" in res["rows"]
+    n = res["launches"]
+    assert n["steps"] == profile_step.LAUNCH_STEPS and n["ops"] > 0 and \
+        n["device"] is None and "torch ops dispatched" in out
 
 
 def test_roofline_refuses_the_cpu():

@@ -8,8 +8,14 @@ entry naming the port's counterpart (resolved here) or the ROADMAP item
 that explains it (found in ROADMAP.md). The JAX package's scripts outside
 it (bench.py, __graft_entry__.py, tools/*.py) are held the same way: each
 top-level function maps to a port counterpart or a ROADMAP item
-(`SCRIPTS`). The JAX sources are read with `ast`: nothing of jax is
-imported for the comparison.
+(`SCRIPTS`). Below the names, the parameters: every parameter of every
+public function and public method of `swarm_tpu/**.py` must be a parameter
+of its port counterpart, and every command-line flag of bench.py,
+tools/*.py, `cli/*.py` and `server/live.py` a flag of the port's
+counterpart, or be covered by a row of ROADMAP's counterpart table that
+gives the reason (`PARAMS`, `FLAGS`); a row that covers nothing is stale.
+The JAX sources are read with `ast`: nothing of jax is imported for the
+comparison.
 
 Importing every package of the port on a host without a card loads no jax
 and nothing of `swarm_tpu`, initialises no CUDA and builds nothing:
@@ -17,7 +23,9 @@ kernels and the native library are built at first use.
 """
 
 import ast
+import functools
 import importlib
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -199,3 +207,166 @@ def test_every_script_function_has_a_counterpart(rel):
         assert (rel, name) in SCRIPTS, f"{rel}:{name} has no counterpart"
         _resolve(SCRIPTS[(rel, name)])
     assert {n for (r, n) in SCRIPTS if r == rel} == set(names)
+
+
+# JAX parameters that the port's counterpart does not take -> the text of
+# the ROADMAP counterpart-table row that gives the reason. A key `name`
+# covers that parameter in every function, `function(name)` in that
+# function (or `Class.method(name)`) only.
+PARAMS = {
+    "mesh": "`mesh` (a JAX device mesh",
+    "make_mesh(n_devices)": "`make_mesh(n_devices, axis_name)`",
+    "make_mesh(axis_name)": "`make_mesh(n_devices, axis_name)`",
+    "state_specs(axis)": "`state_specs(axis, lo_spec, grid_rows_sharded)`",
+    "state_specs(lo_spec)": "`state_specs(axis, lo_spec, grid_rows_sharded)`",
+    "state_specs(grid_rows_sharded)":
+        "`state_specs(axis, lo_spec, grid_rows_sharded)`",
+    "shard_state(grid_rows_sharded)":
+        "`shard_state(grid_rows_sharded, grid_tiles_sharded)`",
+    "shard_state(grid_tiles_sharded)":
+        "`shard_state(grid_rows_sharded, grid_tiles_sharded)`",
+    "key": "`key` (a JAX PRNG key",
+    "greedy_assign_rooms(room_boxes)": "`greedy_assign_rooms(room_boxes)`",
+    "nav_init(return_style)": "`nav_init(return_style)`",
+    "make_agent_params(cfg)": "`make_agent_params(cfg)`",
+    "interpret": "`interpret` (Pallas interpret mode",
+    "line_equivalent": "`line_equivalent`",
+    "room_raster_pallas(agents_per_room)":
+        "`room_raster_pallas(agents_per_room)`",
+}
+# JAX command-line flags the port's counterpart does not take -> (the port's
+# flag in its place, the text of the ROADMAP row that gives the reason)
+FLAGS = {"--platform": ("--device", "`--platform` (bench.py")}
+FLAG_FILES = [str(p.relative_to(ROOT)) for p in
+              [ROOT / "bench.py", *sorted((ROOT / "tools").glob("*.py")),
+               *sorted((JAX_PKG / "cli").glob("*.py")),
+               JAX_PKG / "server" / "live.py"]]
+
+
+def _parameters(fn):
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _is_property(fn):
+    return any(isinstance(d, ast.Name) and d.id == "property" or
+               isinstance(d, ast.Attribute) and d.attr in ("getter",
+                                                           "setter")
+               for d in fn.decorator_list)
+
+
+def _public_callables(path: Path):
+    """(function or class, method or None, [parameters]) of every public
+    function of a module and every public method (and `__init__`) of its
+    public classes; properties are attributes, not callables."""
+    fns = (ast.FunctionDef, ast.AsyncFunctionDef)
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, fns) and not node.name.startswith("_"):
+            yield node.name, None, _parameters(node)
+        elif isinstance(node, ast.ClassDef) and \
+                not node.name.startswith("_"):
+            for m in node.body:
+                if isinstance(m, fns) and not _is_property(m) and \
+                        (m.name == "__init__" or not m.name.startswith("_")):
+                    yield node.name, m.name, _parameters(m)
+
+
+def _port_callable(rel: str, name: str, method):
+    """The port's counterpart of a JAX function or method, or None where
+    the counterpart is a ROADMAP item (no port callable)."""
+    target = COUNTERPARTS.get((rel, name))
+    if target is None and rel not in MODULES:
+        mod, attr = _port_module(rel), name
+    elif target is not None and not target.startswith("ROADMAP "):
+        mod, _, attr = target.partition(":")
+    else:
+        return None
+    obj = getattr(importlib.import_module(mod), attr)
+    if method is None:
+        return obj
+    assert hasattr(obj, method), \
+        f"{mod}.{attr} lacks {method} (swarm_tpu/{rel})"
+    return getattr(obj, method)
+
+
+@functools.lru_cache(maxsize=None)
+def _parameter_gaps(rel: str):
+    """[(function, parameter)] of a JAX module whose port counterpart does
+    not take the parameter ("Class.method" for a method)."""
+    gaps = []
+    for name, method, params in _public_callables(JAX_PKG / rel):
+        fn = _port_callable(rel, name, method)
+        if fn is None:
+            continue
+        have = inspect.signature(fn).parameters
+        qual = name if method is None else f"{name}.{method}"
+        gaps += [(qual, p) for p in params if p not in have]
+    return tuple(gaps)
+
+
+def _row_of(qual: str, param: str):
+    """The PARAMS key that covers a missing parameter, or None."""
+    return next((k for k in (f"{qual}({param})", param) if k in PARAMS),
+                None)
+
+
+def _flags(path: Path):
+    """The option strings of every `add_argument` call of a script."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Call) and \
+                isinstance(node.func, ast.Attribute) and \
+                node.func.attr == "add_argument":
+            out += [a.value for a in node.args
+                    if isinstance(a, ast.Constant) and isinstance(a.value,
+                                                                  str)]
+    return out
+
+
+def _port_script(rel: str) -> Path:
+    """The port's source of a JAX script or CLI module."""
+    if rel.startswith("swarm_tpu/"):
+        return ROOT / "swarm_tpu_torch" / rel[len("swarm_tpu/"):]
+    mod = SCRIPTS[(rel, "main")].partition(":")[0]
+    return ROOT / (mod.replace(".", "/") + ".py")
+
+
+@functools.lru_cache(maxsize=None)
+def _flag_gaps(rel: str):
+    have = set(_flags(_port_script(rel)))
+    return tuple(f for f in _flags(ROOT / rel) if f not in have), have
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_parameter_has_a_counterpart(rel):
+    """Each parameter of a public function or method is a parameter of the
+    port's counterpart, or a ROADMAP row gives the reason."""
+    for qual, param in _parameter_gaps(rel):
+        row = _row_of(qual, param)
+        assert row is not None, \
+            f"{_port_module(rel)}.{qual} lacks {param} (swarm_tpu/{rel})"
+        _resolve("ROADMAP " + PARAMS[row])
+
+
+@pytest.mark.parametrize("rel", FLAG_FILES)
+def test_every_cli_flag_has_a_counterpart(rel):
+    """Each command-line flag of a JAX script is a flag of the port's, or
+    FLAGS names the port's flag in its place and the ROADMAP row."""
+    missing, have = _flag_gaps(rel)
+    for flag in missing:
+        assert flag in FLAGS, f"{_port_script(rel)} lacks {flag} ({rel})"
+        instead, row = FLAGS[flag]
+        assert instead in have, f"{_port_script(rel)} lacks {instead}"
+        _resolve("ROADMAP " + row)
+
+
+def test_no_parameter_row_is_stale():
+    """Every row of PARAMS and FLAGS still covers a missing parameter or
+    flag."""
+    used = {_row_of(q, p) for rel in _jax_modules()
+            for q, p in _parameter_gaps(rel)}
+    assert set(PARAMS) <= used, sorted(set(PARAMS) - used)
+    flags = {f for rel in FLAG_FILES for f in _flag_gaps(rel)[0]}
+    assert set(FLAGS) <= flags, sorted(set(FLAGS) - flags)
