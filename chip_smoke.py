@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
-    python3 chip_smoke.py --group donation    # the build and one group
+    python3 chip_smoke.py --group faults      # the build and one group
 
 With no arguments every phase runs, in order. `--group NAME` runs the
 build and one group of phases, each with all its checks and shapes:
 kernels (2-3), paths (4-12), sharded (13-15, 30-32), modes (16-21),
-accuracy (22), server (23-29, 33-34), tools (35-41), donation (42); it
+accuracy (22), server (23-29, 33-34), tools (35-41), donation (42),
+faults (43); it
 prints the records of the kernels that group held or launched (the
 numbers of a group that did not run are null) and the same last line.
 The count of kernel records is checked on a full run only.
@@ -357,7 +358,30 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      (presets.deployable(32768, grid_dtype="bfloat16")) the peak of a
      one-step sim_rollout beyond one donated step's and the time of its
      copy of the grid; every launch of the phase checked (each step its
-     form once) and added to its form's record.
+     form once) and added to its form's record;
+ 43. the fault-injection path (the reference's stuck-bot fault and
+     heartbeat failover) and frames that lack agents, under a kill
+     schedule (agent 0 dead at steps 2-14, 63 others at steps 2-16: past
+     the 5 s timeout, across the merge step 15, all back by step 17):
+     FAULT_STEPS steps at 1024 agents of the window path (pack8-ring), the
+     room path (pack16-ring), the exploration path (presets.coverage with
+     targets, pack16 and pack16-wrapped, frontier steps 8 and 16) and the
+     sharded step on a one-rank NCCL group ("replicated", pack16-ring, and
+     "tiles", pack16-ring-tile), the counters set to 0 just before each
+     and read just after: each form once a step; the online count falls
+     by the killed agents after the timeout and is whole again at the
+     end; dead agents' reported poses stay put and they paint nothing;
+     "tiles" equal to "replicated" at the decision bars (ROADMAP C22). At
+     8 agents, both fused paths on the card and on the CPU from one state
+     and noise under the same schedule: every step's writes, closures,
+     merges and online count equal, 0 tri-state cells apart.
+     `ingest_frame` at 1024 agents on FAULT_FRAMES frames 0.4 s apart,
+     each missing ~10% of the agents and the killed block missing from
+     frames 1-15: card = CPU (grid, closure log, per-row flags and
+     corrections, counts, online), the block offline after the timeout
+     and back. The room kernel on a layout whose rooms overflow the tile
+     grid (ROADMAP C11) bit-equal to its plain version. The launches of
+     the 1024-agent runs add to their forms' records.
 The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`; pack16 and pack16-wrapped at 64 agents on 1024^2,
@@ -366,8 +390,9 @@ the accuracy path's and bench_coverage's shapes, are the records
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}. A record's `launches` counts the launches of the paths at its
 shapes: the window path's pack8-ring and the room path's pack16-ring add
-phase 35's and phase 42's, pack16-ring, pack16-ring-tile and
-pack8-ring-bf16 add phase 42's. The line before the records gives the
+phase 35's, 42's and 43's, pack16-ring and pack16-ring-tile add phase 42's
+and 43's, pack8-ring-bf16 phase 42's, pack16 and pack16-wrapped (1024
+agents) phase 43's. The line before the records gives the
 run's seconds.
 """
 
@@ -5243,6 +5268,404 @@ def phase_donation(card, dev):
     return launches
 
 
+FAULT_STEPS = 18             # dead past the 5 s timeout, a merge at 15
+FAULT_OTHERS = 63            # agents killed besides agent 0 (at 1024)
+FAULT_REF_AGENTS = 8         # the card-vs-CPU run
+FAULT_FRAMES = 20            # ingest_frame frames, FAULT_FRAME_DT apart
+FAULT_FRAME_DT = 0.4         # s between frames: the timeout spans 13
+FAULT_ABSENT = 0.1           # share of the agents missing from a frame
+
+
+def _kill_schedule(n, dev):
+    """The kill schedule of phase 43 (tests/test_torch_faults.py's at 8
+    agents): agent 0 dead from 0.6 to 5.8 s (steps 2-14 at 0.4 s a step)
+    and agents 3, 19, 35, ... (every 16th from 3, up to FAULT_OTHERS) from
+    0.6 to 6.6 s (steps 2-16). The last packet of both is older than the 5
+    s timeout at step 14; the merge step 15 finds agent 0 back and the
+    others dead; all are back by step 17. Returns (FaultSchedule, the
+    killed agents)."""
+    from swarm_tpu_torch.engine.sim import FaultSchedule
+
+    others = [a for a in range(3, n, 16)][:FAULT_OTHERS]
+    agents = [0] + others
+    t0 = [0.6] * len(agents)
+    t1 = [5.8] + [6.6] * len(others)
+    return FaultSchedule(
+        agent=torch.tensor(agents, dtype=torch.int32, device=dev),
+        t_start=torch.tensor(t0, dtype=torch.float32, device=dev),
+        t_end=torch.tensor(t1, dtype=torch.float32, device=dev)), agents
+
+
+def _check_failover(name, ms, n, killed):
+    """The schedule's effect on stacked StepMetrics: the agents that died
+    are the killed ones; the online count (from step 1: at step 0 no
+    agent has spoken) falls by all of them once the timeout has passed and
+    is whole at the last step; a dead agent's reported poses stay put and
+    it paints nothing. Returns the online counts."""
+    alive = ms.alive.cpu()
+    online = ms.online.cpu()
+    dead = torch.nonzero(~alive.all(dim=0)).flatten().tolist()
+    if dead != sorted(killed):
+        raise AssertionError(f"faults {name}: dead agents {dead[:8]}... "
+                             f"({len(dead)}), killed {len(killed)}")
+    if int(online[1:].min()) != n - len(killed) or \
+            int(online[-1]) != n or not bool(alive[-1].all()):
+        raise AssertionError(f"faults {name}: online {online.tolist()}")
+    hv = ms.hit_valid.cpu()
+    for a in killed:
+        span = torch.nonzero(~alive[:, a]).flatten()
+        for f in ("srv_x", "srv_y", "srv_yaw", "est_x", "est_y"):
+            v = getattr(ms, f)[:, a].cpu()[span]
+            if not bool((v == v[0]).all()):
+                raise AssertionError(f"faults {name}: dead agent {a} "
+                                     f"moved ({f})")
+        if bool(hv[span, a].any()):
+            raise AssertionError(f"faults {name}: dead agent {a} painted")
+    return online.tolist()
+
+
+def _faults_fused(card, dev, name, world, targets=False):
+    """FAULT_STEPS steps of a fused path at N_AGENTS agents under the kill
+    schedule, launches counted from 0. Returns {form: launches}."""
+    from swarm_tpu_torch.engine.sim import make_sim_step, run_steps, sim_init
+
+    cfg, walls, params, rooms = world
+    faults, killed = _kill_schedule(N_AGENTS, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    step = make_sim_step(cfg, walls, params, gen, faults, targets,
+                         walls_grouped=rooms[0], room_of_agent=rooms[1])
+    state = sim_init(cfg, params)
+    _sync(dev)
+    _reset_counts()                          # this path starts here
+    (state, ms), sec = _wall(lambda: run_steps(step, state, FAULT_STEPS),
+                             dev)
+    by_form = {**_read_counts()[1], **{f"room {k}": v
+                                       for k, v in _room_by_form().items()}}
+    online = _check_failover(name, ms, N_AGENTS, killed)
+    merges = ms.merges.cpu().tolist()
+    n_fr = ms.n_frontiers.cpu().tolist()
+    if targets:
+        if n_fr[8] <= 0 or n_fr[16] <= 0:
+            raise AssertionError(f"faults {name}: frontiers {n_fr}")
+    elif merges[15] <= 0:
+        raise AssertionError(f"faults {name}: no merge at step 15")
+    if not bool((ms.writes > 0).all()) or \
+            not bool(torch.isfinite(state.pose_true).all()):
+        raise AssertionError(f"faults {name}: a step wrote nothing or a "
+                             "pose is not finite")
+    print(f"faults {name} at {N_AGENTS} agents [{card}]: {FAULT_STEPS} "
+          f"steps in {sec:.4f} s ({FAULT_STEPS / sec:.2f} steps/s), "
+          f"{len(killed)} agents killed; online {online}; merges at step "
+          f"15 {merges[15]}, frontiers at steps 8 / 16 {n_fr[8]} / "
+          f"{n_fr[16]}; dead agents stayed put and painted nothing; "
+          f"launches {by_form}; applied cells "
+          f"{int(ms.writes.to(torch.int64).sum())}")
+    return by_form
+
+
+def _faults_card_vs_cpu(card, dev, room_kernel):
+    """The kill schedule at FAULT_REF_AGENTS agents on the card and on the
+    CPU from one state and the same noise: every step's writes, closures,
+    merges and online count equal, the maps' tri-state cells equal."""
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import (draw_step_noise, sim_init,
+                                            sim_step)
+    from swarm_tpu_torch.ops.raster import tri_state_view
+
+    name = "room" if room_kernel else "window"
+    cpu = torch.device("cpu")
+    n = FAULT_REF_AGENTS
+    worlds = {d: presets.deployable(n, device=d, room_kernel=room_kernel)
+              for d in (cpu, dev)}
+    faults = {d: _kill_schedule(n, d)[0] for d in (cpu, dev)}
+    killed = _kill_schedule(n, cpu)[1]
+    states = {d: sim_init(w[0], w[2]) for d, w in worlds.items()}
+    gen = torch.Generator(device=cpu).manual_seed(SEED + 44)
+    ms = {cpu: [], dev: []}
+    for k in range(FAULT_STEPS):
+        noise = draw_step_noise(gen, n, worlds[cpu][0].engine.scan_rays, cpu)
+        for d, (cfg, walls, params, rooms) in worlds.items():
+            nz = type(noise)(*(None if f is None else
+                               type(f)(*(x.to(d) for x in f))
+                               for f in noise))
+            states[d], m = sim_step(states[d], nz, cfg, walls, params,
+                                    faults[d], walls_grouped=rooms[0],
+                                    room_of_agent=rooms[1])
+            ms[d].append(m)
+    stacked = {d: type(v[0])(*(torch.stack(f).cpu() for f in zip(*v)))
+               for d, v in ms.items()}
+    for f in ("writes", "closures", "merges", "online", "alive"):
+        a, b = getattr(stacked[dev], f), getattr(stacked[cpu], f)
+        if not torch.equal(a, b):
+            raise AssertionError(f"faults card vs CPU [{name}]: {f} "
+                                 f"{a.tolist()} vs {b.tolist()}")
+    _check_failover(f"{name} at {n} agents", stacked[dev], n, killed)
+    cfg = worlds[cpu][0]
+    tri = {d: tri_state_view(s.srv.logodds, cfg.grid).cpu()
+           for d, s in states.items()}
+    n_diff = int((tri[dev] != tri[cpu]).sum())
+    if n_diff:
+        raise AssertionError(f"faults card vs CPU [{name}]: {n_diff} "
+                             "tri-state cells differ")
+    w = stacked[dev].writes.to(torch.int64)
+    print(f"faults card vs CPU [{name}] at {n} agents, {FAULT_STEPS} steps "
+          f"under the kill schedule [{card}]: writes {int(w.sum())} on both"
+          f" (every step equal), closures "
+          f"{int(stacked[dev].closures.sum())} on both, merges "
+          f"{stacked[dev].merges.tolist()}, online "
+          f"{stacked[dev].online.tolist()}; 0 tri-state cells differ")
+
+
+def _faults_sharded(card, dev):
+    """The sharded step on a one-rank NCCL group, "replicated" and
+    "tiles", FAULT_STEPS steps under the kill schedule: the failover's
+    checks, and "tiles" equal to "replicated" step for step (writes,
+    merges, online) with the maps' tri-state cells equal. Returns
+    {form: launches}."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from swarm_tpu_torch import presets
+    from swarm_tpu_torch.engine.sim import (StepMetrics, draw_step_noise,
+                                            sim_init)
+    from swarm_tpu_torch.ops.raster import tri_state_view
+    from swarm_tpu_torch.parallel import mesh, sharded
+
+    mesh.init(f"tcp://127.0.0.1:{mesh.free_port()}", 1, 0,
+              timedelta(seconds=SHARDED_TIMEOUT_S), device=dev)
+    if dev.type == "cuda" and dist.get_backend() != "nccl":
+        raise AssertionError("the card's process group is not NCCL")
+    runs, launches = {}, {}
+    try:
+        cfg, walls, params, rooms = presets.deployable(N_AGENTS, device=dev)
+        faults, killed = _kill_schedule(N_AGENTS, dev)
+        lay = mesh.make_layout((1, 1), device=dev)
+        for gs in ("replicated", "tiles"):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+            step = sharded.make_sharded_sim_step(
+                cfg, walls, params, lay, gen, faults, grid_sharding=gs,
+                walls_grouped=rooms[0], room_of_agent=rooms[1])
+            st = sharded.shard_state(sim_init(cfg, params), lay, gs)
+            _sync(dev)
+            _reset_counts()
+            ms = []
+            t0 = time.perf_counter()
+            for _ in range(FAULT_STEPS):
+                st, m = step(st, draw_step_noise(gen, N_AGENTS,
+                                                 cfg.engine.scan_rays, dev))
+                ms.append(m)
+            _sync(dev)
+            sec = time.perf_counter() - t0
+            launches.update(_read_counts()[1])
+            ms = StepMetrics(*(torch.stack(f) for f in zip(*ms)))
+            online = _check_failover(f"sharded {gs}", ms, N_AGENTS, killed)
+            if int(ms.merges[15]) <= 0:
+                raise AssertionError(f"faults sharded {gs}: no merge")
+            runs[gs] = (ms, tri_state_view(st.srv.logodds, cfg.grid).cpu())
+            print(f"faults sharded {gs} on one rank at {N_AGENTS} agents "
+                  f"[{card}]: {FAULT_STEPS} steps in {sec:.4f} s, online "
+                  f"{online}, merges at step 15 {int(ms.merges[15])}")
+            del st
+    finally:
+        dist.destroy_process_group()
+    (ma, ta), (mb, tb) = runs["replicated"], runs["tiles"]
+    for f in ("merges", "online", "closures"):
+        if not torch.equal(getattr(ma, f), getattr(mb, f)):
+            raise AssertionError(f"faults sharded: tiles' {f} differ from "
+                                 "replicated's")
+    wa, wb = int(ma.writes.to(torch.int64).sum()), \
+        int(mb.writes.to(torch.int64).sum())
+    n_diff = int((ta != tb).sum())
+    explored = int(((ta != cfg.grid.unknown) | (tb != cfg.grid.unknown))
+                   .sum())
+    print(f"faults sharded tiles vs replicated [{card}]: writes {wb} vs "
+          f"{wa}, {n_diff} of {explored} explored tri-state cells differ")
+    # ROADMAP C22: "tiles" shifts the float cells by the tile window's
+    # offsets, so its bars are the decision bars, not bits
+    if abs(wa - wb) > 1e-5 * wa or n_diff > 1e-4 * explored:
+        raise AssertionError("faults sharded: tiles and replicated apart")
+    return launches
+
+
+def _partial_frame(rng, present, f):
+    """One serving frame of the agents `present`, shuffled, one packet
+    each, stamped FAULT_FRAME_DT s after the last: columns on the host."""
+    order = rng.permutation(present).astype(np.int32)
+    b = order.shape[0]
+    t = np.float32(1.0 + f * FAULT_FRAME_DT) + \
+        np.arange(b, dtype=np.float32) * np.float32(1e-4)
+    ph = order * 0.37 + f * 0.3
+    return dict(t=t, agent=order, x=(2.0 + 1.5 * np.cos(ph)).astype(
+        np.float32), y=(1.5 + np.sin(ph)).astype(np.float32),
+        yaw=((ph % 6.28) - 3.14).astype(np.float32),
+        encoder=np.zeros(b, np.int32), v2v=np.zeros(b, np.int32),
+        dist=rng.uniform(0.1, 1.1, (b, 4)).astype(np.float32),
+        landmark=np.where(rng.random(b) < 0.3, rng.integers(1, 4, b),
+                          0).astype(np.int32))
+
+
+def _faults_ingest(card, dev):
+    """`ingest_frame` at N_AGENTS agents on FAULT_FRAMES frames, each
+    missing FAULT_ABSENT of the agents at random, and a block of agents
+    (the kill schedule's) missing from frames 1-15 (6 s): the card and the
+    CPU give the same grids (bar cells that rays traced apart by an ulp
+    touch, ROADMAP C26), closure logs, per-row closure flags and
+    corrections (the reference's row-0 write, C34), packet counts and
+    online counts; the block falls offline after the timeout and comes
+    back. Returns the online counts."""
+    from swarm_tpu_torch.config import SwarmConfig
+    from swarm_tpu_torch.engine.replay import (PacketStream, ingest_frame,
+                                               server_init)
+
+    cfg = SwarmConfig(n_agents=N_AGENTS)
+    rng = np.random.default_rng(SEED + 46)
+    block = set(_kill_schedule(N_AGENTS, torch.device("cpu"))[1])
+    frames, n_absent = [], []
+    for f in range(FAULT_FRAMES):
+        miss = rng.random(N_AGENTS) < FAULT_ABSENT
+        if 1 <= f <= 15:
+            miss[list(block)] = True
+        present = np.nonzero(~miss)[0]
+        n_absent.append(int(miss.sum()))
+        frames.append(_partial_frame(rng, present, f))
+
+    def serve(d):
+        st = server_init(cfg, t0=1.0, device=d)
+        off = torch.zeros(N_AGENTS, device=d)
+        outs = []
+        for fr in frames:
+            b = fr["t"].shape[0]
+            batch = PacketStream(**{k: torch.as_tensor(v, device=d)
+                                    for k, v in fr.items()},
+                                 valid=torch.ones(b, dtype=torch.bool,
+                                                  device=d))
+            st, out = ingest_frame(st, batch, cfg, off)
+            outs.append(out)
+        return st, outs
+
+    _reset_counts()
+    (st, outs), sec = _wall(lambda: serve(dev), dev)
+    n_kernels = _no_kernel("faults ingest")
+    st_c, outs_c = serve(torch.device("cpu"))
+
+    def cat(src):
+        return types.SimpleNamespace(**{
+            f: torch.cat([getattr(o, f) for o in src]).cpu()
+            for f in ("rx", "ry", "hits", "hit_valid")})
+    mask, apart = _ray_cells_apart(cat(outs), cat(outs_c), cfg)
+    _grids_agree(f"faults ingest card vs CPU [{card}]", st.grid, st_c.grid,
+                 mask, apart)
+    n_cl = _same_closures("faults ingest card vs CPU", st, st_c)
+    for k, (a, b) in enumerate(zip(outs, outs_c)):
+        for f in ("closed", "online"):
+            if not torch.equal(getattr(a, f).cpu(), getattr(b, f)):
+                raise AssertionError(f"faults ingest frame {k}: {f} "
+                                     "differs card vs CPU")
+        if not torch.allclose(a.corr.cpu(), b.corr, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"faults ingest frame {k}: corr differs")
+    if not torch.equal(st.pkt_counts.cpu(), st_c.pkt_counts):
+        raise AssertionError("faults ingest: packet counts differ")
+    online = [int(o.online[0].sum()) for o in outs]
+    row0 = sum(int(o.closed[0]) for o in outs)
+    if min(online[1:]) > N_AGENTS - len(block) or online[-1] != N_AGENTS:
+        raise AssertionError(f"faults ingest: online {online}")
+    print(f"faults ingest_frame at {N_AGENTS} agents [{card}]: "
+          f"{FAULT_FRAMES} frames {FAULT_FRAME_DT} s apart, {n_absent} "
+          f"agents absent a frame ({len(block)} of them from frames 1-15), "
+          f"{sec:.4f} s on the card; online {online}; {n_cl} closures "
+          f"({row0} flagged on row 0); raster kernels {n_kernels}")
+    return online
+
+
+def _faults_rooms_off_grid(card, dev):
+    """ROADMAP C11 on the card: 13 rooms at 3 a row on a 512^2 grid (4 x 2
+    tiles; 5 rooms off the grid, dropped on the host) through the room
+    kernel, bit-equal to its plain version on the card and on the CPU's
+    plain version's tiles."""
+    from swarm_tpu_torch.config import GridConfig
+    from swarm_tpu_torch.geom.world import make_tiled_rooms
+    from swarm_tpu_torch.ops import room_raster_cuda as rc
+    from swarm_tpu_torch.ops.beam_raster import BeamSpec
+
+    per_row, n_rooms, n_beams = 3, 13, 181
+    rng = np.random.default_rng(SEED + 47)
+    _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    n = 2 * n_rooms
+    xy = origins[np.arange(n) // 2] + rng.uniform([0.4, 0.4], [5.6, 3.6],
+                                                  (n, 2))
+    cfg = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
+    args = [torch.tensor(a, dtype=dt) for a, dt in (
+        (xy, torch.float32), (rng.uniform(-np.pi, np.pi, n), torch.float32),
+        (rng.uniform(0.1, 1.2, (n, n_beams)), torch.float32),
+        (np.ones(n, bool), torch.bool),
+        (rng.random((n, n_beams)) < 0.7, torch.bool))]
+    kw = dict(spec=BeamSpec.scan(n_beams), cfg=cfg, n_groups=n_beams,
+              per_row=per_row, reach=26)
+
+    def run(fn, d):
+        a = [x.to(d) for x in args]
+        return fn(torch.zeros((512, 512), device=d), *a[:4], trusted=a[4],
+                  **kw)
+    got, counts = run(rc.room_raster, dev)
+    plain, counts_p = run(rc.room_raster_plain, dev)
+    cpu, counts_c = run(rc.room_raster_plain, torch.device("cpu"))
+    n_diff = _n_differ(got, plain)
+    if n_diff or not torch.equal(counts, counts_p) or \
+            int((counts.cpu() > 0).sum()) != 8:
+        raise AssertionError(f"faults rooms off the grid: {n_diff} cells "
+                             f"apart, tiles painted {counts.tolist()}")
+    print(f"faults rooms off the tile grid (C11) [{card}]: {n_rooms} rooms"
+          f" at {per_row} a row on 4 x 2 tiles, 5 dropped; the kernel "
+          f"bit-equal to its plain version ({int((got != 0).sum())} cells "
+          f"painted, 8 tiles), {_n_differ(got.cpu(), cpu)} cells apart "
+          f"from the CPU's plain version")
+
+
+def phase_faults(card, dev):
+    """Phase 43: the fault-injection path and frames that lack agents.
+    Returns {(kernel, form): launches} of the 1024-agent fused runs."""
+    from swarm_tpu_torch import presets
+
+    t0 = time.perf_counter()
+    launches = {}
+    for name, kw, want in (
+            ("window", {}, {"pack8-ring": FAULT_STEPS}),
+            ("room", dict(room_kernel=True),
+             {"room pack16-ring": FAULT_STEPS})):
+        got = _faults_fused(card, dev, name,
+                            presets.deployable(N_AGENTS, device=dev, **kw))
+        if got != want:
+            raise AssertionError(f"faults {name}: launches {got}, want "
+                                 f"{want}")
+        launches.update(got)
+    got = _faults_fused(card, dev, "exploration",
+                        presets.coverage(N_AGENTS, device=dev),
+                        targets=True)
+    want = {"pack16": FAULT_STEPS, "pack16-wrapped": FAULT_STEPS}
+    if got != want:
+        raise AssertionError(f"faults exploration: launches {got}, want "
+                             f"{want}")
+    launches.update(got)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    got = _faults_sharded(card, dev)
+    want = {"pack16-ring": FAULT_STEPS, "pack16-ring-tile": FAULT_STEPS}
+    if got != want:
+        raise AssertionError(f"faults sharded: launches {got}, want {want}")
+    launches.update(got)
+    for room_kernel in (False, True):
+        _faults_card_vs_cpu(card, dev, room_kernel)
+    _faults_ingest(card, dev)
+    _faults_rooms_off_grid(card, dev)
+    out = {(("room", k[5:]) if k.startswith("room ") else ("window", k)): v
+           for k, v in launches.items()}
+    print(f"faults phase [{card}]: launches {out}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _group_kernels(card, dev, r):
     """Phases 2-3: every per-beam form against its plain version, the
     slice."""
@@ -5369,12 +5792,19 @@ def _group_donation(card, dev, r):
     r.lap("42: donation")
 
 
+def _group_faults(card, dev, r):
+    """Phase 43: the fault-injection path and frames that lack agents."""
+    r["n_faults"] = phase_faults(card, dev)
+    r.lap("43: faults")
+
+
 # the groups of phases `--group` runs one at a time, in the order of a full
 # run (the module docstring's phase numbers)
 GROUPS = {"kernels": _group_kernels, "paths": _group_paths,
           "sharded": _group_sharded, "modes": _group_modes,
           "accuracy": _group_accuracy, "server": _group_server,
-          "tools": _group_tools, "donation": _group_donation}
+          "tools": _group_tools, "donation": _group_donation,
+          "faults": _group_faults}
 
 
 class _Results(dict):
@@ -5425,6 +5855,9 @@ def _records(r, full: bool) -> list:
     def don(kind, form):
         return get("n_donation", (kind, form))
 
+    def flt(kind, form):
+        return get("n_faults", (kind, form))
+
     slice_res = None
     if "k_slice" in r:
         slice_res = dict(r["k_slice"]["pack8-ring-bf16"], max_abs_err=max(
@@ -5439,10 +5872,10 @@ def _records(r, full: bool) -> list:
 
     out = kernel("free_raster", "pack8-ring", get("k_window", "pack8-ring"),
                  r.get("n_window"), get("n_bench", "window"),
-                 don("window", "pack8-ring"))
+                 don("window", "pack8-ring"), flt("window", "pack8-ring"))
     for key in ("pack16", "pack16-wrapped"):
         out += kernel("free_raster", key, get("k_forms", key),
-                      get("n_explore", key))
+                      get("n_explore", key), flt("window", key))
     # the same two forms at the accuracy tool's and bench_coverage's
     # shapes (64 agents on 1024^2), records of their own
     for key in ("pack16", "pack16-wrapped"):
@@ -5456,10 +5889,11 @@ def _records(r, full: bool) -> list:
                   r.get("n_slice"), don("window", "pack8-ring-bf16"))
     for key in window_rows:
         out += kernel("free_raster", key, get("k_forms", key),
-                      get("n_flags", ("window", key)), don("window", key))
+                      get("n_flags", ("window", key)), don("window", key),
+                      flt("window", key))
     out += kernel("room_raster", "pack16-ring", get("k_room", "pack16-ring"),
                   r.get("n_room"), get("n_bench", "room"),
-                  don("room", "pack16-ring"))
+                  don("room", "pack16-ring"), flt("room", "pack16-ring"))
     for key in room_rows:
         out += kernel("room_raster", key, get("k_room", key),
                       get("n_flags", ("room", key)))
@@ -5480,7 +5914,8 @@ def _records(r, full: bool) -> list:
                       get("n_exact", fan))
     for key in band_keys:
         out += kernel("free_raster", key, get("k_band", key),
-                      get("n_band", key), don("window", key))
+                      get("n_band", key), don("window", key),
+                      flt("window", key))
     names = {k["name"] for k in out}
     if len(names) != len(out) or full and (
             len(out) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS) + 2 or

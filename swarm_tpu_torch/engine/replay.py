@@ -532,15 +532,20 @@ def ingest_frame(state: ServerState, batch: PacketStream,
         last_zone_t=last_zone_t, last_target_t=last_target_t,
         total_writes=writes_accumulate(state.total_writes, writes))
 
-    # frame-level closure results on each agent's LAST packet row
+    # frame-level closure results on each agent's LAST packet row, as the
+    # reference scatters them (swarm_tpu/engine/replay.py:351-356): every
+    # agent writes row pl, an absent agent's clamped pl being row 0, and
+    # the last agent in index order wins a row (ROADMAP C34). The winner
+    # of each row is the `amax` of the agents that target it; a frame of
+    # no rows sends them all to a spare row.
     fired = closed_a & has
-    rows = torch.where(has, pl, torch.full_like(pl, b))
-    closed_b = torch.zeros((b + 1,), dtype=torch.bool,
-                           device=dev).index_copy(0, rows, fired)[:b]
-    corr_b = torch.zeros((b + 1, 2), dtype=torch.float32,
-                         device=dev).index_copy(
-        0, rows, torch.stack([cdx_a, cdy_a], dim=-1) *
-        fired[:, None].to(torch.float32))[:b]
+    last = torch.full((b + 1,), -1, dtype=torch.int64, device=dev) \
+        .scatter_reduce(0, pl, torch.arange(n, device=dev), "amax")[:b]
+    won = last >= 0
+    src = last.clamp_min(0)
+    closed_b = won & fired[src]
+    corr_b = torch.stack([cdx_a, cdy_a], dim=-1)[src] * \
+        closed_b[:, None].to(torch.float32)
     out = ReplayOutputs(
         rx=rx, ry=ry, yaw=ryaw, hits=torch.stack([hx, hy], dim=-1),
         hit_valid=hit_valid & valid[:, None], closed=closed_b, corr=corr_b,

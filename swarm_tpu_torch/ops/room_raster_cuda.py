@@ -24,13 +24,15 @@ reference's `sim_init` refuses it for the room kernel
 
 The world is tiled rooms (`geom.world.make_tiled_rooms`): agents 2k and
 2k+1 live in room k = grid tile (k // per_row, k % per_row) of [128, 256]
-cells. Each agent paints a win_rows x 256 window of its own tile only
-(win_rows = round_up(2 reach + 8, 8) = 64 at the 1.2 m reach), from the
-tile-local row r_loc of its aligned window origin clipped into the tile;
-evidence that would fall outside the tile is dropped, as on the TPU. Slot 0
-then slot 1, each clipped to [-clamp, clamp]; every slot of every tile is
-applied, an empty one with act 0. The counter is one painted total per
-tile, [BR, BC] (the engine rounds it per tile before its int32 sum).
+cells; a room off the tile grid is dropped with its agents, as the
+reference's scatter drops it (ROADMAP C11). Each agent paints a win_rows x
+256 window of its own tile only (win_rows = round_up(2 reach + 8, 8) = 64
+at the 1.2 m reach), from the tile-local row r_loc of its aligned window
+origin clipped into the tile; evidence that would fall outside the tile
+is dropped, as on the TPU. Slot 0 then slot 1, each clipped to [-clamp,
+clamp]; every slot of every tile is applied, an empty one with act 0. The
+counter is one painted total per tile, [BR, BC] (the engine rounds it per
+tile before its int32 sum).
 
 What bounds it on the H100: at 1024 agents the windows cover 1024 x 64 x
 256 cells, each read and written once (134 MB, ~40 us at 3.35 TB/s); the
@@ -126,10 +128,21 @@ def _rooms(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
     dev = logodds.device
     br_n, bc_n = size // TILE_ROWS, size // TILE_COLS
     per_row = bc_n if per_row is None else per_row
-    n_rooms = -(-n // AGENTS_PER_ROOM)
-    if per_row > bc_n or (n_rooms > 0 and (n_rooms - 1) // per_row >= br_n):
-        raise ValueError(f"{n_rooms} rooms at {per_row} per row do not fit "
-                         f"the {br_n} x {bc_n} tiles of a {size}^2 grid")
+    # each agent's tile; room_raster_pallas's scatter drops the agents of
+    # a room off the tile grid (ROADMAP C11). The room of an agent is its
+    # index over two, so they are chosen on the host, with no read.
+    i = torch.arange(n)
+    room = torch.div(i, AGENTS_PER_ROOM, rounding_mode="floor")
+    tile_r = torch.div(room, per_row, rounding_mode="floor")
+    tile_c = room % per_row
+    keep = (tile_r < br_n) & (tile_c < bc_n)
+    if not bool(keep.all()):
+        i, tile_r, tile_c = i[keep], tile_r[keep], tile_c[keep]
+        kept = i.to(dev)
+        agent_xy, yaw, dist_m, active = (agent_xy[kept], yaw[kept],
+                                         dist_m[kept], active[kept])
+        trusted = None if trusted is None else trusted[kept]
+    i, tile_r, tile_c = i.to(dev), tile_r.to(dev), tile_c.to(dev)
     ax, ay = cells_of(agent_xy, cfg)
     cells = (dist_m * recip32(cfg.resolution)).to(torch.float32)
     kind = table_kind(spec, False, n_groups)
@@ -142,10 +155,6 @@ def _rooms(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
         words = _pack_range16(cells, trusted)
     tab_rows = _round_up(words.shape[1], 8)
 
-    i = torch.arange(n, device=dev)
-    room = torch.div(i, AGENTS_PER_ROOM, rounding_mode="floor")
-    tile_r = torch.div(room, per_row, rounding_mode="floor")
-    tile_c = room % per_row
     slot = i % AGENTS_PER_ROOM
     win_rows = min(_round_up(2 * reach + 8, 8), TILE_ROWS)
     row0_g, _ = patch_origin(ax, ay, size, win_rows, size, reach)

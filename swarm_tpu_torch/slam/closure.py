@@ -188,6 +188,20 @@ def _ring_put(buf, slot, vals, keep):
     return out[:n]
 
 
+def _set_last_wins(buf, idx, vals):
+    """buf.at[idx].set(vals) on a copy, as XLA applies it on the CPU: where
+    rows share an index, the last in row order wins. The winner of each
+    index is the `amax` of the row numbers that target it (no host read;
+    `index_copy_` leaves the winner of a repeated index unspecified on the
+    card)."""
+    n = buf.shape[0]
+    rows = torch.arange(idx.shape[0], device=buf.device)
+    last = torch.full((n,), -1, dtype=torch.int64, device=buf.device) \
+        .scatter_reduce(0, idx.to(torch.int64), rows, "amax")
+    return torch.where(last >= 0, vals.to(buf.dtype)[last.clamp_min(0)],
+                       buf)
+
+
 def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
                             cfg: SlamConfig = SlamConfig(), valid=None,
                             yaws=None, scans=None, grid=None, sens=None):
@@ -198,8 +212,13 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
     then required), stored landmarks remember yaw and sweep, fired
     closures are measured and the proximity pairs run (module docstring).
 
-    Rows with valid False leave the per-agent guards alone. (The reference
-    scatters them onto agent 0 with its old values — ROADMAP Queue C7.)"""
+    The per-agent guards follow the reference's scatter
+    (swarm_tpu/slam/closure.py:289-291): a valid row sets its agent's
+    `last_closure_node` to its node where it closed and to the old value
+    where it did not; a row with valid False sets agent 0's OLD value on
+    agent 0; where rows meet on one agent, the last in row order wins. So
+    a closure of agent 0 is undone by any later invalid row of the batch
+    (ROADMAP Queue C7). Invalid rows add 0 to the drift."""
     M = xs.shape[0]
     dev = xs.device
     if valid is None:
@@ -250,7 +269,10 @@ def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,
     cdx = torch.where(snap, (mx - xs) * cfg.closure_correction, zero)
     cdy = torch.where(snap, (my - ys) * cfg.closure_correction, zero)
 
-    last_cl = _ring_put(state.last_closure_node, agents, idxs, closed)
+    safe = torch.where(valid, ag, torch.zeros_like(ag))
+    last_cl = _set_last_wins(
+        state.last_closure_node, safe,
+        torch.where(closed, idxs, state.last_closure_node[safe]))
     drift_dx = _ring_put(state.drift_dx, agents, state.drift_dx[ag] + cdx,
                          valid)
     drift_dy = _ring_put(state.drift_dy, agents, state.drift_dy[ag] + cdy,

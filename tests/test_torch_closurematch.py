@@ -170,9 +170,16 @@ def test_chunked_batch_equals_one_call():
 # closure_add_poses_batch with scan matching
 
 
-@functools.lru_cache(maxsize=None)
 def _jax_batch(case):
-    (slam, grid, sens), _ = _cfgs(**CASES[case][1])
+    """The jitted JAX closure batch of a case, compiled once per
+    configuration (cases with the same SlamConfig share it)."""
+    return _jax_batch_of(tuple(sorted(CASES[case][1].items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_batch_of(slam_kw):
+    (slam, grid, sens), _ = _cfgs(**dict(slam_kw))
+
     def run(st, x, y, a, lm, v, yw, sc):
         return jcl.closure_add_poses_batch(st, x, y, a, lm, slam, valid=v,
                                            yaws=yw, scans=sc, grid=grid,
@@ -265,12 +272,6 @@ def test_closure_batch_with_scanmatch_matches_jax(case):
         assert_close(dxp, dxj, **TOL_T)
         assert_close(dyp, dyj, **TOL_T)
         closed_any |= bool(np.asarray(cj).any())
-        if not valid.all():
-            # ROADMAP C7: the reference scatters a dead row's old guard
-            # onto agent 0; the port leaves agent 0's own value
-            lc = st_p.last_closure_node.clone()
-            lc[0] = int(st_j.last_closure_node[0])
-            st_p = st_p._replace(last_closure_node=lc)
         for f in pcl.ClosureState._fields:
             a, b = getattr(st_p, f), getattr(st_j, f)
             if a.dtype.is_floating_point:

@@ -12,7 +12,9 @@ to 4, with `greedy_assign_rooms`: frontier centroids and counts, targets,
 `has_target` and the nav state exact; the other step metrics exact
 (integers) or at atol = rtol = 1e-5 (floats); maps decision-equal (cells
 differing by more than 1e-6 at most 0.01% of painted cells); writes at
-rtol 1e-5.
+rtol 1e-5. The same path under a kill schedule (agents dead past the
+heartbeat timeout across frontier steps, then back) rolls out against
+the JAX package's `sim_rollout` at 4 agents.
 """
 
 import dataclasses
@@ -27,8 +29,12 @@ from jax.experimental.pallas import tpu as pltpu
 from swarm_tpu.engine import sim as js
 from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
-from tests.torch_parity import (assert_close, assert_exact, decision_equal,
-                                jax_deployable, jax_step_noise, step_keys)
+from tests.torch_parity import (assert_close, assert_exact,
+                                assert_failover, assert_metrics_equal,
+                                assert_state_equal, decision_equal,
+                                jax_deployable, jax_fault_rollout,
+                                jax_step_noise, port_fault_rollout,
+                                step_keys)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
@@ -197,3 +203,25 @@ def test_entry_points_roll_out(entry):
     if cfg.engine.scan_rays == 0:
         noise = ps.draw_step_noise(gen, N, 0, "cpu")
         assert noise.scan is None
+
+
+def test_kill_schedule_rollout_matches_jax(monkeypatch):
+    """The exploration path with targets at 4 agents under
+    tests/torch_parity.py's kill schedule (agent 0 and agent 3 dead past
+    the heartbeat timeout, the frontier steps 8 and 16 inside the kill
+    windows), FAULT_STEPS steps of the port's `sim_rollout` against the
+    JAX package's on the same noise: every step metric (online counts,
+    frontier counts exact; writes as the running total at rtol 1e-5), the
+    failover itself, and the final state (maps decision-equal, the nav
+    state's targets exact)."""
+    n = 4
+    jax_run = jax_fault_rollout(jax_coverage(n), enable_targets=True)
+    final, ms = port_fault_rollout(monkeypatch, jax_run,
+                                   presets.coverage(n, device="cpu"),
+                                   enable_targets=True)
+    final_j, ms_j = jax_run[2:]
+    assert_metrics_equal(ms, ms_j, "exploration")
+    assert_failover(ms, n)
+    assert int(ms.n_frontiers[8]) > 0 and int(ms.n_frontiers[16]) > 0
+    assert_state_equal(final, final_j, "exploration")
+    assert bool(final.nav.has_target.any())

@@ -11,7 +11,9 @@ IEEE 1/sqrt (ROADMAP C9), so a cell on the `r < rb - 0.5` or
 `|r - rb| <= 0.71` edge can flip. Bound: cells differing by more than 1e-6
 are at most 0.01% of the painted cells; per-tile counts agree to rtol 1e-5.
 The engine's room path is held over a merge step at the end
-(tests/torch_parity.py `merge_step_parity`).
+(tests/torch_parity.py `merge_step_parity`), and a layout whose rooms
+overflow the tile grid drops them as the reference's scatter does
+(ROADMAP C11).
 """
 
 import jax
@@ -202,3 +204,35 @@ def test_room_merge_step_parity():
     """`deployable(8, room_kernel=True, merge_every=4)`: step 3 (a merge
     step) through the room raster, port against JAX."""
     merge_step_parity(room_kernel=True)
+
+
+def test_c11_rooms_off_the_tile_grid_are_dropped(rng):
+    """ROADMAP C11: a 512^2 grid holds 4 x 2 tiles. At 3 rooms a row, 13
+    rooms: the third column (rooms 2, 5, 8, 11) and the fifth tile row
+    (room 12) lie off the grid. The jitted `room_raster_pallas`'s scatter
+    drops them with their agents, and so does the port (its plain
+    version here; the kernel takes the same host-side placement), on the
+    map and the per-tile counts."""
+    per_row, n_rooms, n_beams = 3, 13, 181
+    _, origins = make_tiled_rooms(n_rooms, per_row=per_row)
+    n = 2 * n_rooms
+    room = np.arange(n) // 2
+    xy = (origins[room] + rng.uniform([0.4, 0.4], [5.6, 3.6], (n, 2))) \
+        .astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    db = rng.uniform(0.1, 1.2, (n, n_beams)).astype(np.float32)
+    tb = rng.random((n, n_beams)) < 0.7
+    act = np.ones(n, bool)
+    ref, rc = jax.jit(lambda *a: jp.room_raster_pallas(
+        *a[:5], jb.BeamSpec.scan(n_beams), GRID, n_groups=n_beams,
+        per_row=per_row, trusted=a[5], reach=26, interpret=True))(
+        jnp.zeros((512, 512)), jnp.asarray(xy), jnp.asarray(yaw),
+        jnp.asarray(db), jnp.asarray(act), jnp.asarray(tb))
+    got, gc = pr.room_raster(torch.zeros(512, 512), t(xy), t(yaw), t(db),
+                             t(act), pb.BeamSpec.scan(n_beams), GRID,
+                             n_groups=n_beams, per_row=per_row,
+                             trusted=t(tb), reach=26)
+    np.testing.assert_allclose(gc.numpy(), np.asarray(rc), rtol=1e-5)
+    decision_equal(got, ref, "rooms off the tile grid")
+    # every tile holds one of the 8 rooms left on the grid
+    assert int((gc > 0).sum()) == 8

@@ -280,3 +280,140 @@ def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4,
                      getattr(nxt_j.srv.frame, f), what=f"frame {f}")
     assert_close(nxt_p.pose_true, nxt_j.pose_true)
     return m_p
+
+
+# --------------------------------------------------------------------------
+# the kill schedule (tests/test_torch_faults.py, test_torch_faults_sharded.py,
+# test_torch_explore.py)
+
+FAULT_STEPS = 18
+# (agent, t_start, t_end) in seconds, steps of 0.4 s (the bounds half a
+# step off the step times): agent 0 dead at steps 2-14, agent 3 at steps
+# 2-16, both OFFLINE at step 14 (last packet 5.2 s old, past the 5 s
+# heartbeat timeout); agent 0 alive and agent 3 dead at the merge step 15;
+# the frontier steps 8 and 16 of the exploration path inside the windows;
+# both back by step 17
+KILLS = ((0, 0.6, 5.8), (3, 0.6, 6.6))
+
+
+def kill_schedules(device="cpu"):
+    """KILLS as the JAX package's and the port's FaultSchedule, with one
+    free slot as `no_faults(4)` has."""
+    from swarm_tpu.engine import sim as js
+    from swarm_tpu_torch.engine import sim as ps
+
+    agent = np.array([k[0] for k in KILLS] + [-1], np.int32)
+    t0 = np.array([k[1] for k in KILLS] + [0.0], np.float32)
+    t1 = np.array([k[2] for k in KILLS] + [0.0], np.float32)
+    return (js.FaultSchedule(jnp.asarray(agent), jnp.asarray(t0),
+                             jnp.asarray(t1)),
+            ps.FaultSchedule(*(t(x).to(device) for x in (agent, t0, t1))))
+
+
+def jax_fault_rollout(world, enable_targets=False):
+    """The JAX package's `sim_rollout` of `world` ((cfg, walls, params,
+    rooms) of a JAX preset) for FAULT_STEPS steps under the kill schedule,
+    its Pallas rasters in interpret mode: (initial state, each step's
+    noise as the port takes it, final state, stacked metrics), numpy."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from swarm_tpu.engine import sim as js
+
+    cfg, walls, params, rooms = world
+    n = cfg.n_agents
+    st0 = js.sim_init(cfg, params)
+    noises, key = [], st0.key
+    for _ in range(FAULT_STEPS):
+        noises.append(jax_step_noise(key, n, cfg.engine.scan_rays))
+        key = step_keys(key, n)[0]
+    with pltpu.force_tpu_interpret_mode():
+        final, ms = js.sim_rollout(
+            st0, FAULT_STEPS, cfg, jnp.asarray(walls), params,
+            faults=kill_schedules()[0], enable_targets=enable_targets,
+            walls_grouped=rooms[0], room_of_agent=rooms[1])
+    return (st0, noises, jax.tree.map(np.asarray, final),
+            jax.tree.map(np.asarray, ms))
+
+
+def port_fault_rollout(monkeypatch, jax_run, world, enable_targets=False):
+    """The port's `sim_rollout` of `world` (a port preset's return) from
+    the JAX run's initial state on its noise (through the port's seam),
+    under the kill schedule: (final state, stacked metrics)."""
+    from swarm_tpu_torch import convert
+    from swarm_tpu_torch.engine import sim as ps
+
+    st0_j, noises = jax_run[:2]
+    cfg, walls, params, rooms = world
+    it = iter(noises)
+    monkeypatch.setattr(ps, "draw_step_noise", lambda *a: next(it))
+    return ps.sim_rollout(
+        convert.to_torch(st0_j, ps.SimState), FAULT_STEPS, cfg, walls,
+        params, torch.Generator(), faults=kill_schedules()[1],
+        enable_targets=enable_targets, walls_grouped=rooms[0],
+        room_of_agent=rooms[1])
+
+
+def assert_metrics_equal(ms, ms_j, what):
+    """Stacked StepMetrics at the North star's bars: integers exact,
+    floats atol = rtol = 1e-5, and the applied-write counter as the run
+    totals it at rtol 1e-5 (a cell on a C9 edge moves one step's count of
+    ~3e4 by a few)."""
+    from swarm_tpu_torch.engine import sim as ps
+
+    for f in ps.StepMetrics._fields:
+        a, b = getattr(ms, f), getattr(ms_j, f)
+        if f == "writes":
+            np.testing.assert_allclose(np.cumsum(a.numpy()), np.cumsum(b),
+                                       rtol=1e-5, err_msg=f"{what} writes")
+        elif a.dtype.is_floating_point:
+            assert_close(a, b, what=f"{what} metric {f}")
+        else:
+            assert_exact(a, b, what=f"{what} metric {f}")
+
+
+def assert_failover(ms, n):
+    """The kill schedule's effect on stacked StepMetrics: the killed agents
+    are the dead ones; the online count (from step 1: at step 0 no agent
+    has spoken) falls by all of them once the timeout has passed and is
+    whole at the end; a dead agent's reported poses stay put and it
+    paints nothing."""
+    killed = sorted(k[0] for k in KILLS)
+    alive = ms.alive.numpy()
+    online = ms.online.numpy()[1:]
+    assert np.nonzero(~alive.all(axis=0))[0].tolist() == killed
+    assert int(online.min()) == n - len(killed)
+    assert int(online[-1]) == n and bool(alive[-1].all())
+    for a in killed:
+        span = np.nonzero(~alive[:, a])[0]
+        for f in (ms.srv_x, ms.srv_y, ms.srv_yaw, ms.est_x, ms.est_y):
+            v = f.numpy()[span, a]
+            assert (v == v[0]).all(), (a, v)
+        assert not ms.hit_valid.numpy()[span, a].any()
+
+
+def assert_state_equal(final, final_j, what):
+    """A rollout's final state against the JAX package's: maps and anchor
+    decision-equal, poses and floats at 1e-5, the write total at rtol
+    1e-5, the closure ring, zones, heartbeat and nav state (integers
+    exact)."""
+    from swarm_tpu_torch.engine import sim as ps
+
+    decision_equal(final.srv.logodds, final_j.srv.logodds, f"{what} map")
+    decision_equal(final.srv.anchor, final_j.srv.anchor, f"{what} anchor")
+    assert_close(final.pose_true, final_j.pose_true, what=f"{what} poses")
+    np.testing.assert_allclose(
+        ps.total_writes_value(final.srv.total_writes),
+        ps.total_writes_value(final_j.srv.total_writes), rtol=1e-5)
+    pairs = [(f"closure {f}", getattr(final.srv.closure, f),
+              getattr(final_j.srv.closure, f))
+             for f in final.srv.closure._fields]
+    pairs += [(f, getattr(final.srv, f), getattr(final_j.srv, f))
+              for f in ("zone_active", "zone_boxes", "last_packet_t",
+                        "pkt_counts", "merge_fail")]
+    pairs += [(f"nav {f}", getattr(final.nav, f), getattr(final_j.nav, f))
+              for f in final.nav._fields]
+    for name, a, b in pairs:
+        if a.dtype.is_floating_point:
+            assert_close(a, b, what=f"{what} {name}")
+        else:
+            assert_exact(a, b, what=f"{what} {name}")
