@@ -51,7 +51,7 @@ from swarm_tpu_torch.engine.sim import WRITES_RADIX, writes_accumulate
 from swarm_tpu_torch.ops.frontier import frontier_clusters
 from swarm_tpu_torch.ops.raster import (RayBatch, _traced_cells,
                                         parity_apply, parity_raster)
-from swarm_tpu_torch.slam.closure import (ClosureState,
+from swarm_tpu_torch.slam.closure import (ClosureState, _set_last_wins,
                                           closure_add_poses_batch,
                                           closure_init, seq_apply, seq_match)
 
@@ -535,17 +535,14 @@ def ingest_frame(state: ServerState, batch: PacketStream,
     # frame-level closure results on each agent's LAST packet row, as the
     # reference scatters them (swarm_tpu/engine/replay.py:351-356): every
     # agent writes row pl, an absent agent's clamped pl being row 0, and
-    # the last agent in index order wins a row (ROADMAP C34). The winner
-    # of each row is the `amax` of the agents that target it; a frame of
-    # no rows sends them all to a spare row.
+    # the last agent in index order wins a row (ROADMAP C34)
     fired = closed_a & has
-    last = torch.full((b + 1,), -1, dtype=torch.int64, device=dev) \
-        .scatter_reduce(0, pl, torch.arange(n, device=dev), "amax")[:b]
-    won = last >= 0
-    src = last.clamp_min(0)
-    closed_b = won & fired[src]
-    corr_b = torch.stack([cdx_a, cdy_a], dim=-1)[src] * \
-        closed_b[:, None].to(torch.float32)
+    closed_b = _set_last_wins(torch.zeros((b,), dtype=torch.bool,
+                                          device=dev), pl, fired)
+    corr_b = _set_last_wins(
+        torch.zeros((b, 2), dtype=torch.float32, device=dev), pl,
+        torch.stack([cdx_a, cdy_a], dim=-1) *
+        fired[:, None].to(torch.float32))
     out = ReplayOutputs(
         rx=rx, ry=ry, yaw=ryaw, hits=torch.stack([hx, hy], dim=-1),
         hit_valid=hit_valid & valid[:, None], closed=closed_b, corr=corr_b,

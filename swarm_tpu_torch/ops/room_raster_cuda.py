@@ -128,21 +128,22 @@ def _rooms(logodds, agent_xy, yaw, dist_m, active, spec: BeamSpec,
     dev = logodds.device
     br_n, bc_n = size // TILE_ROWS, size // TILE_COLS
     per_row = bc_n if per_row is None else per_row
-    # each agent's tile; room_raster_pallas's scatter drops the agents of
-    # a room off the tile grid (ROADMAP C11). The room of an agent is its
-    # index over two, so they are chosen on the host, with no read.
-    i = torch.arange(n)
+    n_rooms = -(-n // AGENTS_PER_ROOM)
+    i = torch.arange(n, device=dev)
+    if per_row > bc_n or (n_rooms > 0 and (n_rooms - 1) // per_row >= br_n):
+        # room_raster_pallas's scatter drops the agents of a room off the
+        # tile grid (ROADMAP C11); the room of an agent is its index over
+        # two, so the kept agents are known on the host
+        rooms = [k // AGENTS_PER_ROOM for k in range(n)]
+        i = torch.tensor([k for k, r in enumerate(rooms)
+                          if r % per_row < bc_n and r // per_row < br_n],
+                         dtype=torch.int64, device=dev)
+        agent_xy, yaw, dist_m, active = (agent_xy[i], yaw[i], dist_m[i],
+                                         active[i])
+        trusted = None if trusted is None else trusted[i]
     room = torch.div(i, AGENTS_PER_ROOM, rounding_mode="floor")
     tile_r = torch.div(room, per_row, rounding_mode="floor")
     tile_c = room % per_row
-    keep = (tile_r < br_n) & (tile_c < bc_n)
-    if not bool(keep.all()):
-        i, tile_r, tile_c = i[keep], tile_r[keep], tile_c[keep]
-        kept = i.to(dev)
-        agent_xy, yaw, dist_m, active = (agent_xy[kept], yaw[kept],
-                                         dist_m[kept], active[kept])
-        trusted = None if trusted is None else trusted[kept]
-    i, tile_r, tile_c = i.to(dev), tile_r.to(dev), tile_c.to(dev)
     ax, ay = cells_of(agent_xy, cfg)
     cells = (dist_m * recip32(cfg.resolution)).to(torch.float32)
     kind = table_kind(spec, False, n_groups)

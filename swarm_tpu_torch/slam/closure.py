@@ -189,17 +189,18 @@ def _ring_put(buf, slot, vals, keep):
 
 
 def _set_last_wins(buf, idx, vals):
-    """buf.at[idx].set(vals) on a copy, as XLA applies it on the CPU: where
-    rows share an index, the last in row order wins. The winner of each
-    index is the `amax` of the row numbers that target it (no host read;
-    `index_copy_` leaves the winner of a repeated index unspecified on the
-    card)."""
+    """buf.at[idx].set(vals, mode="drop") on a copy, as XLA applies it on
+    the CPU: where rows share an index, the last in row order wins. The
+    winner of each index is the `amax` of the row numbers that target it
+    (no host read; `index_copy_` leaves the winner of a repeated index
+    unspecified on the card). An index equal to len(buf) lands on a spare
+    slot that is cut off, so an empty buf takes index 0."""
     n = buf.shape[0]
     rows = torch.arange(idx.shape[0], device=buf.device)
-    last = torch.full((n,), -1, dtype=torch.int64, device=buf.device) \
-        .scatter_reduce(0, idx.to(torch.int64), rows, "amax")
-    return torch.where(last >= 0, vals.to(buf.dtype)[last.clamp_min(0)],
-                       buf)
+    last = torch.full((n + 1,), -1, dtype=torch.int64, device=buf.device) \
+        .scatter_reduce(0, idx.to(torch.int64), rows, "amax")[:n]
+    won = (last >= 0).view((n,) + (1,) * (buf.dim() - 1))
+    return torch.where(won, vals.to(buf.dtype)[last.clamp_min(0)], buf)
 
 
 def closure_add_poses_batch(state: ClosureState, xs, ys, agents, lm_types,

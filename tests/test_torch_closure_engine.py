@@ -28,13 +28,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from swarm_tpu.engine import sim as js
 from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
-                                jax_accuracy, jax_step_noise)
+                                jax_accuracy, jax_step_noise, pallas_interpret)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
@@ -102,7 +101,7 @@ def test_one_step_parity(world):
     cfg, params, step, port = world
     st_j = js.sim_init(cfg, params)
     assert st_j.srv.closure.lm_scan.shape == (cfg.slam.landmark_capacity, R)
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         for k in range(2):
             nxt_p, m_p = _port_step(convert.to_torch(st_j, ps.SimState),
                                     st_j.key, port)
@@ -115,7 +114,7 @@ def test_eight_step_rollout_parity(world):
     cfg, params, step, port = world
     st_j = js.sim_init(cfg, params)
     st_p = convert.to_torch(st_j, ps.SimState)
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         for k in range(8):
             st_p, m_p = _port_step(st_p, st_j.key, port)
             st_j, m_j = step(st_j)

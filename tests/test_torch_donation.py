@@ -36,14 +36,14 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from jax.experimental.pallas import tpu as pltpu
 
 from swarm_tpu.engine import sim as js
 from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
 from swarm_tpu_torch.parallel import mesh, sharded
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
-                                jax_deployable, jax_step_noise, step_keys)
+                                jax_deployable, jax_step_noise,
+                                pallas_interpret, step_keys)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
@@ -163,7 +163,7 @@ def _jax_rollout():
     for _ in range(STEPS):
         noises.append(jax_step_noise(key, N, cfg.engine.scan_rays))
         key = step_keys(key, N)[0]
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         final, ms = js.sim_rollout(st0, STEPS, cfg, jnp.asarray(walls),
                                    params, walls_grouped=rooms[0],
                                    room_of_agent=rooms[1])

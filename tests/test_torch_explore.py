@@ -4,7 +4,8 @@ exact `frontier_clusters` route, and the other entry points this path
 opens (presets.deployable with frontiers, and without a sweep).
 
 The JAX step runs jitted with its Pallas rasters under
-`force_tpu_interpret_mode()`; the port runs its plain rasters on the CPU.
+`torch_parity.pallas_interpret()`; the port runs its plain rasters on the
+CPU.
 Both start from the same state and consume the same noise (the JAX step's
 own draws). Checked on frontier steps (step 0, and step 8 after eight port
 steps), with `greedy_assign` and, with `assign_rooms_min_agents` lowered
@@ -14,7 +15,7 @@ to 4, with `greedy_assign_rooms`: frontier centroids and counts, targets,
 differing by more than 1e-6 at most 0.01% of painted cells); writes at
 rtol 1e-5. The same path under a kill schedule (agents dead past the
 heartbeat timeout across frontier steps, then back) rolls out against
-the JAX package's `sim_rollout` at 4 agents.
+the JAX package's `sim_rollout` at 8 agents.
 """
 
 import dataclasses
@@ -24,16 +25,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from swarm_tpu.engine import sim as js
 from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
-from tests.torch_parity import (assert_close, assert_exact,
-                                assert_failover, assert_metrics_equal,
-                                assert_state_equal, decision_equal,
-                                jax_deployable, jax_fault_rollout,
-                                jax_step_noise, port_fault_rollout,
+from tests.torch_parity import (assert_close, assert_exact, assert_failover,
+                                assert_metrics_equal, assert_state_equal,
+                                decision_equal, jax_deployable,
+                                jax_fault_rollout, jax_step_noise,
+                                pallas_interpret, port_fault_rollout,
                                 step_keys)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
@@ -117,7 +117,7 @@ def _step_parity(st_j, st_p_src, key, step, cfg_p, world, step_no):
     """One step from the same state on both sides (`step` the jitted JAX
     step); returns the port's metrics and next state after the checks."""
     *_, walls_p, params_p, rooms_p = world
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         nxt_j, m_j = step(st_j)
     nxt_p, m_p = ps.sim_step(st_p_src, jax_step_noise(key, N, R), cfg_p,
                              walls_p, params_p, enable_targets=True,
@@ -206,7 +206,7 @@ def test_entry_points_roll_out(entry):
 
 
 def test_kill_schedule_rollout_matches_jax(monkeypatch):
-    """The exploration path with targets at 4 agents under
+    """The exploration path with targets at 8 agents under
     tests/torch_parity.py's kill schedule (agent 0 and agent 3 dead past
     the heartbeat timeout, the frontier steps 8 and 16 inside the kill
     windows), FAULT_STEPS steps of the port's `sim_rollout` against the
@@ -214,14 +214,13 @@ def test_kill_schedule_rollout_matches_jax(monkeypatch):
     frontier counts exact; writes as the running total at rtol 1e-5), the
     failover itself, and the final state (maps decision-equal, the nav
     state's targets exact)."""
-    n = 4
-    jax_run = jax_fault_rollout(jax_coverage(n), enable_targets=True)
+    jax_run = jax_fault_rollout(jax_coverage(N), enable_targets=True)
     final, ms = port_fault_rollout(monkeypatch, jax_run,
-                                   presets.coverage(n, device="cpu"),
+                                   presets.coverage(N, device="cpu"),
                                    enable_targets=True)
     final_j, ms_j = jax_run[2:]
     assert_metrics_equal(ms, ms_j, "exploration")
-    assert_failover(ms, n)
+    assert_failover(ms, N)
     assert int(ms.n_frontiers[8]) > 0 and int(ms.n_frontiers[16]) > 0
     assert_state_equal(final, final_j, "exploration")
     assert bool(final.nav.has_target.any())

@@ -27,7 +27,7 @@ and through it `server/live`).
 2. The kill schedule (tests/torch_parity.py `KILLS`: agent 0 and agent 3
    dead past the timeout, across the merge step 15, staggered so that
    agent 0 is alive while agent 3 is dead) through `sim_rollout` for
-   FAULT_STEPS steps at 4 agents, against the JAX package's `sim_rollout`
+   FAULT_STEPS steps at 8 agents, against the JAX package's `sim_rollout`
    on the same schedule and the same noise (the JAX step's own draws
    through the port's seam): the window path (`presets.deployable`, the
    pack8-ring window kernel's plain version) and the room path
@@ -42,7 +42,8 @@ Bars (ROADMAP's North star): online counts, closures, merges and every
 integer exact; maps decision-equal (cells differing by > 1e-6 in at most
 0.01% of the painted cells); writes rtol 1e-5 (the running total);
 poses and other floats atol = rtol = 1e-5. The JAX Pallas rasters run in
-interpret mode, each JAX rollout compiled once for the module.
+interpret mode (`torch_parity.pallas_interpret`), each JAX rollout
+compiled once for the module.
 """
 
 import dataclasses
@@ -68,7 +69,7 @@ from tests.torch_parity import (assert_close, assert_exact,
                                 port_fault_rollout, t)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
-N = 4
+N = 8
 
 
 # --------------------------------------------------------------------------

@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from jax.experimental.pallas import tpu as pltpu
 
 from swarm_tpu.engine import sim as js
 from swarm_tpu.parallel import make_mesh, make_sharded_sim_step
@@ -37,8 +36,8 @@ from swarm_tpu_torch.engine import sim as ps
 from swarm_tpu_torch.parallel import mesh, sharded
 from tests.torch_parity import (FAULT_STEPS, assert_close, assert_exact,
                                 assert_failover, assert_metrics_equal,
-                                decision_equal, jax_deployable,
-                                jax_step_noise, kill_schedules, step_keys)
+                                decision_equal, jax_deployable, jax_step_noise,
+                                kill_schedules, pallas_interpret, step_keys)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
@@ -67,7 +66,7 @@ def _jax_sharded():
     st0 = js.sim_init(cfg, params)
     st = jax_shard_state(st0, m)
     key, noises, metrics = st0.key, [], []
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         for _ in range(FAULT_STEPS):
             noises.append(jax_step_noise(key, N, R))
             key = step_keys(key, N)[0]

@@ -28,7 +28,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from swarm_tpu.config import GridConfig
 from swarm_tpu.engine import sim as js
@@ -42,7 +41,8 @@ from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import beam_raster_cuda as pc
 from swarm_tpu_torch.ops import room_raster_cuda as pr
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
-                                f32, jax_deployable, jax_step_noise, t)
+                                f32, jax_deployable, jax_step_noise,
+                                pallas_interpret, t)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
@@ -323,7 +323,7 @@ def test_one_step_parity_grouped(room_kernel):
                              jax_step_noise(st_j.key, n, 181), cfg, walls_p,
                              params_p, walls_grouped=rooms_p[0],
                              room_of_agent=rooms_p[1])
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         nxt_j, m_j = step(st_j)
     for f in ps.StepMetrics._fields:
         a, b = getattr(m_p, f), getattr(m_j, f)

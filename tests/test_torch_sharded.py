@@ -5,7 +5,9 @@
    1x1 rank grid): the deployable preset at 8 agents with the merge every 3
    steps, 3 steps (one merge event at step 2), the JAX Pallas raster in
    interpret mode, the same noise on both sides (the JAX step's own draws
-   through the port's seam); and "tiles" once more with the grouped tier
+   through the port's seam). On one device the reference's three
+   decompositions give this world the same metrics and states bit for
+   bit, so the port's three are held to its one "replicated" run; and "tiles" once more with the grouped tier
    (181 beams in 8 groups) and no endpoint ring, where the body scatters
    the endpoints into the extended tile with `logodds_delta`'s tile form
    (bench.py --beam-groups 8 --exact-endpoints); and "replicated" with the
@@ -48,7 +50,6 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh
 
 from swarm_tpu.engine import sim as js
@@ -58,7 +59,8 @@ from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
 from swarm_tpu_torch.parallel import dryrun, mesh, sharded
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
-                                jax_deployable, jax_step_noise, step_keys)
+                                jax_deployable, jax_step_noise,
+                                pallas_interpret, step_keys)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
@@ -107,6 +109,11 @@ ONE_RANK = {"replicated": ("replicated", {}, {}), "rows": ("rows", {}, {}),
             "replicated-scanmatch": ("replicated", {}, SCANMATCH)}
 
 
+# the JAX run each case is held to: the reference's "rows" and "tiles"
+# steps equal its "replicated" step bit for bit on one device
+JAX_CASE = {"rows": "replicated", "tiles": "replicated"}
+
+
 def _with_slam(cfg, slam):
     return cfg.replace(slam=dataclasses.replace(cfg.slam, **slam)) \
         if slam else cfg
@@ -129,7 +136,7 @@ def _jax_run(case):
     st = jax_shard_state(st0, m, grid_rows_sharded=grid_sharding == "rows",
                          grid_tiles_sharded=grid_sharding == "tiles")
     key, noises, metrics = st0.key, [], []
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         for _ in range(STEPS):
             noises.append(jax_step_noise(key, N, R))
             key = step_keys(key, N)[0]
@@ -141,7 +148,7 @@ def _jax_run(case):
 @pytest.mark.parametrize("case", list(ONE_RANK))
 def test_one_rank_matches_jax_sharded_step(group, case):
     grid_sharding, flags, slam = ONE_RANK[case]
-    st0, noises, metrics_j, final_j = _jax_run(case)
+    st0, noises, metrics_j, final_j = _jax_run(JAX_CASE.get(case, case))
     cfg, walls, params, rooms = presets.deployable(
         N, device="cpu", merge_every=MERGE_EVERY, **flags)
     cfg = _with_slam(cfg, slam)

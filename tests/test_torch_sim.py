@@ -3,7 +3,8 @@ deployable preset at 8 agents: merge off (`merge_every=0`) for 1. and 2.,
 and one merge step on the window-kernel path for 3.
 
 The JAX step runs jitted with its Pallas raster under
-`force_tpu_interpret_mode()`; the port runs its plain raster on the CPU.
+`torch_parity.pallas_interpret()`; the port runs its plain raster on the
+CPU.
 Both start from the same state (converted through numpy) and consume the
 same noise (the JAX step's own draws, fed through the port's seam).
 
@@ -23,7 +24,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from swarm_tpu.engine import sim as js
 from swarm_tpu.ops.raster import tri_state_view
@@ -32,7 +32,7 @@ from swarm_tpu_torch.engine import sim as ps
 from swarm_tpu_torch.ops.raster import tri_state_view as p_tri_state_view
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 jax_deployable, jax_step_noise,
-                                merge_step_parity, step_keys)
+                                merge_step_parity, pallas_interpret, step_keys)
 from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
@@ -95,7 +95,7 @@ def _port_step(st_j, cfg, port):
 def test_one_step_parity(world):
     cfg, params, step, port = world
     st_j = js.sim_init(cfg, params)
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         for k in range(4):
             nxt_p, m_p = _port_step(st_j, cfg, port)
             st_j, m_j = step(st_j)
@@ -121,7 +121,7 @@ def test_free_running_rollout(world):
     st_p = convert.to_torch(st_j, ps.SimState)
     key = st_j.key
     w_j, w_p = [], []
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         for _ in range(8):
             st_p, m_p = ps.sim_step(st_p, jax_step_noise(key, N, R), cfg,
                                     port["walls"], port["params"],

@@ -9,6 +9,7 @@ step consumes, as the port's `StepNoise`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -33,6 +34,24 @@ def torch_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def pallas_interpret():
+    """Every Pallas kernel that a JAX function traced inside this context
+    reaches runs as `pallas_call(..., interpret=True)`, the HLO interpreter
+    that tests/test_room_kernel.py runs `room_raster_pallas` with. The TPU
+    interpret mode (`pltpu.force_tpu_interpret_mode()`, which also
+    simulates the TPU's memories and semaphores) gives these kernels the
+    same values bit for bit, in two to three times the time."""
+    from jax._src import config as jax_config
+
+    flag = jax_config.pallas_tpu_interpret_mode_context_manager
+    prev = flag.swap_local(True)
+    try:
+        yield
+    finally:
+        flag.set_local(prev)
 
 
 def t(x, dtype=None):
@@ -224,8 +243,6 @@ def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4,
     JAX step runs jitted with its Pallas raster in interpret mode. Checks:
     merge decisions and integer metrics exact, floats at atol = rtol =
     1e-5, maps and the anchor decision-equal, writes rtol 1e-5."""
-    from jax.experimental.pallas import tpu as pltpu
-
     from swarm_tpu.engine import sim as js
     from swarm_tpu_torch import convert, presets
     from swarm_tpu_torch.engine import sim as ps
@@ -252,7 +269,7 @@ def merge_step_parity(room_kernel: bool, n: int = 8, merge_every: int = 4,
                         convert.to_numpy_like(st_p, st0)._replace(key=key))
     step = js.make_sim_step(cfg_j, jnp.asarray(walls), params, donate=False,
                             walls_grouped=rooms[0], room_of_agent=rooms[1])
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         nxt_j, m_j = step(st_j)
     nxt_p, m_p = ps.sim_step(convert.to_torch(st_j, ps.SimState),
                              jax_step_noise(key, n, scan_rays), cfg, walls_p,
@@ -315,8 +332,6 @@ def jax_fault_rollout(world, enable_targets=False):
     rooms) of a JAX preset) for FAULT_STEPS steps under the kill schedule,
     its Pallas rasters in interpret mode: (initial state, each step's
     noise as the port takes it, final state, stacked metrics), numpy."""
-    from jax.experimental.pallas import tpu as pltpu
-
     from swarm_tpu.engine import sim as js
 
     cfg, walls, params, rooms = world
@@ -326,7 +341,7 @@ def jax_fault_rollout(world, enable_targets=False):
     for _ in range(FAULT_STEPS):
         noises.append(jax_step_noise(key, n, cfg.engine.scan_rays))
         key = step_keys(key, n)[0]
-    with pltpu.force_tpu_interpret_mode():
+    with pallas_interpret():
         final, ms = js.sim_rollout(
             st0, FAULT_STEPS, cfg, jnp.asarray(walls), params,
             faults=kill_schedules()[0], enable_targets=enable_targets,
