@@ -45,6 +45,10 @@ and frontier cadences are host `if`s on a host-side step number:
 `state.step` once). The port runs every path the reference runs; the
 combinations the reference refuses raise its ValueError
 (`check_supported`).
+With `swarm_tpu_torch.trace` recording, the step closure opens the
+step's `swarm.step` span and the step a span at each of its layers
+(trace.py lists them); while tracing is off each costs one check of a
+module global.
 `StepMetrics.writes` is one step's int32 count; sum a
 rollout's on the host in int64 (`rollout_writes`): at 32,768 agents a step
 writes ~1e8 cells and a few dozen steps pass 2^31.
@@ -58,6 +62,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from swarm_tpu_torch import trace
 from swarm_tpu_torch._device import default_device
 from swarm_tpu_torch.config import SwarmConfig
 from swarm_tpu_torch.coord.assign import (greedy_assign,
@@ -405,11 +410,12 @@ def _merge_event(logodds, anchor, merge_fail, frame: FrameState, rx, ry,
         match_map = torch.where(torch.abs(anchor) >= 0.5, anchor, logodds)
     else:
         match_map = logodds
-    m, att, rec = scan_merge_recover(
-        match_map, rx, ry, ryaw, scan_dist, alive, cfg,
-        event=step_no // cfg.engine.merge_every, n_global=cfg.n_agents,
-        fail_count=merge_fail, id0=id0, band_row0=band_row0,
-        band_col0=band_col0, win_bounds=merge_win_box)
+    with trace.span("swarm.merge.match"):
+        m, att, rec = scan_merge_recover(
+            match_map, rx, ry, ryaw, scan_dist, alive, cfg,
+            event=step_no // cfg.engine.merge_every, n_global=cfg.n_agents,
+            fail_count=merge_fail, id0=id0, band_row0=band_row0,
+            band_col0=band_col0, win_bounds=merge_win_box)
     upd = m.ok & alive
     # FULL correction to this step's raster pose; only the persistent
     # increment is damped and clamped (reference rationale,
@@ -647,22 +653,24 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
                torch.zeros((n,), dtype=torch.bool, device=dev),
                torch.zeros((n,), dtype=f32, device=dev))
     if merge_cadence and scan_dist is not None:
-        rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, innovation, \
-            merge_m, bias_d = _merge_event(
-                srv.logodds, srv.anchor, srv.merge_fail, frame, rx, ry,
-                ryaw, est_yaw, scan_dist, alive, step_no, cfg, merge_win_box,
-                bias=((srv.merge_yaw_rate, srv.merge_dist_mark, total_dist,
-                       yaw_quant_resid) if bias else None))
-        if innovation is not None:
-            frame = frame_add(frame, innovation)
-        merge_dx = merge_dx + inc_dx
-        merge_dy = merge_dy + inc_dy
-        merge_dyaw = merge_dyaw + inc_dth
-        if bias_d is not None:
-            fold, rate_d, mark_d = bias_d
-            merge_dyaw = merge_dyaw + fold
-            merge_yaw_rate = merge_yaw_rate + rate_d
-            merge_dist_mark = merge_dist_mark + mark_d
+        with trace.span("swarm.merge"):
+            rx, ry, ryaw, (inc_dx, inc_dy, inc_dth), merge_fail, \
+                innovation, merge_m, bias_d = _merge_event(
+                    srv.logodds, srv.anchor, srv.merge_fail, frame, rx, ry,
+                    ryaw, est_yaw, scan_dist, alive, step_no, cfg,
+                    merge_win_box,
+                    bias=((srv.merge_yaw_rate, srv.merge_dist_mark,
+                           total_dist, yaw_quant_resid) if bias else None))
+            if innovation is not None:
+                frame = frame_add(frame, innovation)
+            merge_dx = merge_dx + inc_dx
+            merge_dy = merge_dy + inc_dy
+            merge_dyaw = merge_dyaw + inc_dth
+            if bias_d is not None:
+                fold, rate_d, mark_d = bias_d
+                merge_dyaw = merge_dyaw + fold
+                merge_yaw_rate = merge_yaw_rate + rate_d
+                merge_dist_mark = merge_dist_mark + mark_d
 
     last_packet_t = torch.where(alive, t, srv.last_packet_t)
     pkt_counts = srv.pkt_counts + alive.to(torch.int32)
@@ -681,22 +689,25 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     # port builds it there); `tri` is the int8 map frontiers read instead
     grid, logodds, tri = srv.grid, srv.logodds, None
     if eng.parity_mode:
-        grid, writes = parity_raster(srv.grid, _line_rays(
-            rx, ry, ryaw, hx, hy, hit_valid, alive, scan_dist, cfg),
-            cfg.grid)
+        with trace.span("swarm.raster"):
+            grid, writes = parity_raster(srv.grid, _line_rays(
+                rx, ry, ryaw, hx, hy, hit_valid, alive, scan_dist, cfg),
+                cfg.grid)
         tri = grid
     elif eng.raster_mode == "off":
         # the profiling mode: no mapping at all
         writes = torch.zeros((), dtype=i32, device=dev)
         tri = grid
     elif eng.raster_mode == "beam":
-        logodds, writes = _raster_fans(srv.logodds,
-                                       torch.stack([rx, ry], -1), ryaw,
-                                       dist4, scan_dist, alive, cfg)
+        with trace.span("swarm.raster"):
+            logodds, writes = _raster_fans(srv.logodds,
+                                           torch.stack([rx, ry], -1), ryaw,
+                                           dist4, scan_dist, alive, cfg)
     else:
-        logodds, writes = logodds_raster(srv.logodds, _line_rays(
-            rx, ry, ryaw, hx, hy, hit_valid, alive, scan_dist, cfg),
-            cfg.grid)
+        with trace.span("swarm.raster"):
+            logodds, writes = logodds_raster(srv.logodds, _line_rays(
+                rx, ry, ryaw, hx, hy, hit_valid, alive, scan_dist, cfg),
+                cfg.grid)
     writes = writes.to(i32)
 
     # territory AABBs fold the path point + valid hits
@@ -706,13 +717,14 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
         torch.cat([ry[:, None], hy], dim=1),
         torch.cat([alive[:, None], hit_valid & alive[:, None]], dim=1))
 
-    if eng.parity_mode:
-        closure, closed, _, _ = closure_add_poses_seq(
-            srv.closure, rx, ry, agents, lm_types, slam, valid=alive)
-    else:
-        closure, closed, _, _ = closure_add_poses_batch(
-            srv.closure, rx, ry, agents, lm_types, slam, valid=alive,
-            yaws=ryaw, scans=scan_dist, grid=cfg.grid, sens=sens)
+    with trace.span("swarm.closure"):
+        if eng.parity_mode:
+            closure, closed, _, _ = closure_add_poses_seq(
+                srv.closure, rx, ry, agents, lm_types, slam, valid=alive)
+        else:
+            closure, closed, _, _ = closure_add_poses_batch(
+                srv.closure, rx, ry, agents, lm_types, slam, valid=alive,
+                yaws=ryaw, scans=scan_dist, grid=cfg.grid, sens=sens)
 
     online = heartbeat_update(last_packet_t, t, cfg.coord.heartbeat_timeout_s)
 
@@ -721,8 +733,9 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     zone_every = max(1, round(cfg.coord.zone_interval_s / dt))
     zone_boxes, zone_active = srv.zone_boxes, srv.zone_active
     if step_no % zone_every == 0:
-        zone_boxes, zone_active = zones_for_agents(
-            zone, torch.stack([rx, ry], dim=-1), online)
+        with trace.span("swarm.zones"):
+            zone_boxes, zone_active = zones_for_agents(
+                zone, torch.stack([rx, ry], dim=-1), online)
 
     # frontier cadence (3 s; step 0 included)
     target_every = max(1, round(cfg.coord.target_interval_s / dt))
@@ -740,10 +753,11 @@ def _ingest_batched(srv: MapState, est_x, est_y, est_yaw, dist4, lm_types,
     if slam.merge_anchor and merge_cadence and (
             slam.merge_anchor_freeze_steps <= 0
             or step_no < slam.merge_anchor_freeze_steps):
-        anchor = torch.where(
-            (torch.abs(srv.anchor) < 0.5) &
-            (torch.abs(logodds) >= slam.merge_anchor_thresh),
-            logodds, srv.anchor)
+        with trace.span("swarm.merge"), trace.span("swarm.merge.anchor"):
+            anchor = torch.where(
+                (torch.abs(srv.anchor) < 0.5) &
+                (torch.abs(logodds) >= slam.merge_anchor_thresh),
+                logodds, srv.anchor)
 
     new_srv = srv._replace(
         grid=grid, logodds=logodds, closure=closure, zone=zone,
@@ -846,12 +860,13 @@ def _step_in_place(state: SimState, noise: StepNoise, cfg: SwarmConfig,
         walls_agent = walls
 
     # 1. sense from the TRUE pose
-    dist4 = sense_4way(noise.sense, state.pose_true, walls_agent,
-                       cfg.sensors)
-    scan_dist = None
-    if cfg.engine.scan_rays > 0:
-        scan_dist = sense_scan(noise.scan, state.pose_true, walls_agent,
-                               cfg.engine.scan_rays, cfg.sensors)
+    with trace.span("swarm.sensing"):
+        dist4 = sense_4way(noise.sense, state.pose_true, walls_agent,
+                           cfg.sensors)
+        scan_dist = None
+        if cfg.engine.scan_rays > 0:
+            scan_dist = sense_scan(noise.scan, state.pose_true, walls_agent,
+                                   cfg.engine.scan_rays, cfg.sensors)
 
     # 2. landmark signature
     lm = detect_landmark_sim(dist4[:, 0], dist4[:, 1], dist4[:, 3],
@@ -930,7 +945,8 @@ def _step_in_place(state: SimState, noise: StepNoise, cfg: SwarmConfig,
 
     # v2v: distance to the nearest live agent, or the broadcast counter
     txy = state.pose_true[:, :2] + torch.stack([params.x_offset, zeros], -1)
-    v2v_cm, v2v_n = v2v_stats(txy, alive, cfg.sensors.v2v_range_m)
+    with trace.span("swarm.v2v"):
+        v2v_cm, v2v_n = v2v_stats(txy, alive, cfg.sensors.v2v_range_m)
     rx_per_tick = torch.round(
         v2v_n.to(torch.float32) * cfg.sensors.v2v_broadcast_hz * dt
     ).to(torch.int32)
@@ -1001,16 +1017,17 @@ def make_sim_step(cfg: SwarmConfig, walls, params: AgentParams,
     host = {"state": None, "step": 0}
 
     def step(state: SimState, noise: Optional[StepNoise] = None):
-        if noise is None:
-            noise = draw_step_noise(generator, cfg.n_agents,
-                                    cfg.engine.scan_rays, dev)
         if state is not host["state"]:
             host["step"] = int(state.step)
-        out = _step_in_place(
-            state if donate else _copy_written(state, cfg), noise, cfg,
-            walls_t, params, faults, enable_targets, walls_grouped=wg_t,
-            room_of_agent=roa_t, step_no=host["step"],
-            merge_win_box=win_box, target_rooms=rooms)
+        with trace.step_span(host["step"]):
+            if noise is None:
+                noise = draw_step_noise(generator, cfg.n_agents,
+                                        cfg.engine.scan_rays, dev)
+            out = _step_in_place(
+                state if donate else _copy_written(state, cfg), noise, cfg,
+                walls_t, params, faults, enable_targets, walls_grouped=wg_t,
+                room_of_agent=roa_t, step_no=host["step"],
+                merge_win_box=win_box, target_rooms=rooms)
         host["state"], host["step"] = out[0], host["step"] + 1
         return out
 

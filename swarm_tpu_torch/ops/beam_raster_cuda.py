@@ -77,6 +77,7 @@ from typing import NamedTuple
 
 import torch
 
+from swarm_tpu_torch import trace
 from swarm_tpu_torch._device import div as _div
 from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
@@ -676,18 +677,20 @@ def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig,
     partial = torch.zeros(n * ln.k, dtype=torch.float64,
                           device=logodds.device)
     c = _constants(spec, cfg, ln.n_bins, ln.tail_weight)
-    err = cuda_build.load("free_raster", _bind).free_raster_launch(
-        logodds.data_ptr(), ln.origins.data_ptr(), ln.meta.data_ptr(),
-        ln.table.data_ptr(), ln.tile_start.data_ptr(),
-        ln.pair_agent.data_ptr(), ln.pair_slot.data_ptr(),
-        partial.data_ptr(), ln.tile_start.shape[0] - 1, logodds.shape[0],
-        logodds.shape[1], ln.guard, ln.rows, ln.cols, ln.table.shape[1],
-        FORMS[ln.kind, ln.ring],
-        STORAGE[logodds.dtype], ln.n_bins, int(dense), int(spec.wrap),
-        c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
-        c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
-        c["clampv"], c["tail_w"], c["miss_tail"],
-        torch.cuda.current_stream(logodds.device).cuda_stream)
+    lib = cuda_build.load("free_raster", _bind)
+    stream = torch.cuda.current_stream(logodds.device).cuda_stream
+    with trace.span("swarm.raster.launch"):
+        err = lib.free_raster_launch(
+            logodds.data_ptr(), ln.origins.data_ptr(), ln.meta.data_ptr(),
+            ln.table.data_ptr(), ln.tile_start.data_ptr(),
+            ln.pair_agent.data_ptr(), ln.pair_slot.data_ptr(),
+            partial.data_ptr(), ln.tile_start.shape[0] - 1,
+            logodds.shape[0], logodds.shape[1], ln.guard, ln.rows, ln.cols,
+            ln.table.shape[1], FORMS[ln.kind, ln.ring],
+            STORAGE[logodds.dtype], ln.n_bins, int(dense), int(spec.wrap),
+            c["theta0"], c["half_gdt"], c["half_dt"], c["gdt"], c["dt"],
+            c["fan_lo"], c["fan_hi"], c["cover"], c["miss"], c["hit"],
+            c["clampv"], c["tail_w"], c["miss_tail"], stream)
     if err != 0:
         raise RuntimeError(f"free_raster launch failed: CUDA error {err}")
     free_raster.launches += 1

@@ -50,6 +50,7 @@ from typing import NamedTuple
 
 import torch
 
+from swarm_tpu_torch import trace
 from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.ops import cuda_build
@@ -241,14 +242,17 @@ def _prepare(logodds, w: _Exact) -> _Launch:
 
 def _launch(logodds, ln: _Launch, spec: BeamSpec, cfg: GridConfig):
     """One kernel launch on prepared operands."""
-    err = cuda_build.load("exact_raster", _bind).exact_raster_launch(
-        logodds.data_ptr(), ln.origins.data_ptr(), ln.meta.data_ptr(),
-        ln.table.data_ptr(), ln.tile_start.data_ptr(),
-        ln.pair_agent.data_ptr(), ln.tile_start.shape[0] - 1,
-        logodds.shape[0], ln.rows, ln.cols, spec.n_beams, int(spec.wrap),
-        ln.table.shape[1], spec.theta0, spec.dtheta, recip32(spec.dtheta),
-        cfg.logodds_miss, cfg.logodds_hit, cfg.logodds_clamp,
-        torch.cuda.current_stream(logodds.device).cuda_stream)
+    lib = cuda_build.load("exact_raster", _bind)
+    stream = torch.cuda.current_stream(logodds.device).cuda_stream
+    with trace.span("swarm.raster.launch"):
+        err = lib.exact_raster_launch(
+            logodds.data_ptr(), ln.origins.data_ptr(), ln.meta.data_ptr(),
+            ln.table.data_ptr(), ln.tile_start.data_ptr(),
+            ln.pair_agent.data_ptr(), ln.tile_start.shape[0] - 1,
+            logodds.shape[0], ln.rows, ln.cols, spec.n_beams,
+            int(spec.wrap), ln.table.shape[1], spec.theta0, spec.dtheta,
+            recip32(spec.dtheta), cfg.logodds_miss, cfg.logodds_hit,
+            cfg.logodds_clamp, stream)
     if err != 0:
         raise RuntimeError(f"exact_raster launch failed: CUDA error {err}")
     beam_raster.launches += 1

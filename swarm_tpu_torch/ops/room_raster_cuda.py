@@ -58,6 +58,7 @@ from typing import NamedTuple
 
 import torch
 
+from swarm_tpu_torch import trace
 from swarm_tpu_torch._device import recip32
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.geom.world import TILE_COLS, TILE_ROWS
@@ -282,14 +283,17 @@ def _launch(logodds, rm: _Rooms, spec: BeamSpec, cfg: GridConfig,
         # table as 32-bit words
         table = table.view(torch.int32)
     c = _constants(spec, cfg, rm.n_bins, rm.tail_weight)
-    err = cuda_build.load("room_raster", _bind).room_raster_launch(
-        logodds.data_ptr(), meta.data_ptr(), table.data_ptr(),
-        counts.data_ptr(), logodds.shape[0], rm.win_rows,
-        table[0, 0, 0].numel(), int(grouped), int(rm.ring), rm.n_bins,
-        int(dense), int(spec.wrap), c["theta0"], c["half_gdt"],
-        c["half_dt"], c["gdt"], c["dt"], c["fan_lo"], c["fan_hi"],
-        c["cover"], c["miss"], c["hit"], c["clampv"], c["tail_w"],
-        c["miss_tail"], torch.cuda.current_stream(logodds.device).cuda_stream)
+    lib = cuda_build.load("room_raster", _bind)
+    stream = torch.cuda.current_stream(logodds.device).cuda_stream
+    with trace.span("swarm.raster.launch"):
+        err = lib.room_raster_launch(
+            logodds.data_ptr(), meta.data_ptr(), table.data_ptr(),
+            counts.data_ptr(), logodds.shape[0], rm.win_rows,
+            table[0, 0, 0].numel(), int(grouped), int(rm.ring), rm.n_bins,
+            int(dense), int(spec.wrap), c["theta0"], c["half_gdt"],
+            c["half_dt"], c["gdt"], c["dt"], c["fan_lo"], c["fan_hi"],
+            c["cover"], c["miss"], c["hit"], c["clampv"], c["tail_w"],
+            c["miss_tail"], stream)
     if err != 0:
         raise RuntimeError(f"room_raster launch failed: CUDA error {err}")
     room_raster.launches += 1

@@ -26,10 +26,10 @@ room kernel per beam (its pack16 table), each with the endpoint ring, on
 the grid in place. FULL sim_step is one step of `make_sim_step`.
 
 After the rows, on the card, SPLIT_STEPS more steps of the full step split
-on the device timeline into the parts the engine calls by name
-(`step_split` with `sim_parts`: sensing, raster, merge, zones, closure,
-V2V, rest); `sharded_parts` are the sharded step's parts for the same
-split. Then the launches of LAUNCH_STEPS more steps (`step_launches`): the
+on the device timeline by the step's own spans (`step_split`: sensing,
+raster, merge, zones, closure, V2V, rest); `sharded_parts` are the sharded
+step's parts for the same split, timed by wrapping the functions it calls
+by name. Then the launches of LAUNCH_STEPS more steps (`step_launches`): the
 torch operations the steps dispatch (on any device) and the raster
 kernels they launch, and on the card the device operations (kernels,
 copies, fills) torch.profiler records.
@@ -43,6 +43,7 @@ import time
 
 import torch
 
+from swarm_tpu_torch import trace
 from swarm_tpu_torch._device import default_device, describe
 
 SPLIT_STEPS = 17         # one merge step (step 15) among them
@@ -55,23 +56,19 @@ def median(xs):
     return xs[len(xs) // 2] if xs else 0.0
 
 
-def sim_parts():
-    """The fused step's parts for `step_split`: part -> (module, name)
-    pairs of the functions engine.sim calls by name."""
-    from swarm_tpu_torch.engine import sim
-
-    names = {"sensing": ("sense_4way", "sense_scan"),
-             "raster": ("_raster_fans", "logodds_raster", "parity_raster"),
-             "merge": ("_merge_event",),
-             "zones": ("zones_for_agents",),
-             "closure": ("closure_add_poses_batch", "closure_add_poses_seq"),
-             "v2v": ("v2v_stats",)}
-    return {part: tuple((sim, nm) for nm in nms)
-            for part, nms in names.items()}
+# the fused step's parts for `step_split`: part -> the engine's span
+# (swarm_tpu_torch/trace.py); "merge" sums the merge event and the anchor
+# freeze, each a `swarm.merge` span
+SIM_SPANS = {"sensing": "swarm.sensing", "raster": "swarm.raster",
+             "merge": "swarm.merge", "zones": "swarm.zones",
+             "closure": "swarm.closure", "v2v": "swarm.v2v"}
 
 
 def sharded_parts():
-    """The sharded step's parts for `step_split`."""
+    """The sharded step's parts for `step_split`: part -> (module, name)
+    pairs of the functions the sharded engine calls by name, wrapped with
+    CUDA events (that engine opens no spans yet; once it does, its split
+    reads them as the fused step's does)."""
     from swarm_tpu_torch.coord import zones
     from swarm_tpu_torch.engine import sim
     from swarm_tpu_torch.parallel import sharded
@@ -86,21 +83,54 @@ def sharded_parts():
 
 
 def step_split(step, state, n_steps: int, parts=None):
-    """n_steps more steps with CUDA events around the step and around each
-    part the engine calls by name: engine.sim's `sense_4way` and
-    `sense_scan` (sensing), `_raster_fans` (the beam raster, its
-    preparation and any endpoint scatter, or the XLA tier),
-    `logodds_raster` and `parity_raster` (the line and parity rasters),
-    `_merge_event` (the merge, on merge steps), `zones_for_agents` (the
-    zone snapshot, every 2 s of simulated time), `closure_add_poses_batch`
-    and `closure_add_poses_seq` (the closure's landmark match, batched or
-    sequential) and `v2v_stats` (the pairwise radio statistics). Returns
-    (state, split): per part (device-timeline median ms over the steps that
-    ran it, their count, the most device memory allocated while it ran);
-    for the step and its rest (the step less its parts), medians over the
-    steps with neither a merge nor a zone snapshot. `parts`: part ->
-    (module, name) pairs to time (default `sim_parts()`). Needs the card."""
-    parts = sim_parts() if parts is None else parts
+    """n_steps more steps split on the device timeline. With `parts` None,
+    the fused step's own spans (`swarm_tpu_torch.trace`, `SIM_SPANS`):
+    sensing (`sense_4way`, `sense_scan`), raster (the beam rasters of
+    `_raster_fans` with their preparation and any endpoint scatter, the XLA
+    tier, or the line or parity raster), merge (the merge event and the
+    anchor freeze, on merge steps), zones (the zone snapshot, every 2 s of
+    simulated time), closure (the landmark match, batched or sequential)
+    and v2v (the pairwise radio statistics), each the device time between
+    its span's CUDA events, and the step's own (`swarm.step`); no peak is
+    read. With `parts` (part -> (module, name) pairs, `sharded_parts()`),
+    CUDA events around each named function, with the allocator's peak
+    while it ran. Returns (state, split): per part (device-timeline
+    median ms over the steps that ran it, their count, the most device
+    memory allocated while it ran or None); for the step and its rest (the
+    step less its parts), medians over the steps with neither a merge nor
+    a zone snapshot. Needs the card."""
+    if parts is not None:
+        return _wrapped_split(step, state, n_steps, parts)
+    with trace.recording():
+        for _ in range(n_steps):
+            state, _ = step(state)
+    spans = trace.take().spans
+    part_of = {name: part for part, name in SIM_SPANS.items()}
+    rows = {}
+    for s in spans:
+        if s.name == trace.STEP:
+            rows[s.step] = {"step": s.device_ms}
+    for s in spans:
+        part = part_of.get(s.name)
+        if part is not None and s.step in rows:
+            row = rows[s.step]
+            row[part] = row.get(part, 0.0) + s.device_ms
+    return state, _split(list(rows.values()), SIM_SPANS,
+                         dict.fromkeys(SIM_SPANS))
+
+
+def _split(rows, parts, peaks):
+    for row in rows:
+        row["rest"] = row["step"] - sum(row.get(p, 0.0) for p in parts)
+    split = {p: (median([r[p] for r in rows if p in r]),
+                 sum(p in r for r in rows), peaks[p]) for p in parts}
+    plain = [r for r in rows if "merge" not in r and "zones" not in r]
+    for p in ("step", "rest"):
+        split[p] = (median([r[p] for r in plain]), len(plain), None)
+    return split
+
+
+def _wrapped_split(step, state, n_steps: int, parts):
     marks = []
     originals = {(mod, nm): getattr(mod, nm)
                  for pairs in parts.values() for mod, nm in pairs}
@@ -141,14 +171,8 @@ def step_split(step, state, n_steps: int, parts=None):
         for part, e0, e1, peak in ms:
             row[part] = row.get(part, 0.0) + e0.elapsed_time(e1)
             peaks[part] = max(peaks[part], peak)
-        row["rest"] = row["step"] - sum(row.get(p, 0.0) for p in parts)
         rows.append(row)
-    split = {p: (median([r[p] for r in rows if p in r]),
-                 sum(p in r for r in rows), peaks[p]) for p in parts}
-    plain = [r for r in rows if "merge" not in r and "zones" not in r]
-    for p in ("step", "rest"):
-        split[p] = (median([r[p] for r in plain]), len(plain), None)
-    return state, split
+    return state, _split(rows, parts, peaks)
 
 
 def step_launches(step, state, n_steps: int):
