@@ -14,8 +14,9 @@ The count of kernel records is checked on a full run only.
 
 Phases (any failure exits non-zero; nothing is caught and then passed):
   1. build the three raster kernels (swarm_tpu_torch/csrc/free_raster.cu,
-     room_raster.cu and exact_raster.cu) and the roofline's float32 probe
-     (fp32_probe.cu) from the checkout, one nvcc each, started together;
+     room_raster.cu and exact_raster.cu), the V2V kernel (v2v.cu) and the
+     roofline's float32 probe (fp32_probe.cu) from the checkout, one nvcc
+     each, started together;
      print each build time, and per instance of the
      window, room and exact-raster kernels its registers and spilled bytes
      (ptxas) and its resident blocks per SM (CUDA's occupancy calculator);
@@ -53,7 +54,15 @@ Phases (any failure exits non-zero; nothing is caught and then passed):
      nothing else, every step writes, merges at steps 15, 31, 47 and 63,
      all agents online, poses finite; steps/s, applied cells/s (an int64
      sum), peak memory; then 17 more steps split on the device timeline
-     into raster, merge, sensing and the rest;
+     into raster, merge, sensing and the rest. Then the V2V kernel
+     (csrc/v2v.cu) on the step's operands at the slice's last state
+     (32,768 agents) and after 5 steps of presets.deployable at 16,384
+     and 1024 agents (the V2V kernel once a step): BIT-EQUAL to its plain
+     version with every agent alive and with 10% of them killed; timed:
+     the launch call (CUDA events, median of 20), the pair and finishing
+     kernels alone (torch.profiler), the plain version; the bound its
+     n^2 pairs of 8 float32 instructions (--fmad=false) at the card's
+     issue rate, SMs x 128 lanes x the highest SM clock;
   4. the window path: presets.deployable(1024) (merge every 16 steps) ->
      sim_init -> 1 warm-up step -> timed steps, with every kernel launch
      counter set to 0 just before and read just after: the window kernel
@@ -386,14 +395,19 @@ The line before the last two is the per-kernel JSON record (one entry per
 kernel form, `free_raster[<form>]` / `room_raster[<form>]` /
 `exact_raster[<fan>]`; pack16 and pack16-wrapped at 64 agents on 1024^2,
 the accuracy path's and bench_coverage's shapes, are the records
-`free_raster[pack16-64-agents]` and `[pack16-wrapped-64-agents]`), then
+`free_raster[pack16-64-agents]` and `[pack16-wrapped-64-agents]`;
+`v2v[splits-<k>]` the V2V kernel's forms phase 3 measures, named by
+their column split), then
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}. A record's `launches` counts the launches of the paths at its
 shapes: the window path's pack8-ring and the room path's pack16-ring add
 phase 35's, 42's and 43's, pack16-ring and pack16-ring-tile add phase 42's
 and 43's, pack8-ring-bf16 phase 42's, pack16 and pack16-wrapped (1024
-agents) phase 43's. The line before the records gives the
-run's seconds.
+agents) phase 43's. The paths of phases 3-9, 12-21 and 30-32 that check
+their raster launches also check the V2V kernel launched once per step
+(its counter set to 0 with the rasters'); a V2V record's `launches` sums
+those paths' at its form.
+The line before the records gives the run's seconds.
 """
 
 from __future__ import annotations
@@ -447,6 +461,15 @@ OPS_PER_CELL = 80
 OPS_PER_CELL_EXACT = 90
 GROUPED_STEPS = TIMED_STEPS                  # the grouped paths' timed steps
 EXACT_FRAMES = 17            # sensed frames through the exact raster's entry
+V2V_AGENTS = 16384           # bench.py --agents 16384: the second cell's swarm
+V2V_STEPS = 5                # the V2V phase's own paths (one zone step)
+V2V_DEAD = 0.1               # the share of agents the dead case kills
+# instructions a pair of the V2V kernel's loop (csrc/v2v.cu), each its own
+# under --fmad=false: dx and dy (2 subtracts), their squares (2
+# multiplies), the sum, the NaN-keeping minimum, the range compare and the
+# count's add
+V2V_OPS_PER_PAIR = 8
+FP32_LANES_PER_SM = 128      # float32 instructions a Hopper SM issues a clock
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -531,7 +554,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     built = cuda_build.build_all(["free_raster", "room_raster", "fp32_probe",
-                                  "exact_raster"])
+                                  "exact_raster", "v2v"])
     for name, (lib, secs) in built.items():
         print(f"kernel build [{name}]: {secs:.2f} s ({os.path.relpath(lib)};"
               f" ptxas: {cuda_build.ptxas.get(name, 'built before')})")
@@ -1057,6 +1080,7 @@ def phase_path(card, dev, room_kernel: bool, beam_groups: int = 0):
             forms != {want: steps_run}:
         raise AssertionError(f"{name} path: launches {launches} in "
                              f"{steps_run} steps")
+    launches["v2v_stats"] = _v2v_launches(f"{name} path", steps_run)
     if not bool((writes > 0).all()) or int(m0.writes) <= 0:
         raise AssertionError(f"{name} path: a step wrote no cells")
     if not bool((online == N_AGENTS).all()):
@@ -1272,10 +1296,30 @@ def _reset_counts():
     from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
     from swarm_tpu_torch.ops.exact_raster_cuda import beam_raster
     from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+    from swarm_tpu_torch.ops.v2v_cuda import v2v_stats
 
-    for wrapper in (free_raster, room_raster, beam_raster):
+    for wrapper in (free_raster, room_raster, beam_raster, v2v_stats):
         wrapper.launches = 0
         wrapper.launches_by_form.clear()
+
+
+# the V2V kernel's launches by form over every path `_v2v_launches` checked
+V2V_LAUNCHES = {}
+
+
+def _v2v_launches(name, steps: int) -> dict:
+    """The V2V kernel's launches since `_reset_counts` on a path of `steps`
+    steps at one swarm size: once a step, in one form. Adds them to
+    V2V_LAUNCHES; returns {form: launches}."""
+    from swarm_tpu_torch.ops.v2v_cuda import v2v_stats
+
+    by_form = dict(v2v_stats.launches_by_form)
+    if v2v_stats.launches != steps or list(by_form.values()) != [steps]:
+        raise AssertionError(f"{name}: V2V launches {by_form} in {steps} "
+                             f"steps")
+    for form, k in by_form.items():
+        V2V_LAUNCHES[form] = V2V_LAUNCHES.get(form, 0) + k
+    return by_form
 
 
 def _read_counts():
@@ -1340,6 +1384,7 @@ def phase_explore(card, dev):
         raise AssertionError(f"exploration path: launches {n_free} "
                              f"{by_form}, room {n_room}, in {steps_run} "
                              f"steps")
+    _v2v_launches("exploration path", steps_run)
     if not bool((writes > 0).all()):
         raise AssertionError("exploration path: a step wrote no cells")
     if len(ev) != 26 or not all(int(n_fr[k]) > 0 for k in ev if k >= 8):
@@ -1438,6 +1483,7 @@ def phase_ultrasonic(card, dev):
     if by_form != {"pack8-ring-wrapped": ULTRASONIC_STEPS} or n_room:
         raise AssertionError(f"ultrasonic path: launches {by_form}, room "
                              f"{n_room}, in {ULTRASONIC_STEPS} steps")
+    _v2v_launches("ultrasonic path", ULTRASONIC_STEPS)
     if not bool((writes > 0).all()):
         raise AssertionError("ultrasonic path: a step wrote no cells")
     if not bool(torch.isfinite(state.pose_true).all()):
@@ -1498,6 +1544,7 @@ def phase_entry_points(card, dev):
         if by_form != forms or n_room:
             raise AssertionError(f"entry point [{name}]: launches "
                                  f"{by_form}, room {n_room}")
+        _v2v_launches(f"entry point [{name}]", k)
         if not bool((writes > 0).all()):
             raise AssertionError(f"entry point [{name}]: a step wrote no "
                                  f"cells")
@@ -1586,8 +1633,10 @@ def phase_slice(card, dev):
     one warm-up step (step 0) -> the counters set to 0 -> SLICE_STEPS
     timed steps (1..65; merges at 15, 31, 47 and 63) -> the counters read:
     pack8-ring-bf16 launched once per step and nothing else, every step
-    writes, 4 merge events, all agents online, poses finite. Then
-    SPLIT_STEPS more steps with the step split (`_step_split`)."""
+    writes, 4 merge events, all agents online, poses finite; the V2V
+    kernel once per step. Then SPLIT_STEPS more steps with the step split
+    (`_step_split`). Returns (SLICE_STEPS, the step's V2V operands on the
+    last state)."""
     from swarm_tpu_torch import presets
     from swarm_tpu_torch.engine.sim import make_sim_step, sim_init
 
@@ -1629,6 +1678,7 @@ def phase_slice(card, dev):
             n_free != SLICE_STEPS:
         raise AssertionError(f"slice: launches {by_form}, room {n_room}, "
                              f"in {SLICE_STEPS} steps")
+    v2v = _v2v_launches("slice", SLICE_STEPS)
     if not bool((writes > 0).all()):
         raise AssertionError("slice: a step wrote no cells")
     if len(merge_steps) != 4 or not all(x > 0 for x in on) or \
@@ -1646,9 +1696,9 @@ def phase_slice(card, dev):
     print(f"slice: bench.py --agents {n} --grid-dtype bfloat16 on "
           f"{cfg.grid.size}^2 ({n // 2} rooms), {SLICE_STEPS} steps after a "
           f"warm-up (set-up and warm-up "
-          f"{t_set:.2f} s): launches {by_form}, room {n_room}, min writes "
-          f"{int(writes.min())}, merges {on} at steps {merge_steps}, online "
-          f"{n}/{n} on every step, poses finite")
+          f"{t_set:.2f} s): launches {by_form}, room {n_room}, V2V {v2v}, "
+          f"min writes {int(writes.min())}, merges {on} at steps "
+          f"{merge_steps}, online {n}/{n} on every step, poses finite")
     print(f"slice at {n} agents [{card}]: {SLICE_STEPS / wall:.4f} steps/s, "
           f"{applied / wall:.6e} applied cells/s ({applied} cells, int64 "
           f"sum, in {wall:.4f} s), peak memory {peak} bytes; device step "
@@ -1664,9 +1714,121 @@ def phase_slice(card, dev):
               f"{p} {t:.4f} (n={k}" + ("" if peak is None else
                                        f", peak {peak} bytes") + ")"
               for p, (t, k, peak) in split.items()))
+    operands = _v2v_operands(state, params, cfg)
     del state, step, ms
     torch.cuda.empty_cache()
-    return SLICE_STEPS
+    return SLICE_STEPS, operands
+
+
+def _v2v_operands(state, params, cfg):
+    """engine/sim's V2V operands on `state`: the true positions in the
+    world's frame, every agent alive (no fault schedule), the range."""
+    off = torch.stack([params.x_offset, torch.zeros_like(params.x_offset)],
+                      -1)
+    return (state.pose_true[:, :2] + off,
+            torch.ones((off.shape[0],), dtype=torch.bool, device=off.device),
+            cfg.sensors.v2v_range_m)
+
+
+def _v2v_path(card, dev, n: int):
+    """presets.deployable(n) -> sim_init -> the counters set to 0 ->
+    V2V_STEPS steps: the V2V kernel once a step. Returns the step's V2V
+    operands on the last state."""
+    from swarm_tpu_torch import presets
+
+    cfg, walls, params, rooms = presets.deployable(n, device=dev)
+    state, step = _world_step(cfg, walls, params, rooms, dev)
+    torch.cuda.synchronize()
+    _reset_counts()                          # this path starts here
+    for _ in range(V2V_STEPS):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+    by_form = _v2v_launches(f"V2V path at {n} agents", V2V_STEPS)
+    print(f"V2V path at {n} agents [{card}]: {V2V_STEPS} steps of "
+          f"presets.deployable({n}), V2V launches {by_form}")
+    operands = _v2v_operands(state, params, cfg)
+    del state, step
+    torch.cuda.empty_cache()
+    return operands
+
+
+def _v2v_bound_ms(n: int, dev):
+    """The least time of the V2V kernel's n^2 pairs at V2V_OPS_PER_PAIR
+    float32 instructions each, at the card's issue rate: FP32_LANES_PER_SM
+    a clock on each SM at its highest clock (nvidia-smi clocks.max.sm).
+    Returns (ms, SMs, MHz)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    mhz = float(subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    lanes_per_s = sms * FP32_LANES_PER_SM * mhz * 1e6
+    return n * n * V2V_OPS_PER_PAIR / lanes_per_s * 1e3, sms, mhz
+
+
+def _v2v_form(card, dev, name, txy, alive, r):
+    """The V2V kernel (csrc/v2v.cu) on a path's operands: held BIT-EQUAL to
+    its plain version as the path has them ("world") and with V2V_DEAD of
+    the agents killed ("dead": the masked loop on every tile), then timed:
+    the launch call (CUDA events, median of 20: the wrapper, its outputs'
+    and scratch's allocation, both kernels), the kernels alone
+    (`device_ms`), the plain version; the bound `_v2v_bound_ms`. Returns
+    (the launch-count key, its record)."""
+    from swarm_tpu_torch.ops import v2v_cuda as vc
+
+    n = txy.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    dead = alive & (torch.rand((n,), generator=gen, device=dev) >= V2V_DEAD)
+    worst = 0
+    for case, live in (("world", alive), ("dead", dead)):
+        got = vc.v2v_stats(txy, live, r)
+        want = vc.v2v_stats_plain(txy, live, r)
+        n_diff = sum(int((a != b).sum()) for a, b in zip(got, want))
+        worst = max(worst, max(int((a - b).abs().max())
+                               for a, b in zip(got, want)))
+        print(f"{name} V2V kernel vs plain [{case}, {int(live.sum())} of "
+              f"{n} alive]: {n_diff} of {2 * n} values differ, nearest "
+              f"median {int(got[0].median())} cm, {int((got[1] > 0).sum())}"
+              f" agents with a link, {int(got[1].sum())} in range in all")
+        if n_diff:
+            raise AssertionError(f"{name}: V2V kernel and plain differ in "
+                                 f"{n_diff} values [{case}]")
+
+    def launch():
+        vc.v2v_stats(txy, alive, r)
+
+    t_kernel, t_plain, runs = _ab_ms(
+        launch, lambda: vc.v2v_stats_plain(txy, alive, r), 20, 3)
+    t_pairs = device_ms(launch, 20, "v2v_pairs_kernel")
+    t_finish = device_ms(launch, 20, "v2v_finish_kernel")
+    bound, sms, mhz = _v2v_bound_ms(n, dev)
+    cols, splits = vc.split_columns(n, sms)
+    form = vc.form_name(splits)
+    print(f"{name} V2V at {n} agents ({form}: {cols} columns a split, "
+          f"{-(-n // vc.BLOCK_ROWS)} row blocks) [{card}]: launch call "
+          f"{t_kernel:.4f} ms (runs {runs[0]:.4f}, {runs[3]:.4f}), kernels "
+          f"alone {t_pairs + t_finish:.4f} ms (pairs {t_pairs:.4f} + finish "
+          f"{t_finish:.4f}, profiler), plain torch {t_plain:.4f} ms (runs "
+          f"{runs[1]:.4f}, {runs[2]:.4f}); bound {bound:.4f} ms ({n * n} "
+          f"pairs x {V2V_OPS_PER_PAIR} instructions at {sms} SMs x "
+          f"{FP32_LANES_PER_SM} lanes x {mhz:.0f} MHz)")
+    return form, dict(max_abs_err=float(worst), ms=t_kernel,
+                      device_ms=t_pairs + t_finish, pairs_ms=t_pairs,
+                      finish_ms=t_finish, plain_ms=t_plain, bound_ms=bound,
+                      bound_by="issue")
+
+
+def phase_v2v_kernel(card, dev, slice_operands):
+    """The V2V kernel at the cells' swarm sizes: the slice's operands after
+    its steps (32,768 agents), and V2V_AGENTS (the 16,384-agent cell) and
+    N_AGENTS on presets.deployable after V2V_STEPS steps (`_v2v_path`),
+    each `_v2v_form`. Returns {form: record}."""
+    out = dict([_v2v_form(card, dev, "slice", *slice_operands)])
+    for n in (V2V_AGENTS, N_AGENTS):
+        out.update([_v2v_form(card, dev, f"deployable({n})",
+                              *_v2v_path(card, dev, n))])
+    return out
 
 
 def _flag_row(card, dev, flags):
@@ -1704,6 +1866,7 @@ def _flag_row(card, dev, flags):
     if forms != {key: FLAG_STEPS} or other:
         raise AssertionError(f"flags [{_flags(flags)}]: launches "
                              f"{forms}, other kernel {other}")
+    _v2v_launches(f"flags [{_flags(flags)}]", FLAG_STEPS)
     if not bool((writes > 0).all()):
         raise AssertionError(f"flags [{_flags(flags)}]: a step wrote no "
                              f"cells")
@@ -2338,6 +2501,7 @@ def phase_sharded_path(card, dev, grid_sharding: str):
     if by_form != {want: steps_run} or n_free != steps_run or n_room:
         raise AssertionError(f"{name}: launches {by_form}, room {n_room} "
                              f"in {steps_run} steps")
+    _v2v_launches(name, steps_run)
     if not bool((writes > 0).all()):
         raise AssertionError(f"{name}: a step wrote no cells")
     if int(merges.sum()) <= 0 or not bool((online == N_AGENTS).all()):
@@ -2529,10 +2693,17 @@ def _kernel_launches() -> dict:
     from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
     from swarm_tpu_torch.ops.exact_raster_cuda import beam_raster
     from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+    from swarm_tpu_torch.ops.v2v_cuda import v2v_stats
 
     return {"free_raster": free_raster.launches,
             "room_raster": room_raster.launches,
-            "exact_raster": beam_raster.launches}
+            "exact_raster": beam_raster.launches,
+            "v2v_stats": v2v_stats.launches}
+
+
+def _raster_launches() -> dict:
+    """`_kernel_launches` of the three rasters (V2V runs on every path)."""
+    return {k: v for k, v in _kernel_launches().items() if k != "v2v_stats"}
 
 
 def _run_steps(step, state, n_steps: int):
@@ -2557,14 +2728,18 @@ def _stacked(ms, field):
     return torch.stack([getattr(m, field) for m in ms]).cpu()
 
 
-def _check_path(name, n, ms, state, writes=True, kernels=False):
-    """A path's run: no raster kernel launched (unless `kernels`), every
-    step writing (none with writes=False), all n agents online, poses
-    finite. Returns (writes, merges) per step on the host."""
+def _check_path(name, n, ms, state, writes=True, kernels=False,
+                steps=None):
+    """A path's run: no raster kernel launched (unless `kernels`), the V2V
+    kernel once a step when `steps` (the steps since `_reset_counts`) is
+    given, every step writing (none with writes=False), all n agents
+    online, poses finite. Returns (writes, merges) per step on the host."""
     w, online = _stacked(ms, "writes"), _stacked(ms, "online")
-    launches = _kernel_launches()
+    launches = _raster_launches()
     if not kernels and any(launches.values()):
         raise AssertionError(f"{name}: raster kernels launched {launches}")
+    if steps is not None:
+        _v2v_launches(name, steps)
     if writes and not bool((w > 0).all()):
         raise AssertionError(f"{name}: a step wrote no cells")
     if not writes and bool(w.any()):
@@ -2621,7 +2796,8 @@ def phase_untiled(card, dev):
         _reset_counts()                      # this path starts here
         ordered_add.deepest = 0
         state, ms, wall, step_ms = _run_steps(step, state, UNTILED_STEPS)
-        writes, merges = _check_path(name, N_AGENTS, ms, state)
+        writes, merges = _check_path(name, N_AGENTS, ms, state,
+                                     steps=UNTILED_STEPS)
         merge_steps = [k for k in range(1, UNTILED_STEPS + 1)
                        if k % every == every - 1]
         on = [int(merges[k - 1]) for k in merge_steps]
@@ -2631,7 +2807,7 @@ def phase_untiled(card, dev):
         peak = torch.cuda.max_memory_allocated()
         off = [t for k, t in enumerate(step_ms, 1) if k not in merge_steps]
         print(f"{name}: {UNTILED_STEPS} steps at {N_AGENTS} agents on "
-              f"{cfg.grid.size}^2 after a warm-up ({t_set:.2f} s): raster "
+              f"{cfg.grid.size}^2 after a warm-up ({t_set:.2f} s): "
               f"kernels {_kernel_launches()}, min writes "
               f"{int(writes.min())}, merges {on} at steps {merge_steps}, "
               f"online {N_AGENTS}/{N_AGENTS}, poses finite; the ordered "
@@ -2670,7 +2846,8 @@ def phase_profiling(card, dev, untiled_ms):
     torch.cuda.synchronize()
     _reset_counts()                          # this path starts here
     state, ms, wall, step_ms = _run_steps(step, state, OFF_STEPS)
-    _check_path("profiling mode", N_AGENTS, ms, state, writes=False)
+    _check_path("profiling mode", N_AGENTS, ms, state, writes=False,
+                steps=OFF_STEPS)
     if not (torch.equal(state.srv.grid, grid0) and torch.equal(
             state.srv.logodds.view(torch.int32), lo0.view(torch.int32))):
         raise AssertionError("profiling mode: the maps changed")
@@ -2702,7 +2879,7 @@ def phase_parity(card, dev):
     torch.cuda.synchronize()
     _reset_counts()                          # this path starts here
     state, ms, wall, _ = _run_steps(step, state, DUAL_BOT_STEPS)
-    _check_path("dual_bot", 2, ms[1:], state)
+    _check_path("dual_bot", 2, ms[1:], state, steps=DUAL_BOT_STEPS)
     g = cfg.grid
     free = int((state.srv.grid == g.free).sum())
     occ = int((state.srv.grid == g.occupied).sum())
@@ -2711,7 +2888,7 @@ def phase_parity(card, dev):
     print(f"dual_bot [{card}]: {DUAL_BOT_STEPS} steps, {wall:.4f} s "
           f"({DUAL_BOT_STEPS / wall:.2f} steps/s), FREE {free}, OCCUPIED "
           f"{occ} cells, {writes} cell writes, {closures} closures, online "
-          f"2/2, raster kernels {_kernel_launches()}")
+          f"2/2, kernels {_kernel_launches()}")
     if free <= 500 or occ <= 20 or bool(state.srv.logodds.any()):
         raise AssertionError(f"dual_bot: FREE {free}, OCCUPIED {occ}")
 
@@ -2725,13 +2902,14 @@ def phase_parity(card, dev):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()                          # this path starts here
     state, ms, wall, step_ms = _run_steps(step, state, PARITY_STEPS)
-    writes, _ = _check_path("untiled parity", N_AGENTS, ms, state)
+    writes, _ = _check_path("untiled parity", N_AGENTS, ms, state,
+                            steps=PARITY_STEPS)
     closures = int(_stacked(ms, "closures").sum())
     print(f"untiled parity mode at {N_AGENTS} agents [{card}]: "
           f"{PARITY_STEPS} steps, {PARITY_STEPS / wall:.4f} steps/s, min "
           f"writes {int(writes.min())}, {closures} closures, device step "
           f"median {_median(step_ms):.4f} ms, peak memory "
-          f"{torch.cuda.max_memory_allocated()} bytes, raster kernels "
+          f"{torch.cuda.max_memory_allocated()} bytes, kernels "
           f"{_kernel_launches()}")
     if bool(state.srv.logodds.any()):
         raise AssertionError("untiled parity: the log-odds changed")
@@ -2757,11 +2935,12 @@ def phase_swarm(card, dev):
     _reset_counts()                          # this path starts here
     ordered_add.deepest = 0
     state, ms, wall, step_ms = _run_steps(step, state, SWARM_STEPS)
-    writes, _ = _check_path("swarm", SWARM_AGENTS, ms[1:], state)
+    writes, _ = _check_path("swarm", SWARM_AGENTS, ms[1:], state,
+                            steps=SWARM_STEPS)
     print(f"swarm preset at {SWARM_AGENTS} agents [{card}]: {SWARM_STEPS} "
           f"steps, {SWARM_STEPS / wall:.4f} steps/s, device step median "
           f"{_median(step_ms):.4f} ms, {int(writes.sum())} cell writes, "
-          f"the ordered add's deepest layer {ordered_add.deepest}, raster "
+          f"the ordered add's deepest layer {ordered_add.deepest}, "
           f"kernels {_kernel_launches()}")
 
 
@@ -2780,7 +2959,8 @@ def phase_bias(card, dev):
     _reset_counts()                          # this path starts here
     state, ms, wall, _ = _run_steps(step, state, BIAS_STEPS)
     _, by_form, n_room = _read_counts()
-    _check_path("bias", N_AGENTS, ms[1:], state, kernels=True)
+    _check_path("bias", N_AGENTS, ms[1:], state, kernels=True,
+                steps=BIAS_STEPS)
     merges = _stacked(ms, "merges")
     rate = state.srv.merge_yaw_rate
     n_rate = int((rate != 0).sum())
@@ -3293,7 +3473,7 @@ def _wall(fn, dev):
 
 def _no_kernel(name):
     """None of the three raster kernels launched since `_reset_counts`."""
-    n = _kernel_launches()
+    n = _raster_launches()
     if any(n.values()):
         raise AssertionError(f"{name}: raster kernels launched {n}")
     return n
@@ -4161,8 +4341,9 @@ def _tier_path(card, dev, name, grid_sharding, eng, flags, n_timed,
     state, m0 = step(state)
     torch.cuda.synchronize()
     state, ms, wall, step_ms = _run_steps(step, state, n_timed)
-    launches = _kernel_launches()
-    _check_path(name, N_AGENTS, ms, state, kernels=kernels)
+    launches = _raster_launches()
+    _check_path(name, N_AGENTS, ms, state, kernels=kernels,
+                steps=n_timed + 1)
     allm = [m0] + ms
     writes = _stacked(allm, "writes")
     merges = _stacked(allm, "merges")
@@ -5668,7 +5849,7 @@ def phase_faults(card, dev):
 
 def _group_kernels(card, dev, r):
     """Phases 2-3: every per-beam form against its plain version, the
-    slice."""
+    slice, the V2V kernel."""
     r["k_window"] = phase_window_kernel(card, dev)
     r["k_forms"] = phase_form_kernels(card, dev)
     r["k_room"] = {"pack16-ring": phase_room_kernel(card, dev)}
@@ -5677,8 +5858,11 @@ def _group_kernels(card, dev, r):
             card, dev, flags, SEED + 20 + i)
     r.lap("2")
     r["k_slice"] = phase_slice_kernel(card, dev)
-    r["n_slice"] = phase_slice(card, dev)
+    r["n_slice"], slice_operands = phase_slice(card, dev)
     r.lap("2-3: the slice")
+    r["k_v2v"] = phase_v2v_kernel(card, dev, slice_operands)
+    del slice_operands
+    r.lap("3: V2V")
 
 
 def _group_paths(card, dev, r):
@@ -5916,9 +6100,17 @@ def _records(r, full: bool) -> list:
         out += kernel("free_raster", key, get("k_band", key),
                       get("n_band", key), don("window", key),
                       flt("window", key))
+    # V2V: the forms phase 3 measured (every form launched when it did not
+    # run), each with the launches of the paths that checked it
+    for form in r.get("k_v2v", V2V_LAUNCHES):
+        out.append({"name": f"v2v[{form}]", "route": "cuda",
+                    "source": "swarm_tpu_torch/csrc/v2v.cu",
+                    "replaces": None,
+                    "launches": V2V_LAUNCHES.get(form, 0),
+                    **(get("k_v2v", form) or NOT_RUN), "library_ms": None})
     names = {k["name"] for k in out}
     if len(names) != len(out) or full and (
-            len(out) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS) + 2 or
+            len(out) != 16 + 4 + 8 + 4 + 2 + 2 * len(BAND_FORMS) + 2 + 3 or
             any(k["ms"] is None or k["launches"] <= 0 for k in out)):
         raise AssertionError(f"kernel records: {sorted(names)}")
     return out

@@ -92,6 +92,7 @@ from swarm_tpu_torch.ops.raster import (RayBatch, endpoint_scatter,
                                         logodds_raster, parity_raster,
                                         tri_state_view)
 from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+from swarm_tpu_torch.ops.v2v_cuda import v2v_stats
 from swarm_tpu_torch.parallel.sharded import merge_window_box
 from swarm_tpu_torch.slam.closure import (ClosureState,
                                           closure_add_poses_batch,
@@ -171,32 +172,6 @@ def alive_mask(faults: FaultSchedule, n: int, t) -> torch.Tensor:
     hit = (faults.agent[None, :] == ids[:, None]) & \
         (t >= faults.t_start[None, :]) & (t < faults.t_end[None, :])
     return ~hit.any(dim=1)
-
-
-def v2v_stats(txy, alive, radio_range_m: float = 10.0, chunk: int = 1024):
-    """Pairwise V2V link statistics: (nearest_cm [N] int32, in_range [N]
-    int32). Above 2*chunk agents (and when chunk divides N) one [chunk, N]
-    block is live at a time, the reference's chunking rule."""
-    n = txy.shape[0]
-    r2 = radio_range_m * radio_range_m
-    ids = torch.arange(n, device=txy.device)
-
-    def block_stats(rows_xy, row_ids):
-        d2 = ((rows_xy[:, None, :] - txy[None, :, :]) ** 2).sum(-1)
-        self_or_dead = (ids[None, :] == row_ids[:, None]) | ~alive[None, :]
-        d2 = torch.where(self_or_dead, torch.full_like(d2, float("inf")), d2)
-        return d2.amin(dim=1), (d2 <= r2).sum(dim=1).to(torch.int32)
-
-    if n <= 2 * chunk or n % chunk != 0:
-        d2min, cnt = block_stats(txy, ids)
-    else:
-        parts = [block_stats(txy[i:i + chunk], ids[i:i + chunk])
-                 for i in range(0, n, chunk)]
-        d2min = torch.cat([p[0] for p in parts])
-        cnt = torch.cat([p[1] for p in parts])
-    cm = torch.where(torch.isfinite(d2min), torch.sqrt(d2min) * 100.0,
-                     torch.zeros_like(d2min)).to(torch.int32)
-    return cm, cnt
 
 
 class MapState(NamedTuple):

@@ -18,9 +18,9 @@ kernels it enqueued. The step's root span (`step_span`) also keeps the
 step's counters: on the card the caching allocator's device allocations,
 frees and retries (`torch.cuda.memory_stats`' `num_device_alloc`,
 `num_device_free`, `num_alloc_retries`, deltas across the step), and the
-raster kernels' launches by form (deltas of the wrappers'
-`launches_by_form`). Tracing on or off, the step computes the same result
-bit for bit.
+kernels' launches by form (deltas of the wrappers' `launches_by_form`:
+the three rasters' and V2V's, `v2v_stats`). Tracing on or off, the step
+computes the same result bit for bit.
 
 Spans of the deployable step (`engine/sim.make_sim_step`):
   swarm.step              the step closure, from the noise draw to the return
@@ -82,9 +82,10 @@ def _launch_counts() -> dict:
     from swarm_tpu_torch.ops.beam_raster_cuda import free_raster
     from swarm_tpu_torch.ops.exact_raster_cuda import beam_raster
     from swarm_tpu_torch.ops.room_raster_cuda import room_raster
+    from swarm_tpu_torch.ops.v2v_cuda import v2v_stats
 
     return {fn.__name__: dict(fn.launches_by_form)
-            for fn in (free_raster, room_raster, beam_raster)}
+            for fn in (free_raster, room_raster, beam_raster, v2v_stats)}
 
 
 def _counts() -> dict:

@@ -30,6 +30,7 @@ from swarm_tpu.ops.raster import tri_state_view
 from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
 from swarm_tpu_torch.ops.raster import tri_state_view as p_tri_state_view
+from swarm_tpu_torch.ops.v2v_cuda import v2v_stats
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 jax_deployable, jax_step_noise,
                                 merge_step_parity, pallas_interpret, step_keys)
@@ -294,13 +295,28 @@ def test_agents_faults_v2v_and_write_counter(rng):
 
     txy = rng.uniform(0, 30, (8, 2)).astype(np.float32)
     alive = np.array([1, 1, 0, 1, 1, 1, 0, 1], bool)
-    for chunk in (1024, 2):                  # 2: the chunked path at n = 8
-        ref = js.v2v_stats(jnp.asarray(txy), jnp.asarray(alive), 10.0,
-                           chunk=chunk)
-        got = ps.v2v_stats(torch.from_numpy(txy), torch.from_numpy(alive),
-                           10.0, chunk=chunk)
-        assert_exact(got[0], ref[0])
-        assert_exact(got[1], ref[1])
+    # 16 agents: 2-4 coincident (d2 = 0), 5 and 6 exactly at the range
+    # (d2 == r2 counts), and the same with agent 9 at a NaN position (amin
+    # propagates NaN into every row: cm 0 everywhere)
+    txy16 = rng.uniform(0, 30, (16, 2)).astype(np.float32)
+    txy16[3:5] = txy16[2]
+    txy16[5], txy16[6] = (10.0, 10.0), (16.0, 18.0)
+    nan16 = txy16.copy()
+    nan16[9, 0] = np.nan
+    live16 = np.ones(16, bool)
+    launches = v2v_stats.launches
+    for xy, live in ((txy, alive), (txy16, live16), (nan16, live16)):
+        for chunk in (1024, 2):              # 2: the chunked path
+            ref = js.v2v_stats(jnp.asarray(xy), jnp.asarray(live), 10.0,
+                               chunk=chunk)
+            got = ps.v2v_stats(torch.from_numpy(xy), torch.from_numpy(live),
+                               10.0, chunk=chunk)
+            assert_exact(got[0], ref[0])
+            assert_exact(got[1], ref[1])
+    assert v2v_stats.launches == launches    # the CPU takes the plain path
+    assert got[0].abs().sum() == 0
+    assert ps.v2v_stats(torch.from_numpy(txy16), torch.from_numpy(live16),
+                        10.0)[0][2:5].tolist() == [0, 0, 0]
 
     tw_j = jnp.zeros((2,), jnp.int32)
     tw_p = torch.zeros((2,), dtype=torch.int32)
