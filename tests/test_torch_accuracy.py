@@ -21,7 +21,6 @@ import torch
 
 from swarm_tpu_torch import accuracy, presets
 from tests.torch_parity import decision_equal
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))

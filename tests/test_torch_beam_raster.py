@@ -31,7 +31,6 @@ from swarm_tpu.ops import beam_raster_pallas as jp
 from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import beam_raster_cuda as pc
 from tests.torch_parity import assert_close, assert_exact, decision_equal, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 

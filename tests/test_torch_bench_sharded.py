@@ -7,7 +7,6 @@ tool's own assertion, which it checks too)."""
 import re
 
 from swarm_tpu_torch import bench_sharded
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 
 def test_bench_sharded_writes_equal_across_worlds(capsys):

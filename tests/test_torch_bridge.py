@@ -29,7 +29,6 @@ from swarm_tpu_torch.proto.packets import (CommandPacket, ScanPacket,
                                            ScanPacketBridge, parse_packet)
 from swarm_tpu_torch.server import bridge as pbridge
 from swarm_tpu_torch.server import ros2 as pros2
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 LOCAL = "127.0.0.1"
 

@@ -35,7 +35,6 @@ from swarm_tpu_torch.proto.csvio import (load_session,
                                          write_session)
 from swarm_tpu_torch.sim.scenario import generate_dual_session
 from tests.torch_parity import jax_deployable
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 
 def _leaves(tree):

@@ -34,7 +34,6 @@ from swarm_tpu_torch import convert, presets
 from swarm_tpu_torch.engine import sim as ps
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 jax_accuracy, jax_step_noise, pallas_interpret)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 R = 181

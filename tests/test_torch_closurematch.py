@@ -44,7 +44,6 @@ from swarm_tpu_torch import convert
 from swarm_tpu_torch.slam import closure as pcl
 from swarm_tpu_torch.slam import closurematch as pcm
 from tests.torch_parity import assert_close, assert_exact, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 R = 61
 ROOM = np.asarray([[0.0, 0.0, 3.0, 0.0], [3.0, 0.0, 3.0, 3.0],

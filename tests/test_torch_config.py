@@ -13,7 +13,6 @@ from swarm_tpu import config as jc
 from swarm_tpu_torch import config as pc
 from swarm_tpu_torch import convert
 from tests.torch_parity import jax_deployable
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 CLASSES = ("GridConfig", "SensorConfig", "NavConfig", "NoiseConfig",
            "EkfConfig", "SlamConfig", "CoordConfig", "EngineConfig",

@@ -44,7 +44,6 @@ from swarm_tpu_torch.parallel import mesh, sharded
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 jax_deployable, jax_step_noise,
                                 pallas_interpret, step_keys)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 STEPS = 5

@@ -31,7 +31,6 @@ from swarm_tpu_torch.engine import sim as ps
 from tests.test_torch_sim import BENCH_ROWS
 from tests.torch_parity import (jax_deployable, jax_step_noise, jax_untiled,
                                 step_keys)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

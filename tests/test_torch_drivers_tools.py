@@ -28,7 +28,6 @@ from swarm_tpu_torch import (bench_coverage, bench_merge, convert, presets,
                              quality_onchip, roofline)
 from swarm_tpu_torch.config import GridConfig
 from tests.torch_parity import assert_close, assert_exact, jax_deployable
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -35,7 +35,6 @@ from tests.torch_parity import (assert_close, assert_exact, assert_failover,
                                 jax_fault_rollout, jax_step_noise,
                                 pallas_interpret, port_fault_rollout,
                                 step_keys)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 R = 181

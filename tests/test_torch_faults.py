@@ -67,7 +67,6 @@ from tests.torch_parity import (assert_close, assert_exact,
                                 assert_state_equal,
                                 jax_deployable, jax_fault_rollout,
                                 port_fault_rollout, t)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 

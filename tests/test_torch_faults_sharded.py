@@ -38,7 +38,6 @@ from tests.torch_parity import (FAULT_STEPS, assert_close, assert_exact,
                                 assert_failover, assert_metrics_equal,
                                 decision_equal, jax_deployable, jax_step_noise,
                                 kill_schedules, pallas_interpret, step_keys)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 R = 181

@@ -47,7 +47,6 @@ from swarm_tpu_torch.ops import beam_raster as pbeam
 from swarm_tpu_torch.slam import closure as pcl
 from swarm_tpu_torch.slam import scanmatch as psm
 from tests.torch_parity import assert_close, assert_exact, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -32,7 +32,6 @@ from swarm_tpu_torch.config import GridConfig as PGrid
 from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import raster as pr
 from tests.torch_parity import f32, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 SIZE = 512                             # a 25.6 m grid at origin (0, 0)
 N = 8

@@ -28,7 +28,6 @@ from swarm_tpu_torch.geom import world as pw
 from swarm_tpu_torch.models import nav as pn
 from swarm_tpu_torch.ops import frontier as pf
 from tests.torch_parity import assert_close, assert_exact, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 
 def _tri_grid(rng, size, free_frac):

@@ -34,7 +34,6 @@ from swarm_tpu_torch.config import SlamConfig as PSlam
 from swarm_tpu_torch.slam import merge as pmg
 from swarm_tpu_torch.slam import scanmatch as psm
 from tests.torch_parity import assert_close, assert_exact, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 S = 96
 SLAM_J = JSlam(scanmatch_window_cells=8, scanmatch_angles=5,

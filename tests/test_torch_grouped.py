@@ -43,7 +43,6 @@ from swarm_tpu_torch.ops import room_raster_cuda as pr
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 f32, jax_deployable, jax_step_noise,
                                 pallas_interpret, t)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 PGRID = convert.config_from(GRID, PGrid)
@@ -283,16 +282,8 @@ def test_c1_strip_bounds_drop_cells():
     rng = np.random.default_rng(1)
     sweep = (rng.uniform(250.0, 262.0, 48), rng.uniform(60.0, 450.0, 48),
              rng.uniform(-np.pi, np.pi, 48))
-    # one torch thread: this test is elementwise work on small tensors, and
-    # the pool's threads only contend with the other test workers' for the
-    # cores (0.45 s on one thread against 1.4 s on eight, alone)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        got = {g: (_dropped_cells(g, edge_cols, edge_rows, edge_yaw),
-                   _dropped_cells(g, *sweep)) for g in (16, 8)}
-    finally:
-        torch.set_num_threads(threads)
+    got = {g: (_dropped_cells(g, edge_cols, edge_rows, edge_yaw),
+               _dropped_cells(g, *sweep)) for g in (16, 8)}
     for g, ((d_e, a_e, p_e), (d_s, a_s, p_s)) in got.items():
         print(f"C1 181/{g}: {d_e} of {p_e} paintable cells dropped by "
               f"{a_e} of {len(edge_cols)} agents at the strip-edge offset; "

@@ -10,7 +10,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -44,7 +44,6 @@ from swarm_tpu_torch.proto.packets import (QuasarPacketV2, TargetPacket,
                                            parse_packet)
 from swarm_tpu_torch.server.live import LiveServer
 from swarm_tpu_torch.sim.scenario import generate_dual_session
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(not shutil.which("g++"),
                                 reason="no g++ toolchain")

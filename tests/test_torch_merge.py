@@ -35,7 +35,6 @@ from swarm_tpu_torch.parallel import sharded as psh
 from swarm_tpu_torch.slam import livemerge as pl
 from swarm_tpu_torch.slam import scanmatch as pm
 from tests.torch_parity import assert_close, assert_exact, jax_deployable, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 RES = 0.05
 INNER, SEARCH = 64, 8

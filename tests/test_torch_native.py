@@ -23,7 +23,6 @@ from swarm_tpu_torch import native as pnat
 from swarm_tpu_torch.config import EkfConfig, GridConfig, SlamConfig
 from swarm_tpu_torch.models import ekf as pekf
 from swarm_tpu_torch.proto.packets import pack_quasar_v2_batch
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(not shutil.which("g++"),
                                 reason="no g++ toolchain")

@@ -20,7 +20,6 @@ from swarm_tpu.proto import csvio as jcsv
 from swarm_tpu.proto import packets as jpk
 from swarm_tpu_torch.proto import csvio as pcsv
 from swarm_tpu_torch.proto import packets as ppk
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 B = 64
 

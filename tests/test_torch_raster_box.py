@@ -34,7 +34,6 @@ from swarm_tpu_torch.ops import beam_raster_cuda as bc
 from swarm_tpu_torch.ops import exact_raster_cuda as pe
 from swarm_tpu_torch.ops import room_raster_cuda as rc
 from swarm_tpu_torch.ops.beam_raster import BeamSpec
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 SIZE = 512
 CFG = GridConfig(size=SIZE, origin_x=0.0, origin_y=0.0)

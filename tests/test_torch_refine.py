@@ -30,7 +30,6 @@ from swarm_tpu_torch.slam import calibrate as pcal
 from swarm_tpu_torch.slam import joint as pjo
 from swarm_tpu_torch.slam import refine as pre
 from tests.torch_parity import assert_close, assert_exact
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 POSE_ATOL = 1e-3
 CFG_J = JSwarm()

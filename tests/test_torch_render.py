@@ -27,7 +27,6 @@ from swarm_tpu.server import view as jview
 from swarm_tpu_torch.config import GridConfig
 from swarm_tpu_torch.render import raster2d as pr
 from swarm_tpu_torch.server import view as pview
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 
 def _inputs(seed, s=200):

@@ -36,7 +36,6 @@ from swarm_tpu_torch.geom.world import BEDROOM_WALLS
 from swarm_tpu_torch.models.scan import sense_scan_true
 from swarm_tpu_torch.slam import refine as pre
 from tests.test_replay_parity import make_stream
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 ATOL = 1e-5
 C26_SHARE = 1e-3

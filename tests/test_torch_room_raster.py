@@ -30,7 +30,6 @@ from swarm_tpu_torch.ops import beam_raster as pb
 from swarm_tpu_torch.ops import room_raster_cuda as pr
 from tests.torch_parity import (assert_exact, decision_equal,
                                 merge_step_parity, t)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 GRID = GridConfig(size=512, origin_x=0.0, origin_y=0.0)
 PER_ROW = 2

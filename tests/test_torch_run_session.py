@@ -24,7 +24,6 @@ from PIL import Image
 from swarm_tpu.cli.run_session import main as j_main
 from swarm_tpu_torch.cli.run_session import main as p_main
 from swarm_tpu_torch.engine.checkpoint import _paths
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 SCRIPTED_FILES = ("telemetry.csv", "pointcloud.csv", "slam_closures.csv",
                   "pointcloud_merged.csv")

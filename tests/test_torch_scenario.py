@@ -23,7 +23,6 @@ from swarm_tpu_torch import convert
 from swarm_tpu_torch.engine import replay as prp
 from swarm_tpu_torch.proto import csvio as pcsv
 from swarm_tpu_torch.sim import scenario as psc
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 CAST_ATOL = 1e-5
 EXACT = ("t", "agent", "x", "y", "yaw_q", "encoder", "true_pose", "est_pose")

@@ -45,7 +45,6 @@ from swarm_tpu_torch.parallel import mesh, sharded
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 f32, jax_deployable, jax_step_noise,
                                 jax_untiled, step_keys)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 from datetime import timedelta
 
 N = 8

@@ -34,7 +34,6 @@ from swarm_tpu_torch.ops.v2v_cuda import v2v_stats
 from tests.torch_parity import (assert_close, assert_exact, decision_equal,
                                 jax_deployable, jax_step_noise,
                                 merge_step_parity, pallas_interpret, step_keys)
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 R = 181

@@ -36,7 +36,6 @@ from swarm_tpu_torch.slam import posegraph as ppg
 from swarm_tpu_torch.slam import tridiag as ptd
 from tests.test_slam_upgrades import noisy_loop_trajectory
 from tests.torch_parity import assert_close
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOOP_ATOL = 1e-5

@@ -26,7 +26,6 @@ from swarm_tpu.slam import tridiag as jtd
 from swarm_tpu_torch.slam import posegraph as ppg
 from swarm_tpu_torch.slam import tridiag as ptd
 from tests.torch_parity import assert_close, t
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 POSE_ATOL = 1e-3
 COST_RTOL = 1e-3

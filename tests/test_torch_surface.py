@@ -32,7 +32,6 @@ from pathlib import Path
 
 import pytest
 
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_PKG = ROOT / "swarm_tpu"

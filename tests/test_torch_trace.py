@@ -18,7 +18,6 @@ import torch
 
 from swarm_tpu_torch import presets, trace
 from swarm_tpu_torch.engine import sim
-from tests.torch_parity import torch_one_thread  # noqa: F401
 
 N = 8
 STEPS = 6

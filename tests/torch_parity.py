@@ -5,6 +5,14 @@ takes the same draws as tensors. These helpers redo the JAX step's key
 splits (swarm_tpu/engine/sim.py:820-836, models/sensors.py:37-44,
 models/odometry.py:63-74) and return the very normals and uniforms the JAX
 step consumes, as the port's `StepNoise`.
+
+Importing this module sets torch to one thread for the whole process.
+Under pytest-xdist every worker imports every test module, so every test
+of a tier-1 run (6 workers on the CPU) runs torch on one thread: small ops
+on a thread pool each otherwise spin against the other workers' (a 6 s
+test took 120 s; `test_torch_grouped.py::test_c1_strip_bounds_drop_cells`
+0.45 s on one thread against 1.4 s on eight, alone). A test module run on
+its own gets it when it imports this one.
 """
 
 from __future__ import annotations
@@ -16,24 +24,13 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from swarm_tpu_torch.engine.sim import StepNoise
 from swarm_tpu_torch.models.odometry import DriftNoise
 from swarm_tpu_torch.models.sensors import SensorNoise
 
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_one_thread():
-    """One torch thread for the importing test module, the old count back
-    after it: the tier-1 run puts 6 workers on the CPU, and small ops on a
-    thread pool each then spin against each other (a 6 s test took 120 s).
-    Import it into a test module to use it there."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+torch.set_num_threads(1)
 
 
 @contextlib.contextmanager
